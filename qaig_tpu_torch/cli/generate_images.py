@@ -1,0 +1,36 @@
+"""Generate images through the transformer cascade on the GPU (the port's
+counterpart of ``qaig_tpu/cli/generate_images.py``).
+
+    python -m qaig_tpu_torch.cli.generate_images --config-path gen.json \
+        --decoder-path ae.pt --out-dir out [--device cuda] [--bf16]
+"""
+
+import argparse
+import pathlib
+
+from qaig_tpu_torch.infer import generate
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Generate Images.")
+    parser.add_argument("--device", choices=["cuda", "cpu"], type=str,
+                        default="cuda",
+                        help="cuda (the default) needs a visible GPU and "
+                             "never falls back to the CPU.")
+    parser.add_argument("--decoder-path", required=True, type=pathlib.Path)
+    parser.add_argument("--num-images", type=int, default=25)
+    parser.add_argument("--seed", type=int, default=None)
+    parser.add_argument("--config-path", required=True, type=pathlib.Path)
+    parser.add_argument("--bf16", action="store_true",
+                        help="Serving precision: run the cascade in bfloat16 "
+                             "(fp32 reference numerics stay the default).")
+    parser.add_argument("--use-ema", action="store_true",
+                        help="Generate with the EMA weights (model_ema); "
+                             "falls back to live weights with a log line.")
+    parser.add_argument("--out-dir", required=True, type=pathlib.Path)
+    args = vars(parser.parse_args(argv))
+    generate.run(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,95 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``: they skip where no GPU is visible and run on the
+machine with the card:
+
+    python -m pytest tests/test_torch_port_kernels.py -q -m cuda
+
+Tolerance: atol 2e-2 in bf16 (both round the same float32 result to bf16,
+so they differ by at most one bf16 step at these magnitudes) and 1e-5 in
+float32 (summation order only).
+"""
+
+import pytest
+import torch
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rand(gen, *shape, dtype):
+    return (torch.randn(*shape, generator=gen, device="cuda") * 0.5).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,bw,s,index0,block_index",
+                         [(32, 16, 17, 1, 0), (4, 8, 96, 50, 3),
+                          (4, 7, 256, 249, 6), (4, 1, 40, 40, 0)])
+def test_decode_kernels_match_plain(cuda, dtype, b, bw, s, index0,
+                                    block_index):
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n, h, dh = 3, 8, 64
+    q = _rand(gen, n * b, 1, h * dh, dtype=dtype)
+    kt, vt = (_rand(gen, n, h, dh, s, dtype=dtype) for _ in range(2))
+    kb, vb = (_rand(gen, n * b, h, bw, dh, dtype=dtype) for _ in range(2))
+    got = da.shared_prefix_attention_fused_t(q, kt, vt, kb, vb, index0,
+                                             block_index)
+    want = da.shared_prefix_attention_reference(q, kt, vt, kb, vb, index0,
+                                                block_index)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    k8, ks = quantize_kv_t(kt)
+    v8, vs = quantize_kv_t(vt)
+    got = da.shared_prefix_attention_fused_int8(q, k8, ks, v8, vs, kb, vb,
+                                                index0, block_index)
+    want = da.shared_prefix_attention_reference(
+        q, k8, v8, kb, vb, index0, block_index, k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("s", [1, 13, 64, 100, 255])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, dh, s, causal):
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(s)
+    heads = 4
+    q, k, v = (_rand(gen, 3, s, heads * dh, dtype=dtype) for _ in range(3))
+    got = fa.flash_attention(q, k, v, heads, causal=causal)
+    want = fa.flash_attention_reference(q, k, v, heads, causal)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros(2, 8, 4 * 16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(x, x, x, 4)
+    y = torch.zeros(2, 8, 128, device=cuda)
+    with pytest.raises(ValueError, match="not contiguous"):
+        fa.flash_attention(y.transpose(0, 1).contiguous().transpose(0, 1),
+                           y, y, 2)
+    q = torch.zeros(8, 1, 512, device=cuda)
+    kt = torch.zeros(2, 8, 64, 32, device=cuda)
+    kb = torch.zeros(8, 8, 4, 64, device=cuda)
+    with pytest.raises(ValueError, match="outside"):
+        da.shared_prefix_attention_fused_t(q, kt, kt, kb, kb, 33, 0)
+    with pytest.raises(ValueError, match="must be"):
+        da.shared_prefix_attention_fused_t(q, kt.bfloat16(), kt, kb, kb, 1,
+                                           0)

@@ -1,0 +1,234 @@
+"""Parity of the PyTorch port's ops (``qaig_tpu_torch.ops``) with
+``qaig_tpu``'s, on the CPU in float32.
+
+Both packages get the same numpy inputs.  Where the JAX function reaches a
+Pallas kernel it runs in the Pallas interpreter, as ``qaig_tpu``'s own
+tests run it on the CPU; the port's CPU path is its kernels' plain version.
+Tolerance: atol 1e-5 (float32, reduction order differs), bit-exact for
+the int8 quantizer and the pure index ops.
+"""
+
+import numpy as np
+import pytest
+import jax.numpy as jnp
+import torch
+
+ATOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU ops here are tiny: one intra-op thread keeps them
+    from competing with the suite's other workers for every core."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+def _j(x):
+    return jnp.asarray(np.asarray(x))
+
+
+def _decode_inputs(n=2, b=4, h=8, s=256, dh=64, bw=8, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(shape):
+        return (rng.standard_normal(shape) * 0.5).astype(np.float32)
+    return (mk((n * b, 1, h * dh)), mk((n, h, dh, s)), mk((n, h, dh, s)),
+            mk((n * b, h, bw, dh)), mk((n * b, h, bw, dh)))
+
+
+@pytest.mark.parametrize("bw,index0,block_index",
+                         [(8, 200, 5), (8, 1, 0), (8, 256, 7), (7, 200, 6),
+                          (7, 1, 3)])
+def test_shared_prefix_attention_matches_jax(bw, index0, block_index):
+    """Plain port vs the JAX Pallas kernel (interpreted) and the JAX einsum
+    path; bw=7 is a crossing segment's width."""
+    from qaig_tpu.ops.attention import shared_prefix_attention as jax_einsum
+    from qaig_tpu.ops.decode_attention import shared_prefix_attention_fused_t
+    from qaig_tpu_torch.ops.attention import shared_prefix_attention
+
+    q, kt, vt, kb, vb = _decode_inputs(bw=bw)
+    got = shared_prefix_attention(_t(q), _t(kt), _t(vt), _t(kb), _t(vb),
+                                  index0, block_index).numpy()
+    want_kernel = shared_prefix_attention_fused_t(
+        _j(q), _j(kt), _j(vt), _j(kb), _j(vb), jnp.asarray(index0),
+        jnp.asarray(block_index), interpret=None)
+    want_einsum = jax_einsum(_j(q), _j(kt), _j(vt), _j(kb), _j(vb),
+                             jnp.asarray(index0), jnp.asarray(block_index))
+    assert got.shape == (8, 1, 512)
+    np.testing.assert_allclose(got, np.asarray(want_kernel), atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(want_einsum), atol=ATOL)
+
+
+def test_quantize_kv_t_bit_exact():
+    from qaig_tpu.ops.kv_quant import quantize_kv_t as jax_quantize
+    from qaig_tpu_torch.ops.kv_quant import dequantize_kv_t, quantize_kv_t
+
+    _, kt, _, _, _ = _decode_inputs()
+    q8, scale = quantize_kv_t(_t(kt))
+    jq8, jscale = jax_quantize(_j(kt))
+    assert q8.dtype == torch.int8 and scale.dtype == torch.bfloat16
+    np.testing.assert_array_equal(q8.numpy(), np.asarray(jq8))
+    np.testing.assert_array_equal(scale.float().numpy(),
+                                  np.asarray(jscale, np.float32))
+    back = dequantize_kv_t(q8, scale, torch.float32).numpy()
+    np.testing.assert_allclose(back, kt, atol=float(np.abs(kt).max()) / 127
+                               * 1.01)
+
+
+@pytest.mark.parametrize("index0,block_index", [(200, 5), (256, 7)])
+def test_int8_prefix_attention_matches_jax(index0, block_index):
+    from qaig_tpu.ops.decode_attention import (
+        shared_prefix_attention_fused_int8 as jax_int8)
+    from qaig_tpu.ops.kv_quant import quantize_kv_t as jax_quantize
+    from qaig_tpu_torch.ops.decode_attention import (
+        shared_prefix_attention_fused_int8)
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    q, kt, vt, kb, vb = _decode_inputs(seed=1)
+    k8, ks = quantize_kv_t(_t(kt))
+    v8, vs = quantize_kv_t(_t(vt))
+    got = shared_prefix_attention_fused_int8(
+        _t(q), k8, ks, v8, vs, _t(kb), _t(vb), index0, block_index).numpy()
+    jk8, jks = jax_quantize(_j(kt))
+    jv8, jvs = jax_quantize(_j(vt))
+    want = jax_int8(_j(q), jk8, jks, jv8, jvs, _j(kb), _j(vb),
+                    jnp.asarray(index0), jnp.asarray(block_index),
+                    interpret=None)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("s,causal", [(13, True), (16, True), (16, False)])
+def test_flash_attention_reference_matches_jax_kernel(s, causal):
+    """The plain version against the JAX Pallas kernel in interpret mode
+    (which refuses non-causal S off a multiple of 8)."""
+    from qaig_tpu.ops.flash_attention import flash_attention as jax_flash
+    from qaig_tpu_torch.ops.flash_attention import (flash_attention,
+                                                    flash_attention_reference)
+
+    rng = np.random.default_rng(s)
+    q, k, v = (rng.standard_normal((2, s, 128)).astype(np.float32)
+               for _ in range(3))
+    got = flash_attention_reference(_t(q), _t(k), _t(v), 2, causal).numpy()
+    want = jax_flash(_j(q), _j(k), _j(v), 2, causal=causal, interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+    # the public wrapper takes the plain version for CPU tensors
+    np.testing.assert_array_equal(
+        flash_attention(_t(q), _t(k), _t(v), 2, causal=causal).numpy(), got)
+
+
+@pytest.mark.parametrize("case", ["causal", "cross", "kv_mask", "q_offset"])
+def test_dot_product_attention_matches_jax(case):
+    from qaig_tpu.ops.attention import dot_product_attention as jax_dpa
+    from qaig_tpu_torch.ops.attention import dot_product_attention
+
+    rng = np.random.default_rng(3)
+    sq = 1 if case == "q_offset" else 6
+    sk = 9 if case == "cross" else (6 if case != "q_offset" else 7)
+    q = rng.standard_normal((2, sq, 32)).astype(np.float32)
+    k, v = (rng.standard_normal((2, sk, 32)).astype(np.float32)
+            for _ in range(2))
+    kw_t, kw_j = {}, {}
+    if case in ("causal", "q_offset"):
+        kw_t["causal"] = kw_j["causal"] = True
+    if case == "q_offset":
+        kw_t["q_offset"], kw_j["q_offset"] = sk - 1, sk - 1
+    if case == "kv_mask":
+        mask = rng.random((2, sk)) > 0.3
+        mask[:, 0] = True
+        kw_t["kv_mask"], kw_j["kv_mask"] = _t(mask), _j(mask)
+    got = dot_product_attention(_t(q), _t(k), _t(v), 4, **kw_t).numpy()
+    want = jax_dpa(_j(q), _j(k), _j(v), 4, **kw_j)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+def test_shared_cross_and_block_and_presplit_attention_match_jax():
+    from qaig_tpu.ops import attention as ja
+    from qaig_tpu_torch.ops import attention as ta
+
+    rng = np.random.default_rng(4)
+
+    def mk(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    n, b, h, dh = 2, 3, 4, 8
+    q = mk(n * b, 2, h * dh)
+    ks, vs = mk(n, h, dh, 5), mk(n, h, dh, 5)
+    np.testing.assert_allclose(
+        ta.shared_cross_attention(_t(q), _t(ks), _t(vs)).numpy(),
+        np.asarray(ja.shared_cross_attention(_j(q), _j(ks), _j(vs))),
+        atol=ATOL)
+
+    k_sh, v_sh = mk(n, h, 5, dh), mk(n, h, 5, dh)
+    k_bl, v_bl = mk(n * b, h, 3, dh), mk(n * b, h, 3, dh)
+    np.testing.assert_allclose(
+        ta.shared_prefix_block_attention(
+            _t(q), _t(k_sh), _t(v_sh), _t(k_bl), _t(v_bl)).numpy(),
+        np.asarray(ja.shared_prefix_block_attention(
+            _j(q), _j(k_sh), _j(v_sh), _j(k_bl), _j(v_bl))), atol=ATOL)
+
+    q1 = mk(n, 1, h * dh)
+    mask = np.arange(5)[None, :] <= np.array([[2], [4]])
+    np.testing.assert_allclose(
+        ta.decode_attention_presplit(_t(q1), _t(ks), _t(vs),
+                                     _t(mask)).numpy(),
+        np.asarray(ja.decode_attention_presplit(_j(q1), _j(ks), _j(vs),
+                                                _j(mask))), atol=ATOL)
+
+
+def test_patch_posemb_activations_match_jax():
+    from qaig_tpu.ops.activations import get_activation as jax_act
+    from qaig_tpu.ops.patch import patchify as jax_patchify
+    from qaig_tpu.ops.posemb import sinusoidal_pos_emb as jax_pos
+    from qaig_tpu_torch.ops.activations import get_activation
+    from qaig_tpu_torch.ops.patch import patchify, unpatchify
+    from qaig_tpu_torch.ops.posemb import sinusoidal_pos_emb
+
+    rng = np.random.default_rng(5)
+    img = rng.standard_normal((2, 4, 8, 8)).astype(np.float32)
+    patches = patchify(_t(img), (2, 4))
+    np.testing.assert_array_equal(patches.numpy(),
+                                  np.asarray(jax_patchify(_j(img), (2, 4))))
+    np.testing.assert_array_equal(
+        unpatchify(patches, (8, 8), (2, 4)).numpy(), img)
+
+    # float32 sin/cos of angles up to 300 rad differ by a few ulp of the
+    # angle between the two libraries: atol 5e-5
+    pos = np.array([[0.0, 1.0, 7.0, 300.0]], np.float32)
+    np.testing.assert_allclose(sinusoidal_pos_emb(64, _t(pos)).numpy(),
+                               np.asarray(jax_pos(64, _j(pos))), atol=5e-5)
+
+    x = rng.standard_normal(50).astype(np.float32)
+    for name in ("silu", "tanh", "sigmoid"):
+        np.testing.assert_allclose(get_activation(name)(_t(x)).numpy(),
+                                   np.asarray(jax_act(name)(_j(x))),
+                                   atol=1e-6)
+    with pytest.raises(KeyError):
+        get_activation("relu")
+
+
+def test_non_cpu_tensors_never_take_the_plain_version():
+    """Only a CPU tensor runs the plain version: any other device goes to
+    the kernel wrapper, which refuses what it cannot launch."""
+    from qaig_tpu_torch.ops.decode_attention import (
+        shared_prefix_attention_fused_t)
+    from qaig_tpu_torch.ops.flash_attention import flash_attention
+
+    before = (flash_attention.launches,
+              shared_prefix_attention_fused_t.launches)
+    x = torch.empty(2, 4, 128, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flash_attention(x, x, x, 2)
+    q = torch.empty(8, 1, 512, device="meta")
+    kt = torch.empty(2, 8, 64, 32, device="meta")
+    kb = torch.empty(8, 8, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        shared_prefix_attention_fused_t(q, kt, kt, kb, kb, 1, 0)
+    assert (flash_attention.launches,
+            shared_prefix_attention_fused_t.launches) == before
