@@ -12,23 +12,35 @@ Phases (any failure exits non-zero and prints no result line):
 2. build -- compile every CUDA kernel of the port from
    ``qaig_tpu_torch/csrc`` (one nvcc per source, in parallel);
 3. kernels -- hold each kernel against its plain PyTorch version on the
-   card, in bf16, at the generation path's shapes (atol 2e-2), and time
-   kernel, plain version and (for full-sequence attention) PyTorch's
-   ``scaled_dot_product_attention`` as a yardstick;
+   card and time kernel, plain version and a PyTorch yardstick: the decode
+   kernels and full-sequence attention in bf16 at the generation path's
+   shapes (atol 2e-2; ``scaled_dot_product_attention`` as the yardstick);
+   full-sequence attention at the training path's 64 heads of dim 8,
+   forward and gradient, bf16 and float32; the BMU kernel at the codebook
+   shapes of the cascade, index for index outside near-ties
+   (``torch.cdist(p, c).argmin(1)`` as the yardstick);
 4. reference -- a small cascade stage decoded greedily in float32 on the
    card (kernels) and on the CPU (plain versions) must give the same
-   tokens;
-5. main path -- the full-width 3-stage cascade of ``bench.py --scale full``
-   with seeded random weights, written as ``qaig_tpu``-schema checkpoints
-   and generated through ``qaig_tpu_torch.infer.generate.run`` in bf16 on
-   8 images; then one stage-2 rollout with an int8 prefix.  The kernels'
-   launch counts are set to 0 before each run and read after it.
+   tokens; 4b: one float32 train step of a small windowed cascade on the
+   card and on the CPU must give the same tokens, loss and gradients;
+5. generation main path -- the full-width 3-stage cascade of ``bench.py
+   --scale full`` with seeded random weights, written as
+   ``qaig_tpu``-schema checkpoints and generated through
+   ``qaig_tpu_torch.infer.generate.run`` in bf16 on 8 images; then one
+   stage-2 rollout with an int8 prefix;
+6. training main path -- ``qaig_tpu_torch.train.transformer.run`` on
+   ``examples/configs/transformer_cascade.json`` (full width, 64 heads)
+   over seeded random latents and phase 5's stage-2 codebooks and
+   decoder: 6 bf16 steps at batch 8, checkpoints and previews at steps 0
+   and 3.
 
-It prints a ``{"kernels": [...]}`` JSON line, the card's
+The kernels' launch counts are set to 0 before each main path's run and
+read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device JSON line.
 ``--json-out PATH`` also writes every per-shape measurement there;
-``--profile`` adds a ``torch.profiler`` window over the first 64 stage-2
-tokens (device busy share and the kernels that take the time).
+``--profile`` adds ``torch.profiler`` windows over the first 64 stage-2
+tokens and over train steps 2-5 (device busy share and the kernels that
+take the time).
 """
 
 import argparse
@@ -47,6 +59,16 @@ DECODE_SHAPES = [  # (N, B, bw, S): stage-0, stage-1/2 and crossing widths
     (16, 32, 16, 32), (16, 4, 8, 96), (16, 4, 8, 256), (16, 4, 7, 256)]
 FLASH_N = 8
 FLASH_S = (1, 16, 64, 255, 256)
+TRAIN_H, TRAIN_DH = 64, 8          # transformer_cascade.json: 512 / 64
+# attention gradients, kernel path against the plain version's autograd:
+# bf16 atol 5e-2 (the kernel's bf16 output enters delta = sum(dO * O) and
+# every gradient is rounded to bf16); float32 atol 1e-4 (sums over up to
+# 256 keys in another order)
+GRAD_ATOL = {"bf16": 5e-2, "f32": 1e-4}
+FWD_ATOL = {"bf16": ATOL, "f32": 1e-5}
+BMU_SHAPES = [  # (M, D, K): HR at batch 8, LR, stage-1 HR, stage-0 LR, ragged
+    (2048, 16, 512), (512, 64, 512), (128, 256, 512), (8, 4096, 512),
+    (300, 16, 64)]
 
 
 def log(msg):
@@ -237,6 +259,137 @@ def check_flash(torch, timer, records):
                                  f"version: {err} > {ATOL}")
 
 
+def check_flash_train(torch, timer, records):
+    """Kernel A at the training path's head dim (64 heads of 8; decoder S
+    256 causal, encoder S 64), forward and gradient, bf16 and float32; the
+    backward (the plain ``_flash_bwd`` products) is timed too."""
+    import torch.nn.functional as F
+    from qaig_tpu_torch.ops import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    n, h, dh = FLASH_N, TRAIN_H, TRAIN_DH
+    for s, causal in ((256, True), (64, False)):
+        for kind, dtype in (("bf16", torch.bfloat16),
+                            ("f32", torch.float32)):
+            q, k, v = ((torch.randn(n, s, h * dh, generator=gen,
+                                    device="cuda") * 0.5).to(dtype)
+                       for _ in range(3))
+            weight = torch.randn(n, s, h * dh, generator=gen, device="cuda")
+
+            def run_kernel():
+                return fa.flash_attention(q, k, v, h, causal=causal)
+
+            def run_plain():
+                return fa.flash_attention_reference(q, k, v, h, causal)
+
+            def run_library():
+                def heads(x):
+                    return x.view(n, s, h, dh).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    heads(q), heads(k), heads(v), is_causal=causal)
+
+            err = (run_kernel().float() - run_plain().float()).abs().max()
+            err = err.item()
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            got = torch.autograd.grad(
+                (fa.flash_attention(qg, kg, vg, h, causal=causal).float()
+                 * weight).sum(), (qg, kg, vg))
+            want = torch.autograd.grad(
+                (fa.flash_attention_reference(qg, kg, vg, h, causal)
+                 .float() * weight).sum(), (qg, kg, vg))
+            grad_err = max((a.float() - b.float()).abs().max().item()
+                           for a, b in zip(got, want))
+            out = run_kernel()
+            dout = torch.randn_like(out)
+
+            def run_backward():
+                return fa.flash_attention_backward(q, k, v, out, dout, h,
+                                                   causal)
+
+            pairs = s * (s + 1) // 2 if causal else s * s
+            size = 2 if kind == "bf16" else 4
+            bound_ms, bound_by = bound(4 * n * s * h * dh * size,
+                                       4 * n * h * pairs * dh, kind)
+            rec = {"name": "flash_attention", "shape": {
+                "N": n, "S": s, "H": h, "dh": dh, "causal": causal,
+                "dtype": kind}, "max_abs_err": err, "grad_max_abs_err":
+                grad_err, "ms": timer(run_kernel),
+                "plain_ms": timer(run_plain), "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": timer(run_library),
+                "backward_ms": timer(run_backward)}
+            records.append(rec)
+            log(f"[kernels] flash_attention H={h} dh={dh} N={n} S={s} "
+                f"causal={causal} {kind}: max_abs_err={err:.3e} "
+                f"grad_max_abs_err={grad_err:.3e} ms={rec['ms']:.4f} "
+                f"plain_ms={rec['plain_ms']:.4f} "
+                f"sdpa_ms={rec['library_ms']:.4f} "
+                f"backward_ms={rec['backward_ms']:.4f} "
+                f"bound_ms={bound_ms:.5f} ({bound_by})")
+            if not err <= FWD_ATOL[kind]:
+                raise SystemExit(f"flash_attention (dh {dh}, {kind}) "
+                                 f"disagrees with its plain version: {err}")
+            if not grad_err <= GRAD_ATOL[kind]:
+                raise SystemExit(f"flash_attention gradient (dh {dh}, "
+                                 f"{kind}) disagrees with the plain "
+                                 f"version's: {grad_err}")
+
+
+def check_bmu(torch, timer, records):
+    """The BMU kernel against its plain version at the codebook shapes of
+    the cascade, and on a codebook with duplicated rows (first index,
+    exactly)."""
+    from qaig_tpu_torch.ops import bmu
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for m, d, k in BMU_SHAPES:
+        patches = torch.randn(m, d, generator=gen, device="cuda")
+        codes = torch.randn(k, d, generator=gen, device="cuda") * 0.5
+
+        def run_kernel():
+            return bmu.fused_bmu(patches, codes)
+
+        def run_plain():
+            return bmu.bmu_argmin_reference(patches, codes)
+
+        def run_library():
+            return torch.cdist(patches, codes).argmin(1)
+
+        agree = bmu.near_tie_agreement(patches, codes, run_kernel(),
+                                       run_plain())
+        bound_ms, bound_by = bound((m * d + k * d) * 4 + m * 8,
+                                   2 * m * k * d, "f32")
+        # max_abs_err: the largest float64 gap between the distance of the
+        # kernel's pick and the true minimum (0 where every pick is a best)
+        rec = {"name": "fused_bmu", "shape": {"M": m, "D": d, "K": k},
+               "max_abs_err": agree["max_gap"],
+               "near_tie_rows": agree["near_tie_rows"],
+               "differing_rows": agree["differing_rows"],
+               "ms": timer(run_kernel), "plain_ms": timer(run_plain),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": timer(run_library)}
+        records.append(rec)
+        log(f"[kernels] fused_bmu M={m} D={d} K={k}: indices differ on "
+            f"{agree['differing_rows']} rows, all within the "
+            f"{agree['near_tie_rows']} near-tie rows; largest distance gap "
+            f"{agree['max_gap']:.3e}; ms={rec['ms']:.4f} "
+            f"plain_ms={rec['plain_ms']:.4f} "
+            f"cdist_argmin_ms={rec['library_ms']:.4f} "
+            f"bound_ms={bound_ms:.5f} ({bound_by})")
+    codes = torch.randn(64, 16, generator=gen, device="cuda")
+    rows = torch.randint(0, 64, (2048,), generator=gen, device="cuda")
+    patches = (codes[rows] + 1e-3 * torch.randn(2048, 16, generator=gen,
+                                                device="cuda")).contiguous()
+    got = bmu.fused_bmu(patches, torch.cat([codes] * 8).contiguous())
+    if bool((got >= 64).any()):
+        raise SystemExit("fused_bmu: a duplicated codebook did not give "
+                         "the first index")
+    agree = bmu.near_tie_agreement(patches, codes, got,
+                                   bmu.bmu_argmin_reference(patches, codes))
+    log(f"[kernels] fused_bmu duplicated codes (64 x 8 copies, M=2048): "
+        f"first index on every row; against the 64 distinct codes, "
+        f"indices differ on {agree['differing_rows']} rows, "
+        f"{agree['near_tie_rows']} near-tie rows, largest distance gap "
+        f"{agree['max_gap']:.3e}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a small cascade stage, card (kernels) against CPU (plain)
 # ---------------------------------------------------------------------------
@@ -285,6 +438,72 @@ def check_reference(torch):
         f"({out['cuda'].tolist()[0][:8]}...)")
     if not same:
         raise SystemExit("card and CPU generations disagree")
+
+
+def check_train_reference(torch, device="cuda"):
+    """Phase 4b: one float32 ``make_train_step`` step of a small windowed
+    cascade (in_dim 128 in 16 heads of dim 8, as on the main path; K 32
+    codebooks over 4x16x16 latents, window 32) on the card (kernels) and
+    on the CPU
+    (plain) from the same weights, batch and window starts.  SGD(lr=1), so
+    old minus new parameters are the gradients.  Tokens equal, loss within
+    relative 1e-5, gradients within atol 1e-4 (float32 sums in another
+    order through four layers)."""
+    from qaig_tpu_torch.models.codebook import Codebook
+    from qaig_tpu_torch.models.core import init_parameters
+    from qaig_tpu_torch.models.transformer import (Transformer,
+                                                   TransformerConfig)
+    from qaig_tpu_torch.train import transformer as train
+
+    k, window = 32, 32
+    cfg = TransformerConfig(
+        use_encoder=True, use_pos_cond=True, num_enc_layers=2,
+        num_dec_layers=2, num_enc_embedding=k, num_dec_embedding=k + 1,
+        self_attn_heads=16, cross_attn_heads=16, in_dim=128, out_dim=k + 1,
+        hidden_dim=256)
+    cpu_gen = torch.Generator().manual_seed(5)
+    weights = init_parameters(Transformer(cfg), cpu_gen).state_dict()
+    batch = torch.randn(4, 4, 16, 16, generator=cpu_gen)
+    books = [Codebook(patch_dim=patch, image_dim=(16, 16), image_channel=4,
+                      num_embeddings=k).init(cpu_gen).state_dict()
+             for patch in ((4, 4), (2, 2))]
+    out = {}
+    for device in ("cpu", device):
+        model = Transformer(cfg, device=device)
+        model.load_state_dict(weights)
+        lr_cb, hr_cb = (Codebook(patch_dim=patch, image_dim=(16, 16),
+                                 image_channel=4, num_embeddings=k,
+                                 device=device).requires_grad_(False)
+                        for patch in ((4, 4), (2, 2)))
+        lr_cb.load_state_dict(books[0])
+        hr_cb.load_state_dict(books[1])
+        x = batch.to(device)
+        tokens = train.tokenize_batch(
+            x, torch.Generator().manual_seed(6), lr_cb, hr_cb, False, k, k,
+            window)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = train.make_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=1.0), lr_cb,
+            hr_cb, False, k, k, window)
+        loss = float(step(x, torch.Generator().manual_seed(6)))
+        grads = {n: (before[n] - p.detach()).cpu()
+                 for n, p in model.named_parameters()}
+        out[device] = ([t.cpu() for t in tokens], loss, grads)
+    cpu, card = out["cpu"], out[device]
+    same_tokens = all(torch.equal(a, b) for a, b in zip(cpu[0], card[0]))
+    loss_rel = abs(card[1] - cpu[1]) / abs(cpu[1])
+    grad_err = max((card[2][n] - g).abs().max().item()
+                   for n, g in cpu[2].items())
+    log(f"[reference] train step, small windowed cascade, float32: tokens "
+        f"{'equal' if same_tokens else 'DIFFER'}; loss card {card[1]:.7f} "
+        f"cpu {cpu[1]:.7f} (rel {loss_rel:.2e}); max |grad card - grad "
+        f"cpu| {grad_err:.3e}")
+    if not same_tokens:
+        raise SystemExit("card and CPU train steps tokenize differently")
+    if not loss_rel <= 1e-5:
+        raise SystemExit(f"card and CPU losses differ: rel {loss_rel}")
+    if not grad_err <= 1e-4:
+        raise SystemExit(f"card and CPU gradients differ: {grad_err}")
 
 
 # ---------------------------------------------------------------------------
@@ -388,22 +607,27 @@ def synchronize(torch, device):
         torch.cuda.synchronize()
 
 
-def reset_launches():
+def _counted():
+    from qaig_tpu_torch.ops import bmu
     from qaig_tpu_torch.ops import decode_attention as da
     from qaig_tpu_torch.ops import flash_attention as fa
-    fa.flash_attention.launches = 0
-    da.shared_prefix_attention_fused_t.launches = 0
-    da.shared_prefix_attention_fused_int8.launches = 0
+    return [("flash_attention", fa.flash_attention, "launches"),
+            ("flash_attention_backward", fa.flash_attention,
+             "backward_calls"),
+            ("shared_prefix_attention_fused_t",
+             da.shared_prefix_attention_fused_t, "launches"),
+            ("shared_prefix_attention_fused_int8",
+             da.shared_prefix_attention_fused_int8, "launches"),
+            ("fused_bmu", bmu.fused_bmu, "launches")]
+
+
+def reset_launches():
+    for _, fn, attr in _counted():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    from qaig_tpu_torch.ops import decode_attention as da
-    from qaig_tpu_torch.ops import flash_attention as fa
-    return {"flash_attention": fa.flash_attention.launches,
-            "shared_prefix_attention_fused_t":
-                da.shared_prefix_attention_fused_t.launches,
-            "shared_prefix_attention_fused_int8":
-                da.shared_prefix_attention_fused_int8.launches}
+    return {name: getattr(fn, attr) for name, fn, attr in _counted()}
 
 
 def run_main_path(torch, workdir, seed=0, num_images=8, device="cuda",
@@ -515,7 +739,6 @@ def profile_window(torch, engine, init, x_enc, gen, settings, num_beam,
     time of the kernels the device ran over the wall time of the window,
     and the kernels that took most of it.  The profiler's own host cost
     lengthens the window, so the busy share is a lower bound."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -527,8 +750,7 @@ def profile_window(torch, engine, init, x_enc, gen, settings, num_beam,
                                 x_enc=x_enc, sliding_window=window)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    kernels = device_kernels(prof)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:6]
@@ -543,6 +765,179 @@ def profile_window(torch, engine, init, x_enc, gen, settings, num_beam,
     for e in out["top"]:
         log(f"[profile]   {e['ms']:8.2f} ms  {e['count']:6d}x  {e['name']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: transformer training through the entry point
+# ---------------------------------------------------------------------------
+
+TRAIN = dict(latents=64, batch=8, steps=6, checkpoint_step=3, previews=4,
+             config="examples/configs/transformer_cascade.json")
+
+
+def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
+    """``train.transformer.run`` on the cascade example config over seeded
+    random 4x32x32 latents, with phase 5's stage-2 codebooks (LR patch 4,
+    HR patch 2) and FC decoder: bf16, batch 8, 6 steps, checkpoints and
+    previews at steps 0 and 3.  Returns (launches, timings)."""
+    import numpy as np
+    from qaig_tpu_torch.data.manifest import write_manifest
+    from qaig_tpu_torch.infer.generate import transformer_from_checkpoint
+    from qaig_tpu_torch.train import transformer as train
+    from qaig_tpu_torch.utils.checkpoint import load_model
+
+    t = TRAIN
+    root = Path(workdir) / "train"
+    (root / "fmaps").mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(t["latents"]):
+        path = root / "fmaps" / f"{i}.npy"
+        np.save(path, rng.standard_normal(
+            (FULL["latent_c"],) + FULL["image_dim"]).astype(np.float32))
+        rows.append({"fmap_path": str(path), "image_path": ""})
+    manifest = write_manifest(root / "fmaps" / "all_dataset.json", rows)
+    ckpt = Path(workdir) / "models_checkpoint"
+    config = Path(__file__).resolve().parent / t["config"]
+
+    # time each train step (synchronised) and, with ``profile``, trace
+    # steps 2-5 one by one, so the checkpoint at step 3 stays out
+    step_s, traces = [], []
+    make_train_step = train.make_train_step
+
+    def timed_make_train_step(*a, **kw):
+        step = make_train_step(*a, **kw)
+
+        def timed(*args):
+            index = len(step_s)
+            tracing = profile and 2 <= index <= 5
+            if tracing:
+                traces.append(start_trace(torch))
+            synchronize(torch, device)
+            t0 = time.perf_counter()
+            loss = step(*args)
+            synchronize(torch, device)
+            step_s.append(time.perf_counter() - t0)
+            if tracing:
+                traces[-1] = stop_trace(traces[-1], step_s[-1])
+            return loss
+        return timed
+
+    train.make_train_step = timed_make_train_step
+    out_dir = root / "out"
+    try:
+        synchronize(torch, device)
+        reset_launches()
+        t0 = time.perf_counter()
+        train.run({
+            "device": device, "dataset_path": manifest,
+            "decoder_path": str(ckpt / "decoder.pt"),
+            "lr_codebook_path": str(ckpt / "codebook_2.pt"),
+            "hr_codebook_path": str(ckpt / "codebook_3.pt"),
+            "config_path": str(config), "out_dir": str(out_dir),
+            "bf16": True, "batch_size": t["batch"],
+            "max_steps": t["steps"], "checkpoint_step": t["checkpoint_step"],
+            "test_num_sample": t["previews"], "seed": seed})
+        synchronize(torch, device)
+        run_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        train.make_train_step = make_train_step
+    log(f"[train] train.run: {t['steps']} bf16 steps at batch {t['batch']} "
+        f"in {run_s:.3f} s; launches {launches}")
+
+    losses = [json.loads(line)["ce_loss"] for line in
+              (out_dir / "metrics.jsonl").read_text().splitlines()]
+    if len(losses) != t["steps"] or not np.isfinite(losses).all():
+        raise SystemExit(f"training losses not all finite: {losses}")
+    log(f"[train] losses {[round(x, 4) for x in losses]}")
+    checkpoints = list(range(0, t["steps"], t["checkpoint_step"]))
+    for n in checkpoints:
+        status, state = load_model(out_dir / "models_checkpoint"
+                                   / f"model_{n}.pt")
+        if not status or not {"model", "model_optimizer",
+                              "global_steps"} <= set(state) \
+                or state["global_steps"] != n:
+            raise SystemExit(f"model_{n}.pt is missing or incomplete")
+        transformer_from_checkpoint(state, torch.device(device),
+                                    logging=_no_skips)
+        for name in ("ground_truth", "low_res_cond", "high_res_example",
+                     "high_res_recon"):
+            if not (out_dir / "images" / f"{name}_{n}.jpg").exists():
+                raise SystemExit(f"preview {name}_{n}.jpg was not written")
+    log(f"[train] checkpoints {checkpoints} load back through the port; "
+        f"previews written")
+    # kernel A runs every equal-shape self-attention: per step the
+    # encoder's and the decoder's layers, forward and backward; per preview
+    # the encoder, the prefill of <start>, and each windowed step once the
+    # context fills the window (its last layer reads one query: not A)
+    cfg = json.loads(config.read_text())
+    enc, dec = cfg["num_enc_layers"], cfg["num_dec_layers"]
+    windowed = max(0, 1 + seq_len(FULL["patches"][-1])
+                   - cfg["sliding_window"])
+    want = {"fused_bmu": 2 * t["steps"] + 3 * len(checkpoints),
+            "flash_attention": (enc + dec) * t["steps"] + len(checkpoints)
+            * (enc + dec + windowed * (dec - 1)),
+            "flash_attention_backward": (enc + dec) * t["steps"]}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise SystemExit(f"the training path launched {name} "
+                             f"{launches[name]} times, expected {n}")
+    per_step = sum(step_s[1:]) / len(step_s[1:])
+    log(f"[train] seconds per step (step 0 left out): {per_step:.4f} "
+        f"(steps {[round(x, 4) for x in step_s]})")
+    timings = {"run_s": run_s, "step_s": step_s, "step_mean_s": per_step,
+               "losses": losses}
+    if profile:
+        wall = sum(tr["wall_ms"] for tr in traces)
+        busy = sum(tr["device_busy_ms"] for tr in traces)
+        timings["profile"] = {"steps": [2, 5], "wall_ms": wall,
+                              "device_busy_ms": busy,
+                              "busy_share": busy / wall, "per_step": traces}
+        log(f"[profile] train steps 2-5: wall {wall:.1f} ms, device busy "
+            f"{busy:.1f} ms ({100 * busy / wall:.1f}%), "
+            f"{sum(tr['kernel_launches'] for tr in traces)} kernel launches")
+        for e in traces[-1]["top"]:
+            log(f"[profile]   step 5: {e['ms']:8.2f} ms  {e['count']:6d}x  "
+                f"{e['name']}")
+    return launches, timings
+
+
+def _no_skips(msg):
+    raise SystemExit(f"checkpoint does not load back cleanly: {msg}")
+
+
+def start_trace(torch):
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
+
+
+def device_kernels(prof):
+    """The kernels in a trace's device events: user annotations (such as
+    the optimizer's ``Optimizer.step`` range) also show there and are
+    not device work."""
+    from torch.autograd import DeviceType
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith(("Optimizer.", "ProfilerStep"))]
+
+
+def stop_trace(prof, wall_s):
+    """Device time of the kernels a traced step ran, against its wall
+    time (the profiler's host cost lengthens it: a lower bound)."""
+    prof.__exit__(None, None, None)
+    kernels = device_kernels(prof)
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    return {"wall_ms": wall_s * 1e3,
+            "device_busy_ms": sum(e.self_device_time_total
+                                  for e in kernels) / 1e3,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [{"name": e.key[:90], "count": e.count,
+                     "ms": e.self_device_time_total / 1e3} for e in top]}
 
 
 # ---------------------------------------------------------------------------
@@ -562,18 +957,29 @@ KERNELS = {
         "source": "qaig_tpu_torch/csrc/decode_attention.cu",
         "replaces": "qaig_tpu/ops/decode_attention.py:414",
         "summary": {"S": 256, "bw": 8, "index0": 256}},
+    "fused_bmu": {
+        "source": "qaig_tpu_torch/csrc/bmu.cu",
+        "replaces": "qaig_tpu/ops/bmu.py:39",
+        "summary": {"M": 2048, "D": 16, "K": 512}},
 }
 
 
-def kernels_line(records, launches):
+def kernels_line(records, launches_by_path):
+    """One entry per kernel: the summary shape's times, the worst error
+    over every shape, and the launches summed over the main paths (each
+    path's count beside it)."""
     out = []
     for name, meta in KERNELS.items():
         mine = [r for r in records if r["name"] == name]
         summary = next(r for r in mine if all(
             r["shape"].get(k) == v for k, v in meta["summary"].items()))
+        by_path = {path: counts[name]
+                   for path, counts in launches_by_path.items()}
         out.append({
             "name": name, "route": "cuda", "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches[name],
+            "replaces": meta["replaces"],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": summary["ms"], "plain_ms": summary["plain_ms"],
             "bound_ms": summary["bound_ms"],
@@ -586,8 +992,9 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--json-out", type=Path, default=None)
     parser.add_argument("--profile", action="store_true",
-                        help="also profile a stage-2 window with "
-                             "torch.profiler (device busy share)")
+                        help="also profile a stage-2 window and train "
+                             "steps 2-5 with torch.profiler (device busy "
+                             "share)")
     args = parser.parse_args()
 
     import torch
@@ -603,13 +1010,19 @@ def main():
     records = []
     check_decode(torch, timer, records)
     check_flash(torch, timer, records)
+    check_flash_train(torch, timer, records)
+    check_bmu(torch, timer, records)
     del timer
     check_reference(torch)
+    check_train_reference(torch)
     with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as workdir:
         launches, timings = run_main_path(torch, workdir,
                                           profile=args.profile)
+        train_launches, timings["train"] = run_train_path(
+            torch, workdir, profile=args.profile)
 
-    line = kernels_line(records, launches)
+    line = kernels_line(records, {"generate": launches,
+                                  "train": train_launches})
     if args.json_out:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)
         args.json_out.write_text(json.dumps(

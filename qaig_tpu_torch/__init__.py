@@ -6,11 +6,12 @@ imports ``torch`` and never ``jax`` or anything of ``qaig_tpu``: it reads
 and writes the same numpy-pickle checkpoints and converts the parameter
 layouts itself (``qaig_tpu_torch.convert``).
 
-Every attention kernel that ``qaig_tpu`` wrote in Pallas for the TPU and
-that the generation path runs has a hand-written CUDA C++ kernel for Hopper
-here (``qaig_tpu_torch/csrc``), built with ``nvcc`` at first use.  On a CUDA
-tensor an op launches its kernel; on a CPU tensor it runs its plain PyTorch
-version.  Entry points run on the card unless the caller asks for the CPU.
+Every kernel that ``qaig_tpu`` wrote in Pallas for the TPU and that the
+ported paths (image generation, transformer training) run has a
+hand-written CUDA C++ kernel for Hopper here (``qaig_tpu_torch/csrc``),
+built with ``nvcc`` at first use.  On a CUDA tensor an op launches its
+kernel; on a CPU tensor it runs its plain PyTorch version.  Entry points
+run on the card unless the caller asks for the CPU.
 """
 
 __version__ = "0.1.0"

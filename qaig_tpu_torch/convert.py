@@ -18,6 +18,15 @@ attn.q.l0``), so the mapping is per leaf:
 paths and shape mismatches are logged and skipped, as ``qaig_tpu``'s
 ``tolerant_restore`` does); :func:`to_jax_state` is its inverse, for writing
 ``qaig_tpu``-schema checkpoints.
+
+The optimizer state crosses the same way.  ``qaig_tpu``'s Adam is optax's
+``(ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count))`` (an
+empty second state without a schedule), whose flat paths are ``0.0``
+(count), ``0.1.<param path>`` (mu), ``0.2.<param path>`` (nu) and ``1.0``;
+:func:`load_optax_state` maps them onto ``torch.optim.Adam``'s ``step``,
+``exp_avg`` and ``exp_avg_sq`` with the weights' layout transforms, and
+:func:`to_optax_state` writes the tree back with ``mu``/``nu`` as flat
+dicts, which ``qaig_tpu``'s ``restore_opt_state`` restores by those paths.
 """
 
 import numpy as np
@@ -117,5 +126,57 @@ def to_jax_state(module):
     out = {}
     for jax_path, (torch_name, kind) in mapping(module).items():
         value = params[torch_name].detach().to("cpu", torch.float32).numpy()
-        out[jax_path] = np.ascontiguousarray(_to_jax_layout(value, kind))
+        # a copy: a CPU float32 parameter's numpy view would alias it
+        out[jax_path] = np.array(_to_jax_layout(value, kind), order="C")
     return out
+
+
+@torch.no_grad()
+def load_optax_state(module, optimizer, state, logging=print):
+    """Fill ``optimizer`` (a ``torch.optim.Adam`` over ``module``'s
+    parameters) from a ``qaig_tpu`` optax Adam state; returns its update
+    count.  Parameters without moments in ``state`` keep a fresh state."""
+    flat = flatten_tree(state)
+    count = int(np.asarray(flat["0.0"]))
+    params = dict(module.named_parameters())
+    for jax_path, (torch_name, kind) in mapping(module).items():
+        target = params[torch_name]
+        moments = []
+        for part in ("0.1", "0.2"):
+            value = flat.get(f"{part}.{jax_path}")
+            if value is not None:
+                value = _to_torch_layout(value, kind)
+            if value is None or tuple(value.shape) != tuple(target.shape):
+                break
+            moments.append(torch.from_numpy(np.array(
+                value, dtype=np.float32)).to(target.device))
+        if len(moments) != 2:
+            logging(f"No optimizer state for {jax_path}, keeping a fresh "
+                    "one")
+            continue
+        optimizer.state[target] = {
+            "step": torch.tensor(float(count), dtype=torch.float32),
+            "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+    return count
+
+
+@torch.no_grad()
+def to_optax_state(module, optimizer, scheduled=True):
+    """``optimizer``'s Adam state as ``qaig_tpu``'s optax tree (moments in
+    JAX layouts; zeros before the first update)."""
+    mu, nu = {}, {}
+    count = 0
+    params = dict(module.named_parameters())
+    for jax_path, (torch_name, kind) in mapping(module).items():
+        target = params[torch_name]
+        state = optimizer.state.get(target, {})
+        if "step" in state:
+            count = int(state["step"])
+        for out, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):
+            value = state.get(key)
+            value = (np.zeros(tuple(target.shape), np.float32)
+                     if value is None
+                     else value.detach().to("cpu", torch.float32).numpy())
+            out[jax_path] = np.ascontiguousarray(_to_jax_layout(value, kind))
+    count = np.asarray(count, np.int32)
+    return ((count, mu, nu), (count,) if scheduled else ())

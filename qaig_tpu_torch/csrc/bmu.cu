@@ -1,0 +1,194 @@
+// Best-matching-unit search for Hopper (sm_90a).
+//
+// Replaces the TPU kernel of qaig_tpu/ops/bmu.py: fused_bmu -> _bmu_kernel,
+// which holds the whole (K, D) codebook in VMEM, pads M to 1024-row tiles
+// and reduces the (TM, K) distance tile it computes on the MXU.
+//
+// Function.  patches (M, D) and codes (K, D), float32, row-major; for every
+// row m, out[m] = argmin_k (|c_k|^2 - 2 p_m . c_k), the first k on ties,
+// as int64.  The |p_m|^2 term cannot change the argmin and is dropped.
+//
+// What bounds it on the H100.  2 M K D float32 operations on (M + K) D
+// input floats: at the training path's shapes (M 2048, D 16, K 512; M 512,
+// D 64, K 512) that is about 0.5 us at 67 TFLOP/s and less in bytes, far
+// below the few microseconds a launch costs, so launch latency and the
+// number of blocks in flight set the time.  At D 4096 (the 32x32 LR patch)
+// the codebook alone is 8 MB, which no shared memory holds.
+//
+// What the design does about it.  A block owns 32 patch rows and a range
+// of 64-code tiles; it streams rows and codes through shared memory in
+// 32-wide slices of D and keeps a 2x4 tile of partial dots per thread in
+// registers, so neither the (M, K) distances nor a whole codebook ever
+// needs to fit anywhere.  |c_k|^2 is summed from the same shared-memory
+// slices.  After each code tile every thread folds its distances into a
+// running (min, index); the 16 threads of a row then reduce by
+// lexicographic (distance, index), so ties go to the lowest index whatever
+// the order.  When the rows alone give too few blocks to fill the card,
+// the code tiles are split over a second grid axis and a second launch
+// reduces the per-split minima in split order.  Only float32 FMAs: no TF32
+// and no tensor cores, so tokens match the float32 pipeline.  M is not
+// padded: the ragged edge is masked.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kTM = 32;       // patch rows per block
+constexpr int kTK = 64;       // codes per tile
+constexpr int kTD = 32;       // D slice staged in shared memory
+constexpr int kThreads = 256; // 16 x 16: ty owns rows, tx owns codes
+constexpr int kRows = kTM / 16;   // rows per thread
+constexpr int kCodes = kTK / 16;  // codes per thread
+constexpr int kNone = 0x7fffffff;
+
+__device__ __forceinline__ bool better(float d, int i, float best,
+                                       int best_i) {
+  return d < best || (d == best && i < best_i);
+}
+
+// Stage rows [r0, r0 + rows) x columns [d0, d0 + kTD) of a row-major
+// (total, D) matrix into dst (rows x (kTD + 1)), zeros past either edge.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
+                                      int r0, int rows, int total, int D,
+                                      int d0) {
+  for (int i = threadIdx.x; i < rows * kTD; i += kThreads) {
+    const int r = i / kTD, d = i % kTD;
+    const int gr = r0 + r, gd = d0 + d;
+    dst[r * (kTD + 1) + d] =
+        gr < total && gd < D ? src[(size_t)gr * D + gd] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) bmu_kernel(
+    const float* __restrict__ patches, const float* __restrict__ codes,
+    int M, int K, int D, int tiles_per_split, int64_t* __restrict__ out,
+    float* __restrict__ part_dist, int* __restrict__ part_idx) {
+  __shared__ float ps[kTM * (kTD + 1)];
+  __shared__ float cs[kTK * (kTD + 1)];
+  __shared__ float csq[kTK];
+
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const int m0 = blockIdx.x * kTM;
+  const int k_begin = blockIdx.y * tiles_per_split * kTK;
+  const int k_end = min(K, k_begin + tiles_per_split * kTK);
+  const bool rows_resident = D <= kTD;  // one slice: stage rows once
+
+  float best[kRows];
+  int best_i[kRows];
+  for (int i = 0; i < kRows; ++i) {
+    best[i] = INFINITY;
+    best_i[i] = kNone;
+  }
+
+  if (rows_resident) stage(ps, patches, m0, kTM, M, D, 0);
+  for (int k0 = k_begin; k0 < k_end; k0 += kTK) {
+    float acc[kRows][kCodes] = {};
+    float sq = 0.f;  // |c|^2 of code k0 + threadIdx.x (threads < kTK)
+    for (int d0 = 0; d0 < D; d0 += kTD) {
+      __syncthreads();  // the previous slice's reads are done
+      if (!rows_resident) stage(ps, patches, m0, kTM, M, D, d0);
+      stage(cs, codes, k0, kTK, k_end, D, d0);
+      __syncthreads();
+      if (threadIdx.x < kTK) {
+        const float* c = cs + threadIdx.x * (kTD + 1);
+#pragma unroll 8
+        for (int d = 0; d < kTD; ++d) sq = fmaf(c[d], c[d], sq);
+      }
+#pragma unroll 8
+      for (int d = 0; d < kTD; ++d) {
+        float p[kRows], c[kCodes];
+        for (int i = 0; i < kRows; ++i) p[i] = ps[(ty + 16 * i) * (kTD + 1) + d];
+        for (int j = 0; j < kCodes; ++j) c[j] = cs[(tx + 16 * j) * (kTD + 1) + d];
+        for (int i = 0; i < kRows; ++i)
+          for (int j = 0; j < kCodes; ++j) acc[i][j] = fmaf(p[i], c[j], acc[i][j]);
+      }
+    }
+    if (threadIdx.x < kTK) csq[threadIdx.x] = sq;
+    __syncthreads();
+    for (int j = 0; j < kCodes; ++j) {  // increasing code index
+      const int k = k0 + tx + 16 * j;
+      if (k >= k_end) break;
+      for (int i = 0; i < kRows; ++i) {
+        const float dist = csq[tx + 16 * j] - 2.f * acc[i][j];
+        if (better(dist, k, best[i], best_i[i])) {
+          best[i] = dist;
+          best_i[i] = k;
+        }
+      }
+    }
+  }
+
+  // the 16 threads of a row are 16 consecutive lanes of one warp
+  for (int i = 0; i < kRows; ++i) {
+    float b = best[i];
+    int bi = best_i[i];
+    for (int offset = 8; offset > 0; offset >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, b, offset);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, offset);
+      if (better(ob, oi, b, bi)) {
+        b = ob;
+        bi = oi;
+      }
+    }
+    const int m = m0 + ty + 16 * i;
+    if (tx == 0 && m < M) {
+      if (gridDim.y == 1) {
+        out[m] = bi == kNone ? 0 : bi;
+      } else {
+        part_dist[(size_t)blockIdx.y * M + m] = b;
+        part_idx[(size_t)blockIdx.y * M + m] = bi;
+      }
+    }
+  }
+}
+
+__global__ void bmu_reduce_kernel(const float* __restrict__ part_dist,
+                                  const int* __restrict__ part_idx, int M,
+                                  int splits, int64_t* __restrict__ out) {
+  const int m = blockIdx.x * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float b = INFINITY;
+  int bi = kNone;
+  for (int s = 0; s < splits; ++s) {
+    const float d = part_dist[(size_t)s * M + m];
+    const int i = part_idx[(size_t)s * M + m];
+    if (better(d, i, b, bi)) {
+      b = d;
+      bi = i;
+    }
+  }
+  out[m] = bi == kNone ? 0 : bi;
+}
+
+}  // namespace
+
+extern "C" {
+
+// patches (M, D), codes (K, D): float32, contiguous.  out: (M,) int64.
+// splits > 1 needs part_dist (splits, M) float32 and part_idx (splits, M)
+// int32 as scratch; tiles_per_split * 64 * splits >= K.  Returns the
+// cudaError_t of the launches.
+int qaig_bmu(const void* patches, const void* codes, int M, int K, int D,
+             int splits, int tiles_per_split, void* out, void* part_dist,
+             void* part_idx, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((M + kTM - 1) / kTM, splits);
+  bmu_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const float*>(patches), static_cast<const float*>(codes), M,
+      K, D, tiles_per_split, static_cast<int64_t*>(out),
+      static_cast<float*>(part_dist), static_cast<int*>(part_idx));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  bmu_reduce_kernel<<<(M + 255) / 256, 256, 0, st>>>(
+      static_cast<const float*>(part_dist), static_cast<const int*>(part_idx),
+      M, splits, static_cast<int64_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+const char* qaig_bmu_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -25,7 +25,10 @@
 // their last query's key.  bf16 inputs run the two products on the tensor
 // cores (WMMA 16x16x16, float32 accumulate; one warp owns 16 query rows,
 // so the softmax needs no block-wide barrier); float32 inputs keep exact
-// float32 FMAs from shared memory.  wgmma, TMA and pipelining are later
+// float32 FMAs from shared memory.  WMMA's reduction depth is 16, so a
+// head dim of 8 runs in tiles padded to 16 columns with zeros (a zero
+// column adds nothing to a score and its output column is never stored).
+// Head dims 8, 16, 32, 64 and 128.  wgmma, TMA and pipelining are later
 // work.
 
 #include "common.cuh"
@@ -154,12 +157,14 @@ constexpr int kTcWarps = 4;
 constexpr int kTcBQ = 16 * kTcWarps;  // query rows per block, 16 per warp
 constexpr int kTcBK = 64;             // keys per tile: two per lane
 
+// DH is the head dim; tiles hold DHP = max(DH, 16) columns, the WMMA depth
 template <int DH>
 struct TcLayout {
-  static constexpr int LDB = DH + 8;     // bf16 pitch of the Q/K/V tiles
+  static constexpr int DHP = DH < 16 ? 16 : DH;
+  static constexpr int LDB = DHP + 8;    // bf16 pitch of the Q/K/V tiles
   static constexpr int LDP = kTcBK + 8;  // bf16 pitch of the probabilities
   static constexpr int LDS = kTcBK + 4;  // float pitch of the scores
-  static constexpr int LDO = DH + 4;     // float pitch of O and the PV tile
+  static constexpr int LDO = DHP + 4;    // float pitch of O and the PV tile
   static constexpr size_t kBf16 = (size_t)(kTcBQ + 2 * kTcBK) * LDB +
                                   (size_t)kTcBQ * LDP;
   static constexpr size_t kFloats = (size_t)kTcBQ * LDS +
@@ -208,6 +213,14 @@ __global__ void __launch_bounds__(kTcWarps * 32) flash_attention_fwd_tc_kernel(
     copy8(qs + r * L::LDB + c, q + base + (size_t)(q0 + r) * D + c,
           q0 + r < S);
   }
+  if constexpr (L::DHP > DH) {
+    // padding columns [DH, DHP) stay zero: tile loads never write them
+    constexpr int kPad = L::DHP - DH;
+    for (int i = tid; i < (kTcBQ + 2 * kTcBK) * kPad; i += kTcWarps * 32) {
+      const int r = i / kPad, c = DH + i % kPad;
+      qs[r * L::LDB + c] = __float2bfloat16(0.f);  // qs, ks, vs adjacent
+    }
+  }
   for (int i = tid; i < kTcBQ * DH; i += kTcWarps * 32)
     os[(i / DH) * L::LDO + i % DH] = 0.f;
   for (int r = tid; r < kTcBQ; r += kTcWarps * 32) {
@@ -231,7 +244,7 @@ __global__ void __launch_bounds__(kTcWarps * 32) flash_attention_fwd_tc_kernel(
     for (int n0 = 0; n0 < kTcBK; n0 += 16) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
-      for (int d0 = 0; d0 < DH; d0 += 16) {
+      for (int d0 = 0; d0 < L::DHP; d0 += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
                        wmma::row_major> a;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
@@ -278,8 +291,8 @@ __global__ void __launch_bounds__(kTcWarps * 32) flash_attention_fwd_tc_kernel(
     }
     __syncwarp();
 
-    // P (16 x 64) . V (64 x DH) for this warp's rows
-    for (int d0 = 0; d0 < DH; d0 += 16) {
+    // P (16 x 64) . V (64 x DHP) for this warp's rows
+    for (int d0 = 0; d0 < L::DHP; d0 += 16) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
       for (int j0 = 0; j0 < kTcBK; j0 += 16) {
@@ -334,6 +347,12 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
                         cudaStream_t stream) {
   constexpr bool kTc = std::is_same<T, __nv_bfloat16>::value;
   switch (dh) {
+    case 8:
+      return kTc ? launch_tc<8>(q, k, v, out, N, S, H, causal, stream)
+                 : launch<T, 8>(q, k, v, out, N, S, H, causal, stream);
+    case 16:
+      return kTc ? launch_tc<16>(q, k, v, out, N, S, H, causal, stream)
+                 : launch<T, 16>(q, k, v, out, N, S, H, causal, stream);
     case 32:
       return kTc ? launch_tc<32>(q, k, v, out, N, S, H, causal, stream)
                  : launch<T, 32>(q, k, v, out, N, S, H, causal, stream);
@@ -353,7 +372,7 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
 extern "C" {
 
 // q, k, v, out: (N, S, H*dh), contiguous.  dtype: 0 = float32,
-// 1 = bfloat16.  dh in {32, 64, 128}.  Returns the cudaError_t of the
+// 1 = bfloat16.  dh in {8, 16, 32, 64, 128}.  Returns the cudaError_t of the
 // launch.
 int qaig_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* out, int N, int S, int H, int dh,

@@ -1,0 +1,81 @@
+"""Batching data loader with background prefetch (counterpart of
+``qaig_tpu/data/loader.py``).
+
+A worker thread stacks numpy batches into a small queue (items fan out over
+a thread pool: ``np.load`` releases the GIL) so the card never waits on
+file reads; the caller moves each batch to its device.  The shuffle is the
+JAX package's: one ``np.random.default_rng(seed)`` permutation per epoch
+and the remainder dropped, so the same seed gives the same batches.
+"""
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+
+PREFETCH = 2      # batches read ahead
+NUM_WORKERS = 4   # item reads in flight
+
+
+class DataLoader:
+    def __init__(self, dataset, batch_size, seed=0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self._rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def _batch_indices(self):
+        order = np.arange(len(self.dataset))
+        self._rng.shuffle(order)
+        for start in range(0, len(self) * self.batch_size, self.batch_size):
+            yield order[start:start + self.batch_size]
+
+    def __iter__(self):
+        """Iterate over (batch, ...) numpy arrays, read ahead by a worker
+        thread; an abandoned iterator releases the worker."""
+        q = queue.Queue(maxsize=PREFETCH)
+        sentinel = object()
+        error = []
+        stop = threading.Event()
+        pool = ThreadPoolExecutor(max_workers=NUM_WORKERS)
+
+        def fetch(idx_batch):
+            return np.stack(list(pool.map(self.dataset.__getitem__,
+                                          [int(i) for i in idx_batch])))
+
+        def put(item):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for idx_batch in self._batch_indices():
+                    if stop.is_set() or not put(fetch(idx_batch)):
+                        return
+            except BaseException as e:  # raised on the consumer side
+                error.append(e)
+            finally:
+                put(sentinel)
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    if error:
+                        raise error[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+            pool.shutdown(wait=False)

@@ -1,6 +1,5 @@
 """Transformer building blocks: AdaLN-Zero, residual, MLP-projected
-attention, FFN (counterpart of ``qaig_tpu/models/blocks.py``, inference
-only).
+attention, FFN (counterpart of ``qaig_tpu/models/blocks.py``).
 
 Architectural quirks kept (they define the checkpoint-compatible function):
 
@@ -195,6 +194,9 @@ class TransformerBlock(nn.Module):
         if cfg.use_cross_attn:
             self.cross_attn = CrossAttnBlock(cfg, device, dtype)
         self.ffn = FFNBlock(cfg, device, dtype)
+
+    def forward(self, cfg, x, cross_cond=None, pos_cond=None):
+        return transformer_block(self, cfg, x, cross_cond, pos_cond)
 
 
 def self_attn_block(params, cfg: BlockConfig, x, cond=None):

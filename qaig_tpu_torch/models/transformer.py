@@ -1,5 +1,5 @@
 """Encoder-decoder / decoder-only transformer over codebook tokens
-(counterpart of ``qaig_tpu/models/transformer.py``, inference only).
+(counterpart of ``qaig_tpu/models/transformer.py``).
 
 * optional vanilla encoder (unmasked blocks, no cross-attn, no AdaLN) over
   coarse-token embeddings;
@@ -11,15 +11,20 @@
 * the classifier head is a 2-layer MLP whose first layer is always silu.
 
 The module's parameter names are the JAX tree's keys (``dec_embedding``,
-``decoder_layers.3.self_attn.attn.q.l0`` ...).  The methods are the JAX
-decode-engine primitives without the ``params`` argument; KV caches are
-slot-minor (N, H, dh, S) and are updated **in place**.
+``decoder_layers.3.self_attn.attn.q.l0`` ...).  ``forward`` is the
+teacher-forcing pass of training (JAX ``apply``; ``use_remat`` recomputes
+each block's activations in the backward, as ``jax.checkpoint`` does).  The
+other methods are the JAX decode-engine primitives without the ``params``
+argument; KV caches are slot-minor (N, H, dh, S) and are updated **in
+place**.
 """
 
 from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from qaig_tpu_torch.models import blocks, core
 from qaig_tpu_torch.ops.activations import get_activation
@@ -46,6 +51,7 @@ class TransformerConfig:
     out_dim: int = 512
     hidden_dim: int = 4096
     hidden_activation: str = "silu"
+    use_remat: bool = False
 
     def encoder_block_config(self):
         return blocks.BlockConfig(
@@ -118,12 +124,23 @@ class Transformer(nn.Module):
 
     # -- helpers ------------------------------------------------------------
 
+    def _block(self, layer, cfg, *args):
+        """``blocks.transformer_block``, recomputed in the backward under
+        ``use_remat``.  The recompute gets the parameter tensors this call
+        sees (under ``functional_call``, the caller's copies), not the
+        module's own."""
+        if self.cfg.use_remat and torch.is_grad_enabled():
+            return checkpoint(functional_call, layer,
+                              dict(layer.named_parameters()), (cfg, *args),
+                              use_reentrant=False)
+        return blocks.transformer_block(layer, cfg, *args)
+
     def encode(self, x_enc):
         """Coarse-token encoder half; returns (N, enc_Seq, D)."""
         h = core.embedding_lookup(self.enc_embedding, x_enc)
         h = h + self._positions(1, h.shape[1] + 1)[None].to(h.dtype)
         for layer in self.encoder_layers:
-            h = blocks.transformer_block(layer, self.enc_block_cfg, h)
+            h = self._block(layer, self.enc_block_cfg, h)
         return h
 
     def embed_decoder(self, x_dec):
@@ -141,6 +158,21 @@ class Transformer(nn.Module):
 
     def classify(self, h):
         return core.mlp2(self.classifier, h, get_activation("silu"))
+
+    # -- full teacher-forcing forward ---------------------------------------
+
+    def forward(self, x_dec, x_enc=None, pos_cond=None):
+        """Token ids (N, Seq) -> logits (N, Seq, out_dim); ``x_enc`` feeds
+        the encoder, ``pos_cond`` (N, Seq) holds absolute positions."""
+        cfg = self.cfg
+        enc_out = self.encode(x_enc) if cfg.use_encoder else None
+        h = self.embed_decoder(x_dec)
+        pos_cond_emb = (self.pos_cond_embedding(pos_cond)
+                        if cfg.use_pos_cond else None)
+        for layer in self.decoder_layers:
+            h = self._block(layer, self.dec_block_cfg, h, enc_out,
+                            pos_cond_emb)
+        return self.classify(h)
 
     # -- decode-engine primitives (KV-cached path) --------------------------
 

@@ -1,16 +1,20 @@
-"""Full-sequence self-attention forward (counterpart of
+"""Full-sequence self-attention (counterpart of
 ``qaig_tpu/ops/flash_attention.py``).
 
-On a CUDA tensor, :func:`flash_attention` launches the hand-written Hopper
-kernel of ``qaig_tpu_torch/csrc/flash_attention.cu`` (tiled K/V in shared
-memory, online float32 softmax, ragged S and the causal mask handled in the
-kernel, so no padding).  On a CPU tensor it runs
-:func:`flash_attention_reference`, the plain PyTorch version of the same
-function.  There is no other route: a CUDA input the kernel does not take
-raises.
+On a CUDA tensor, the forward of :func:`flash_attention` launches the
+hand-written Hopper kernel of ``qaig_tpu_torch/csrc/flash_attention.cu``
+(tiled K/V in shared memory, online float32 softmax, ragged S and the
+causal mask handled in the kernel, so no padding; head dims 8 to 128).  On
+a CPU tensor it runs :func:`flash_attention_reference`, the plain PyTorch
+version of the same function.  There is no other route: a CUDA input the
+kernel does not take raises.  The kernel reads and writes the projections'
+(N, S, H*dh) layout directly.
 
-The kernel reads and writes the projections' (N, S, H*dh) layout directly.
-Only the forward is ported; the attention backward belongs to training.
+The gradient is :func:`flash_attention_backward`, the JAX package's
+``custom_vjp`` backward (``_flash_bwd``): the log-sum-exp is recomputed
+from the saved (q, k, v, out) and dq, dk, dv are formed in float32 by plain
+tensor products, as XLA einsums form them there.  CPU and CUDA tensors go
+through the same ``autograd.Function``.
 """
 
 import ctypes
@@ -21,7 +25,7 @@ import torch
 from qaig_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (8, 16, 32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
@@ -37,44 +41,100 @@ def supported(q, k, v, heads, causal, kv_mask, q_offset):
     return q.shape[-1] % heads == 0
 
 
-def flash_attention_reference(q, k, v, heads, causal=False):
-    """Plain PyTorch attention over (N, S, D) tensors, float32 softmax,
-    output in q's dtype."""
-    n, s, d = q.shape
-    dh = d // heads
+def _split(x, heads):
+    """(N, S, H*dh) -> float32 (N, H, S, dh)."""
+    n, s, d = x.shape
+    return x.to(torch.float32).reshape(n, s, heads, d // heads).transpose(
+        1, 2)
 
-    def split(x):
-        return x.to(torch.float32).reshape(n, s, heads, dh).transpose(1, 2)
 
-    qh, kh, vh = split(q), split(k), split(v)
-    scores = (qh @ kh.transpose(-1, -2)) * (1.0 / math.sqrt(dh))
+def _merge(x, like):
+    """(N, H, S, dh) -> (N, S, H*dh) in ``like``'s dtype."""
+    return x.transpose(1, 2).reshape(like.shape).to(like.dtype)
+
+
+def _scores(q, k, heads, causal):
+    """Scaled float32 scores (N, H, S, S), future keys -inf when causal."""
+    s = q.shape[1]
+    scores = (_split(q, heads) @ _split(k, heads).transpose(-1, -2)) * (
+        1.0 / math.sqrt(q.shape[2] // heads))
     if causal:
         future = torch.ones(s, s, dtype=torch.bool,
                             device=q.device).triu(1)
         scores = scores.masked_fill(future, float("-inf"))
-    out = torch.softmax(scores, dim=-1) @ vh
-    return out.transpose(1, 2).reshape(n, s, d).to(q.dtype)
+    return scores
+
+
+def flash_attention_reference(q, k, v, heads, causal=False):
+    """Plain PyTorch attention over (N, S, D) tensors, float32 softmax,
+    output in q's dtype."""
+    probs = torch.softmax(_scores(q, k, heads, causal), dim=-1)
+    return _merge(probs @ _split(v, heads), q)
+
+
+def flash_attention_backward(q, k, v, out, dout, heads, causal):
+    """Gradients (dq, dk, dv) of :func:`flash_attention_reference` at
+    (q, k, v) with output ``out`` and output gradient ``dout``, all
+    (N, S, D): ``_flash_bwd`` of the JAX package, in float32, returned in
+    the inputs' dtypes."""
+    scale = 1.0 / math.sqrt(q.shape[2] // heads)
+    scores = _scores(q, k, heads, causal)
+    lse = torch.logsumexp(scores, dim=-1, keepdim=True)  # recomputed
+    p = torch.exp(scores - lse)
+    qf, kf, vf, do, of = (_split(x, heads) for x in (q, k, v, dout, out))
+    dv = p.transpose(-1, -2) @ do
+    dp = do @ vf.transpose(-1, -2)
+    delta = (do * of).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = (ds @ kf) * scale
+    dk = (ds.transpose(-1, -2) @ qf) * scale
+    return _merge(dq, q), _merge(dk, k), _merge(dv, v)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, heads, causal):
+        if q.device.type == "cpu":
+            out = flash_attention_reference(q, k, v, heads, causal)
+        else:
+            out = _launch(q, k, v, heads, causal)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.heads, ctx.causal = heads, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        if q.device.type != "cpu":
+            flash_attention.backward_calls += 1
+        return (*flash_attention_backward(q, k, v, out, dout, ctx.heads,
+                                          ctx.causal), None, None)
 
 
 def flash_attention(q, k, v, heads, causal=False):
     """Self-attention over projected (N, S, D) tensors; returns (N, S, D)
-    in q's dtype.  Kernel on CUDA tensors, plain version on CPU tensors."""
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, heads, causal)
+    in q's dtype.  Kernel on CUDA tensors, plain version on CPU tensors;
+    differentiable in q, k and v on both."""
+    return _FlashAttention.apply(q, k, v, heads, bool(causal))
+
+
+# kernel launches of the forward, and backward passes on CUDA tensors
+flash_attention.launches = 0
+flash_attention.backward_calls = 0
+
+
+def _launch(q, k, v, heads, causal):
     _check_kernel_inputs(q, k, v, heads)
     n, s, d = q.shape
     out = torch.empty_like(q)
     fn = cuda_build.function("flash_attention", "qaig_flash_attention_fwd",
                              _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             n, s, heads, d // heads, int(bool(causal)), _DTYPES[q.dtype],
+             n, s, heads, d // heads, int(causal), _DTYPES[q.dtype],
              cuda_build.stream_handle(q))
     cuda_build.check("flash_attention", err)
     flash_attention.launches += 1
     return out
-
-
-flash_attention.launches = 0
 
 
 def _check_kernel_inputs(q, k, v, heads):
@@ -95,7 +155,8 @@ def _check_kernel_inputs(q, k, v, heads):
     dh = q.shape[2] // heads
     if dh not in _HEAD_DIMS:
         raise ValueError(
-            f"flash_attention: head dim {dh} not in {_HEAD_DIMS}")
+            f"flash_attention: the kernel has no head dim {dh}; it takes "
+            f"head dims {', '.join(map(str, _HEAD_DIMS))}")
     if q.shape[0] * heads > 65535:
         raise ValueError("flash_attention: N * heads exceeds the grid's "
                          "y dimension (65535)")

@@ -1,12 +1,19 @@
-"""Loaders shared by the stages (the generation half of
+"""Plumbing shared by the stages (counterpart of
 ``qaig_tpu/train/common.py``): config load, device selection, dtype casts,
-flat-state restore, and rebuilding the FC decoder and codebooks from their
-checkpoints.
+flat-state restore, rebuilding the FC decoder and codebooks from their
+checkpoints, checkpoint discovery and retention (pickle checkpoints only),
+throughput and metrics logs, a ``torch.profiler`` window, and the NaN
+guard.  Model and optimizer states cross to and from ``qaig_tpu``'s
+checkpoint schema through ``qaig_tpu_torch.convert``.
 """
 
 import json
 import os
+import re
+import time
+from pathlib import Path
 
+import numpy as np
 import torch
 
 from qaig_tpu_torch.convert import load_jax_state
@@ -110,3 +117,128 @@ def codebook_from_checkpoint(ckpt, device, logging=print):
         device=device), device)
     restore_model_state(model, ckpt["checkpoint"], logging=logging)
     return model
+
+
+def _checkpoint_complete(path):
+    """Pickle checkpoints are written atomically (tmp + rename), so a
+    non-empty file is complete."""
+    return os.path.isfile(path) and os.path.getsize(path) > 0
+
+
+def _list_checkpoints(out_dir, prefix):
+    """Every ``<prefix>_<N>.pt`` under ``<out_dir>/models_checkpoint`` as
+    ``(N, path)``, newest first: the one naming contract that discovery
+    and retention share."""
+    folder = Path(out_dir) / "models_checkpoint"
+    if not folder.is_dir():
+        return []
+    pattern = re.compile(rf"{re.escape(prefix)}_(\d+)\.pt")
+    return sorted(((int(m.group(1)), p) for p in folder.iterdir()
+                   if (m := pattern.fullmatch(p.name))), reverse=True)
+
+
+def find_latest_checkpoint(out_dir, prefix="model", logging=None):
+    """Newest complete ``<prefix>_<N>.pt`` under
+    ``<out_dir>/models_checkpoint`` as ``(path, N)``, or ``(None, -1)``
+    (``--auto-resume``).  An incomplete file is skipped for the one
+    before it."""
+    for n, path in _list_checkpoints(out_dir, prefix):
+        if _checkpoint_complete(path):
+            return path, n
+        if logging is not None:
+            logging(f"Auto-resume: skipping incomplete checkpoint {path} "
+                    "(interrupted write).")
+    return None, -1
+
+
+def prune_checkpoints(out_dir, keep, prefix="model", logging=None):
+    """Delete all but the ``keep`` newest ``<prefix>_<N>.pt`` checkpoints
+    (``--keep-checkpoints``; call only after a successful save)."""
+    if not keep or keep < 1:
+        return
+    for _, path in _list_checkpoints(out_dir, prefix)[keep:]:
+        try:
+            path.unlink()
+            if logging is not None:
+                logging(f"Pruned old checkpoint {path.name} "
+                        f"(--keep-checkpoints {keep}).")
+        except OSError as e:
+            if logging is not None:
+                logging(f"Could not prune {path}: {e}")
+
+
+class ThroughputMeter:
+    """Samples/s between metric syncs (each sync reads the loss, which
+    waits for the device, so the wall-clock deltas are honest).  The
+    first call returns None."""
+
+    def __init__(self, batch_size):
+        self.batch_size = batch_size
+        self._last_step = None
+        self._last_t = None
+
+    def rate(self, step):
+        now = time.monotonic()
+        prev_step, prev_t = self._last_step, self._last_t
+        self._last_step, self._last_t = step, now
+        if prev_step is None or step <= prev_step or now <= prev_t:
+            return None
+        return round((step - prev_step) * self.batch_size / (now - prev_t),
+                     2)
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics stream (``<out>/metrics.jsonl``)."""
+
+    def __init__(self, out_dir):
+        self.path = os.path.join(str(out_dir), "metrics.jsonl")
+        self._fh = open(self.path, "a")
+
+    def log(self, **fields):
+        self._fh.write(json.dumps(fields) + "\n")
+        self._fh.flush()
+
+    def close(self):
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+
+
+class Profiler:
+    """``torch.profiler`` trace of train steps [start, start + steps)
+    (``--profile-dir d [--profile-start s --profile-steps n]``), written
+    as a Chrome trace ``d/trace_<start>.json``."""
+
+    def __init__(self, args):
+        self.dir = args.get("profile_dir")
+        self.start = args.get("profile_start", 5)
+        self.steps = args.get("profile_steps", 5)
+        self._prof = None
+
+    def step(self, global_step):
+        if not self.dir:
+            return
+        if global_step == self.start and self._prof is None:
+            from torch.profiler import ProfilerActivity, profile
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            self._prof = profile(activities=activities)
+            self._prof.__enter__()
+        elif self._prof is not None \
+                and global_step >= self.start + self.steps:
+            self.close()
+
+    def close(self):
+        if self._prof is None:
+            return
+        self._prof.__exit__(None, None, None)
+        os.makedirs(str(self.dir), exist_ok=True)
+        self._prof.export_chrome_trace(
+            os.path.join(str(self.dir), f"trace_{self.start}.json"))
+        self._prof = None
+
+
+def check_finite(loss, context="training"):
+    if not np.isfinite(loss):
+        raise FloatingPointError(f"NaN encountered during {context}.")

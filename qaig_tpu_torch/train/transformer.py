@@ -1,0 +1,487 @@
+"""Quantized-transformer training stage, base and cascade modes, on one
+device (counterpart of ``qaig_tpu/train/transformer.py``).
+
+Each step: tokenize a feature-map batch against the LR and HR codebooks
+(the BMU kernel on the card), assemble the sequences (cascade: a <start>
+token = hr_K before the HR tokens, LR tokens into the encoder; base: LR
+tokens then shifted HR tokens), cut one random window per sample with its
+absolute positions as AdaLN conditioning when the model slides, run the
+teacher-forced forward and the cross-entropy against HR tokens + <end>
+(= hr_K), backward, and one Adam(0.5, 0.999) update with LR halving.
+Checkpoints use ``qaig_tpu``'s schema (model, optax-form optimizer state,
+EMA, step counter) and come with the autoregressive image preview.
+
+The window starts are drawn on the host from a CPU ``torch.Generator``, so
+a seed gives the same windows on the card and on the CPU.  ``bf16`` runs
+the forward and backward on a bfloat16 copy of every parameter
+(``torch.func.functional_call``) while the master weights, Adam moments
+and loss stay float32, as the JAX package casts its parameter tree; the
+codebooks are never cast, so tokens match the float32 pipeline.
+"""
+
+import copy
+
+import torch
+import torch.nn.functional as F
+from torch.func import functional_call
+
+from qaig_tpu_torch.convert import (load_optax_state, to_jax_state,
+                                    to_optax_state)
+from qaig_tpu_torch.data.fmap_dataset import FeatureMapDataset
+from qaig_tpu_torch.data.loader import DataLoader
+from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
+from qaig_tpu_torch.models.core import init_parameters
+from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
+from qaig_tpu_torch.train import common, optim
+from qaig_tpu_torch.utils.checkpoint import load_model, save_model
+from qaig_tpu_torch.utils.image_io import save_images
+from qaig_tpu_torch.utils.logging_utils import setup_logging
+
+PROJECT_NAME = "Quantized Transformer"
+
+
+def build_transformer_config(config_dict, train_base_model, lr_num_embeddings,
+                             hr_num_embeddings, use_remat=False):
+    """The model of a training config: base = decoder-only over the joint
+    LR + HR vocabulary; cascade = encoder over LR tokens, decoder over HR
+    tokens + <start>; both predict HR tokens + <end>."""
+    if train_base_model:
+        num_enc_layers = 0
+        num_enc_embedding = 0
+        cross_attn_heads = 0
+        num_dec_embedding = lr_num_embeddings + hr_num_embeddings
+    else:
+        num_enc_layers = config_dict["num_enc_layers"]
+        num_enc_embedding = lr_num_embeddings
+        cross_attn_heads = config_dict["cross_attn_heads"]
+        num_dec_embedding = hr_num_embeddings + 1  # includes <start>
+
+    return TransformerConfig(
+        use_encoder=not train_base_model,
+        use_pos_cond=config_dict["use_sliding_window"],
+        num_enc_layers=num_enc_layers,
+        num_dec_layers=config_dict["num_dec_layers"],
+        num_enc_embedding=max(num_enc_embedding, 1),
+        num_dec_embedding=num_dec_embedding,
+        self_attn_heads=config_dict["self_attn_heads"],
+        cross_attn_heads=cross_attn_heads,
+        in_dim=config_dict["in_dim"],
+        out_dim=hr_num_embeddings + 1,  # includes <end>
+        hidden_dim=config_dict["hidden_dim"],
+        hidden_activation=config_dict["hidden_activation"],
+        use_remat=use_remat)
+
+
+def assemble_sequences(lr_indices, hr_indices, train_base_model,
+                       lr_num_embeddings, hr_num_embeddings):
+    """(hr_input, lr_input, hr_target) from the (N, Seq) BMU token grids;
+    ``lr_input`` is None in base mode."""
+    n = hr_indices.shape[0]
+    end = torch.full((n, 1), hr_num_embeddings, dtype=hr_indices.dtype,
+                     device=hr_indices.device)
+    hr_target = torch.cat([hr_indices, end], dim=1)
+    if train_base_model:
+        hr_input = torch.cat([lr_indices, hr_indices + lr_num_embeddings],
+                             dim=1)
+        return hr_input, None, hr_target
+    hr_input = torch.cat([end, hr_indices], dim=1)  # <start> = hr_K
+    return hr_input, lr_indices, hr_target
+
+
+def slice_windows(hr_input, hr_target, starts, window):
+    """Row ``i``'s length-``window`` slice from ``starts[i]``, of input and
+    target, and its absolute positions (N, window)."""
+    pos = starts[:, None] + torch.arange(window, device=starts.device)
+    return hr_input.gather(1, pos), hr_target.gather(1, pos), pos
+
+
+def sample_windows(generator, hr_input, hr_target, window):
+    """One uniformly drawn window per sample: starts from ``generator``
+    (drawn on its device, moved to the sequences'), then
+    :func:`slice_windows`."""
+    n, seq_in = hr_input.shape
+    starts = torch.randint(0, seq_in - window + 1, (n,), generator=generator,
+                           device=generator.device)
+    return slice_windows(hr_input, hr_target, starts.to(hr_input.device),
+                         window)
+
+
+def tokenize_batch(batch, generator, lr_codebook, hr_codebook,
+                   train_base_model, lr_num_embeddings, hr_num_embeddings,
+                   sliding_window=None):
+    """Feature maps (N, C, H, W) float32 -> (hr_input, lr_input, hr_target,
+    pos_cond): BMU tokens, assembled, windowed when the model slides."""
+    lr_idx = lr_codebook.get_patches_bmu(batch, reshape=True)
+    hr_idx = hr_codebook.get_patches_bmu(batch, reshape=True)
+    hr_input, lr_input, hr_target = assemble_sequences(
+        lr_idx, hr_idx, train_base_model, lr_num_embeddings,
+        hr_num_embeddings)
+    pos_cond = None
+    if sliding_window is not None:
+        hr_input, hr_target, pos_cond = sample_windows(
+            generator, hr_input, hr_target, sliding_window)
+    return hr_input, lr_input, hr_target, pos_cond
+
+
+def make_train_step(model, optimizer, lr_codebook, hr_codebook,
+                    train_base_model, lr_num_embeddings, hr_num_embeddings,
+                    sliding_window=None, bf16=False, grad_accum=1,
+                    grad_clip=None, scheduler=None, debug_nans=False):
+    """``step(batch, generator) -> loss``: tokenize, forward, backward and
+    one ``optimizer`` update of ``model`` in place (then ``scheduler``).
+
+    ``bf16``: forward and backward on bfloat16 copies of the parameters,
+    float32 master weights, gradients, moments and loss.  ``grad_accum``:
+    the batch in that many equal chunks, gradients summed, one update (the
+    mean of chunk means is the full mean).  ``grad_clip``: scale the
+    gradients to that global norm at most before the update.
+    ``debug_nans``: autograd anomaly detection over forward and backward."""
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def loss_fn(hr_in, lr_in, hr_tgt, pos_cond):
+        kwargs = {"x_enc": lr_in, "pos_cond": pos_cond}
+        if bf16:
+            cast = {name: p.to(torch.bfloat16)
+                    for name, p in model.named_parameters()}
+            logits = functional_call(model, cast, (hr_in,), kwargs)
+        else:
+            logits = model(hr_in, **kwargs)
+        return F.cross_entropy(
+            logits.to(torch.float32).reshape(-1, logits.shape[-1]),
+            hr_tgt.reshape(-1))
+
+    def step(batch, generator):
+        parts = tokenize_batch(batch, generator, lr_codebook, hr_codebook,
+                               train_base_model, lr_num_embeddings,
+                               hr_num_embeddings, sliding_window)
+        optimizer.zero_grad(set_to_none=True)
+        chunks = [[None] * grad_accum if x is None else x.chunk(grad_accum)
+                  for x in parts]
+        loss = 0.0
+        with torch.autograd.set_detect_anomaly(debug_nans):
+            for chunk in zip(*chunks):
+                chunk_loss = loss_fn(*chunk)
+                (chunk_loss / grad_accum).backward()
+                loss = loss + chunk_loss.detach()
+        loss = loss / grad_accum
+        if grad_clip is not None:
+            grads = [p.grad for p in params if p.grad is not None]
+            gnorm = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12),
+                                max=1.0)
+            for g in grads:
+                g.mul_(scale)
+        optimizer.step()
+        if scheduler is not None:
+            scheduler.step()
+        return loss.detach()
+
+    return step
+
+
+def checkpoint_dict(cfg, train_base_model, sliding_window):
+    """A checkpoint's self-describing hyperparameters (``qaig_tpu``'s
+    schema); the caller fills the states."""
+    return {
+        "train_base_model": train_base_model,
+        "use_sliding_window": cfg.use_pos_cond,
+        "sliding_window": sliding_window,
+        "num_enc_embedding": (cfg.num_enc_embedding if cfg.use_encoder
+                              else None),
+        "num_dec_embedding": cfg.num_dec_embedding,
+        "num_enc_layers": cfg.num_enc_layers if cfg.use_encoder else None,
+        "num_dec_layers": cfg.num_dec_layers,
+        "self_attn_heads": cfg.self_attn_heads,
+        "cross_attn_heads": (cfg.cross_attn_heads if cfg.use_encoder
+                             else None),
+        "transformer_in_dim": cfg.in_dim,
+        "transformer_out_dim": cfg.out_dim,
+        "transformer_hidden_dim": cfg.hidden_dim,
+        "hidden_activation": cfg.hidden_activation,
+        "model": None,
+        "model_optimizer": None,
+    }
+
+
+def generate_preview_tokens(engine, feature_map, lr_codebook,
+                            train_base_model, lr_num_embeddings,
+                            hr_num_embeddings, total_hr_seq, temperature,
+                            sliding_window, generator):
+    """Checkpoint-time autoregressive preview: HR-vocabulary tokens
+    (N, total_hr_seq) by single-path sampling from the feature maps' LR
+    tokens."""
+    lr_tokens = lr_codebook.get_patches_bmu(feature_map, reshape=True)
+    n = lr_tokens.shape[0]
+    if train_base_model:
+        init, x_enc, shift = lr_tokens, None, lr_num_embeddings
+    else:
+        init = torch.full((n, 1), hr_num_embeddings, dtype=torch.long,
+                          device=lr_tokens.device)
+        x_enc, shift = lr_tokens, 0
+    settings = SamplerSettings(
+        temperature=temperature, end_token=hr_num_embeddings,
+        end_mode="replace_zero", index_shift=shift)
+    tokens = engine.generate(init, total_hr_seq, generator, settings,
+                             x_enc=x_enc, sliding_window=sliding_window)
+    return tokens - shift
+
+
+def _load(path, what, log):
+    status, ckpt = load_model(path, logging=log.info)
+    if not status:
+        raise RuntimeError(f"An error occured while loading {what} "
+                           "checkpoint!")
+    return ckpt
+
+
+def run(args):
+    """Train from the CLI flags in ``args`` (a dict); returns the model.
+    ``device`` defaults to ``cuda``."""
+    device = common.select_device(args.get("device") or "cuda")
+    out_dir = common.ensure_dir(args["out_dir"])
+    log = setup_logging(out_dir, PROJECT_NAME)
+    profiler = common.Profiler(args)
+    metrics = common.MetricsLogger(out_dir)
+
+    config_dict = common.load_config(args["config_path"])
+    model_lr = config_dict["model_lr"]
+    train_base_model = args.get("train_base_model", False)
+    temperature = args.get("temperature", 1.0)
+    test_num_sample = args.get("test_num_sample", 25)
+    lr_update_step = args.get("lr_step", 50_000)
+    checkpoint_step = args.get("checkpoint_step", 1_000)
+    batch_size = args.get("batch_size", 8)
+    max_epoch = args.get("max_epoch", 1_000)
+    max_steps = args.get("max_steps")
+    seed = args.get("seed", 0)
+    grad_accum = int(args.get("grad_accum") or 1)
+    if grad_accum < 1 or batch_size % grad_accum:
+        raise ValueError(f"--grad-accum {grad_accum} must be >= 1 and "
+                         f"divide the batch size {batch_size}")
+
+    # pre-trained decoder and codebooks (frozen; the codebooks stay float32)
+    decoder, _ = common.decoder_from_checkpoint(
+        _load(args["decoder_path"], "decoder model", log), device,
+        logging=log.info)
+    lr_codebook = common.codebook_from_checkpoint(
+        _load(args["lr_codebook_path"], "Low-Resolution codebook", log),
+        device, logging=log.info)
+    hr_codebook = common.codebook_from_checkpoint(
+        _load(args["hr_codebook_path"], "High-Resolution codebook", log),
+        device, logging=log.info)
+    lr_num_embeddings = lr_codebook.num_embeddings
+    hr_num_embeddings = hr_codebook.num_embeddings
+    total_hr_seq = hr_codebook.seq_len
+
+    use_sliding_window = config_dict["use_sliding_window"]
+    sliding_window = (config_dict["sliding_window"] if use_sliding_window
+                      else None)
+    cfg = build_transformer_config(
+        config_dict, train_base_model, lr_num_embeddings, hr_num_embeddings,
+        use_remat=args.get("use_activation_checkpoint", False))
+    model = init_parameters(Transformer(cfg, device=device),
+                            torch.Generator(device=device).manual_seed(seed))
+    optimizer, scheduler = optim.make_adam(model.parameters(), model_lr,
+                                           lr_update_step)
+
+    ema_decay = args.get("ema_decay")
+    ema_model = None
+    if ema_decay is not None:
+        ema_decay = float(ema_decay)
+        if not 0.0 <= ema_decay < 1.0:
+            raise ValueError(
+                f"--ema-decay must be in [0, 1), got {ema_decay}")
+    grad_clip = args.get("grad_clip")
+    if grad_clip is not None:
+        grad_clip = float(grad_clip)
+        if not grad_clip > 0.0:
+            raise ValueError(f"--grad-clip must be > 0, got {grad_clip}")
+
+    # --auto-resume: continue from the newest checkpoint in out_dir (model,
+    # optimizer, EMA and step counter); an explicit --model-path wins
+    resume_steps = None
+    if args.get("auto_resume") and not args.get("model_path"):
+        latest, latest_n = common.find_latest_checkpoint(out_dir,
+                                                         logging=log.info)
+        if latest is None:
+            log.info("Auto-resume: no checkpoint under "
+                     f"{out_dir}/models_checkpoint; starting fresh.")
+        else:
+            args = dict(args, model_path=latest, load_optim=True)
+            resume_steps = latest_n
+            log.info(f"Auto-resume: continuing from {latest}")
+
+    if args.get("model_path"):
+        ckpt = _load(args["model_path"], "model", log)
+        common.restore_model_state(model, ckpt["model"], logging=log.info)
+        if args.get("auto_resume"):
+            resume_steps = int(ckpt.get("global_steps", resume_steps or 0))
+        if ema_decay is not None and ckpt.get("model_ema") is not None:
+            ema_model = copy.deepcopy(model)
+            common.restore_model_state(ema_model, ckpt["model_ema"],
+                                       logging=log.info)
+        if args.get("load_optim") and ckpt.get("model_optimizer") is not None:
+            try:
+                count = load_optax_state(model, optimizer,
+                                         ckpt["model_optimizer"],
+                                         logging=log.info)
+                optim.set_update_count(optimizer, scheduler, count)
+            except Exception as e:
+                log.info(f"Could not restore optimizer state: {e}")
+    if ema_decay is not None and ema_model is None:
+        ema_model = copy.deepcopy(model)
+    if ema_model is not None:
+        ema_model.requires_grad_(False)
+        ema_params = list(ema_model.parameters())
+        live_params = list(model.parameters())
+
+    dataset = FeatureMapDataset(args["dataset_path"])
+    loader = DataLoader(dataset, batch_size=batch_size, seed=seed)
+    test_loader = DataLoader(dataset,
+                             batch_size=min(test_num_sample, len(dataset)),
+                             seed=seed + 1)
+    skip_preview = bool(args.get("skip_preview"))
+
+    train_step = make_train_step(
+        model, optimizer, lr_codebook, hr_codebook, train_base_model,
+        lr_num_embeddings, hr_num_embeddings, sliding_window,
+        bf16=bool(args.get("bf16")), grad_accum=grad_accum,
+        grad_clip=grad_clip, scheduler=scheduler,
+        debug_nans=bool(args.get("debug_nans")))
+    engine = DecodeEngine(model)
+
+    n_params = sum(p.numel() for p in model.parameters())
+    log.info(PROJECT_NAME)
+    log.info(f"Output Dir: {out_dir}")
+    log.info(f"Device: {device}")
+    log.info(f"Model size: {n_params:,}")
+    log.info("#" * 100)
+    log.info("Codebook Parameters.")
+    log.info(f"Low Res Patch size: {lr_codebook.patch_dim}")
+    log.info(f"Low Res Num Embeddings: {lr_num_embeddings:,}")
+    log.info(f"High Res Patch size: {hr_codebook.patch_dim}")
+    log.info(f"High Res Num Embeddings: {hr_num_embeddings:,}")
+    log.info("#" * 100)
+    log.info("Transformer Parameters.")
+    if use_sliding_window:
+        log.info(f"Sliding Window: {sliding_window:,}")
+    log.info(f"Num Decoder Embedding: {cfg.num_dec_embedding:,}")
+    log.info(f"Num Decoder Layers: {cfg.num_dec_layers:,}")
+    log.info(f"Self Attention Heads: {cfg.self_attn_heads:,}")
+    log.info(f"In Dim: {cfg.in_dim:,}")
+    log.info(f"Out Dim: {cfg.out_dim:,}")
+    log.info(f"Hidden Dim: {cfg.hidden_dim:,}")
+    log.info(f"Hidden activation: {cfg.hidden_activation}")
+    log.info("#" * 100)
+    log.info("Training Parameters.")
+    log.info(f"Max Epoch: {max_epoch:,}")
+    log.info(f"Batch Size: {batch_size:,}")
+    log.info(f"Model LR Update size: {lr_update_step:,}")
+    log.info(f"Model Checkpoint step: {checkpoint_step:,}")
+    if grad_accum > 1:
+        log.info(f"Gradient accumulation: {grad_accum}")
+    if ema_decay is not None:
+        log.info(f"EMA decay: {ema_decay}")
+    if grad_clip is not None:
+        log.info(f"Gradient clip (global norm): {grad_clip}")
+    log.info("#" * 100)
+
+    # window starts on the host (the same on any device); preview sampling
+    # on the model's device
+    window_generator = torch.Generator().manual_seed(seed)
+    sample_generator = torch.Generator(device=device).manual_seed(seed)
+    log_every = args.get("log_every", 1)
+    throughput = common.ThroughputMeter(batch_size)
+    # a checkpoint saved at counter N already holds update N, so a resumed
+    # run continues at N + 1 and applies exactly the updates an
+    # uninterrupted one would
+    global_steps = 0 if resume_steps is None else resume_steps + 1
+    if resume_steps is not None:
+        log.info(f"Resuming at global step {global_steps:,}.")
+
+    def dump(images, name):
+        save_images(images.float().cpu().numpy(), name, out_dir,
+                    logging=log.info)
+
+    @torch.inference_mode()
+    def preview(step):
+        fmap = torch.from_numpy(next(iter(test_loader))).to(device)
+        dump(decoder(fmap), f"ground_truth_{step}")
+        dump(decoder(lr_codebook(
+            fmap, neighbourhood_range=lr_codebook.neighbourhood_range)),
+            f"low_res_cond_{step}")
+        dump(decoder(hr_codebook(
+            fmap, neighbourhood_range=hr_codebook.neighbourhood_range)),
+            f"high_res_example_{step}")
+        tokens = generate_preview_tokens(
+            engine, fmap, lr_codebook, train_base_model, lr_num_embeddings,
+            hr_num_embeddings, total_hr_seq, temperature, sliding_window,
+            sample_generator)
+        dump(decoder(hr_codebook.get_quantized_image(tokens)),
+             f"high_res_recon_{step}")
+
+    stop = False
+    for _ in range(max_epoch):
+        total_loss = 0.0
+        iteration_count = 0
+        loss_acc = torch.zeros((), device=device)
+        for index, feature_map in enumerate(loader):
+            profiler.step(global_steps)
+            batch = torch.from_numpy(feature_map).to(device)
+            loss = train_step(batch, window_generator)
+            if ema_model is not None:
+                with torch.no_grad():
+                    torch._foreach_mul_(ema_params, ema_decay)
+                    torch._foreach_add_(ema_params, live_params,
+                                        alpha=1.0 - ema_decay)
+            iteration_count += 1
+            loss_acc += loss
+            should_sync = (log_every <= 1
+                           or (global_steps + 1) % log_every == 0
+                           or global_steps % checkpoint_step == 0)
+            if should_sync:
+                total_loss = float(loss_acc)
+                common.check_finite(total_loss)
+
+            if global_steps % checkpoint_step == 0:
+                ckpt = checkpoint_dict(cfg, train_base_model, sliding_window)
+                ckpt["global_steps"] = global_steps
+                ckpt["model"] = to_jax_state(model)
+                ckpt["model_optimizer"] = to_optax_state(
+                    model, optimizer, scheduled=scheduler is not None)
+                if ema_model is not None:
+                    ckpt["model_ema"] = to_jax_state(ema_model)
+                save_status = save_model(ckpt, dest_path=out_dir,
+                                         file_name=f"model_{global_steps}.pt",
+                                         logging=log.info)
+                log.info("Successfully saved model." if save_status
+                         else "Error occured saving model.")
+                if save_status and args.get("keep_checkpoints"):
+                    common.prune_checkpoints(
+                        out_dir, int(args["keep_checkpoints"]),
+                        logging=log.info)
+                if not skip_preview:
+                    preview(global_steps)
+
+            lr_now = optim.current_lr(model_lr, lr_update_step,
+                                      global_steps + 1)
+            if should_sync:
+                avg = total_loss / iteration_count
+                log.info(
+                    "Cum. Steps: {:,} | Steps: {:,} / {:,} | L.R.: {:.8f} | "
+                    "Recon Loss: {:.5f}".format(
+                        global_steps + 1, index + 1, len(loader), lr_now,
+                        avg))
+                metrics.log(step=global_steps + 1, lr=lr_now, ce_loss=avg,
+                            samples_per_sec=throughput.rate(
+                                global_steps + 1))
+            global_steps += 1
+            if max_steps and global_steps >= max_steps:
+                stop = True
+                break
+        if stop:
+            break
+    profiler.close()
+    metrics.close()
+    return model

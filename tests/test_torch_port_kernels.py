@@ -6,7 +6,14 @@ machine with the card:
 
 Tolerance: atol 2e-2 in bf16 (both round the same float32 result to bf16,
 so they differ by at most one bf16 step at these magnitudes) and 1e-5 in
-float32 (summation order only).
+float32 (summation order only).  Attention gradients: atol 5e-2 in bf16
+(the kernel's bf16 output enters the backward's delta term and the
+gradients are rounded to bf16) and 1e-4 in float32 (products over S keys
+in another order).  BMU indices: the near-tie rule of
+``qaig_tpu_torch.ops.bmu.near_tie_agreement`` (equal wherever the best and
+second-best float64 distances are more than 1e-5 * max(1, |best|) apart;
+elsewhere the kernel's pick lies within that margin of the minimum);
+duplicated codes give the first index exactly.
 """
 
 import pytest
@@ -59,7 +66,7 @@ def test_decode_kernels_match_plain(cuda, dtype, b, bw, s, index0,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
 @pytest.mark.parametrize("s", [1, 13, 64, 100, 255])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, dh, s, causal):
@@ -74,12 +81,96 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, dh, s, causal):
                                atol=TOL[dtype])
 
 
+GRAD_TOL = {torch.bfloat16: 5e-2, torch.float32: 1e-4}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,dh", [(64, 8), (4, 32)])
+@pytest.mark.parametrize("s,causal", [(256, True), (64, False), (13, True)])
+def test_flash_attention_gradient_matches_plain(cuda, dtype, heads, dh, s,
+                                                causal):
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(s + dh)
+    q, k, v = (_rand(gen, 2, s, heads * dh, dtype=dtype).requires_grad_()
+               for _ in range(3))
+    weight = torch.randn(2, s, heads * dh, generator=gen, device=cuda)
+    calls = fa.flash_attention.backward_calls
+    got = torch.autograd.grad(
+        (fa.flash_attention(q, k, v, heads, causal=causal).float()
+         * weight).sum(), (q, k, v))
+    assert fa.flash_attention.backward_calls == calls + 1
+    want = torch.autograd.grad(
+        (fa.flash_attention_reference(q, k, v, heads, causal).float()
+         * weight).sum(), (q, k, v))
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("m,d,k", [(2048, 16, 512), (512, 64, 512),
+                                   (128, 256, 512), (8, 4096, 512),
+                                   (300, 16, 64), (1, 8, 1),
+                                   (77, 40, 4096)])
+def test_bmu_kernel_matches_plain(cuda, m, d, k):
+    from qaig_tpu_torch.ops import bmu
+
+    gen = torch.Generator(device=cuda).manual_seed(m + d + k)
+    patches = torch.randn(m, d, generator=gen, device=cuda)
+    codes = torch.randn(k, d, generator=gen, device=cuda) * 0.5
+    launches = bmu.fused_bmu.launches
+    got = bmu.bmu_argmin(patches, codes)
+    assert bmu.fused_bmu.launches == launches + 1
+    assert got.dtype == torch.int64 and got.shape == (m,)
+    bmu.near_tie_agreement(patches, codes, got,
+                           bmu.bmu_argmin_reference(patches, codes))
+
+
+def test_bmu_kernel_duplicated_codes_give_the_first_index(cuda):
+    from qaig_tpu_torch.ops import bmu
+
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    codes = torch.randn(64, 16, generator=gen, device=cuda)
+    codes = torch.cat([codes, codes, codes]).contiguous()   # K 192
+    patches = codes[torch.randint(0, 64, (500,), generator=gen,
+                                  device=cuda)] + 1e-3 * torch.randn(
+        500, 16, generator=gen, device=cuda)
+    patches = patches.contiguous()
+    got = bmu.fused_bmu(patches, codes)
+    # the first of three equal distances, and the nearest of the 64 codes
+    assert bool((got < 64).all())
+    bmu.near_tie_agreement(patches, codes[:64], got,
+                           bmu.bmu_argmin_reference(patches, codes[:64]))
+
+
+def test_bmu_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from qaig_tpu_torch.ops import bmu
+
+    p = torch.zeros(4, 16, device=cuda)
+    c = torch.zeros(8, 16, device=cuda)
+    launches = bmu.fused_bmu.launches
+    for patches, codes, match in (
+            (p.double(), c.double(), "float32"),
+            (p[:, ::2], c[:, ::2], "not contiguous"),
+            (torch.zeros(4, 4, device=cuda), torch.zeros(8, 4, device=cuda),
+             "outside"),
+            (torch.zeros(1, 4104, device=cuda),
+             torch.zeros(1, 4104, device=cuda), "outside"),
+            (p, torch.zeros(4097, 16, device=cuda), "outside"),
+            (p, torch.zeros(8, 32, device=cuda), "codes"),
+            (torch.zeros(0, 16, device=cuda), c, "M = 0")):
+        with pytest.raises(ValueError, match=match):
+            bmu.bmu_argmin(patches, codes)
+    assert bmu.fused_bmu.launches == launches
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from qaig_tpu_torch.ops import decode_attention as da
     from qaig_tpu_torch.ops import flash_attention as fa
 
-    x = torch.zeros(2, 8, 4 * 16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):
+    x = torch.zeros(2, 8, 4 * 24, device=cuda)
+    with pytest.raises(ValueError, match="head dim 24"):
         fa.flash_attention(x, x, x, 4)
     y = torch.zeros(2, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="not contiguous"):

@@ -216,12 +216,16 @@ def test_patch_posemb_activations_match_jax():
 def test_non_cpu_tensors_never_take_the_plain_version():
     """Only a CPU tensor runs the plain version: any other device goes to
     the kernel wrapper, which refuses what it cannot launch."""
+    from qaig_tpu_torch.ops.bmu import bmu_argmin, fused_bmu
     from qaig_tpu_torch.ops.decode_attention import (
         shared_prefix_attention_fused_t)
     from qaig_tpu_torch.ops.flash_attention import flash_attention
 
     before = (flash_attention.launches,
-              shared_prefix_attention_fused_t.launches)
+              shared_prefix_attention_fused_t.launches, fused_bmu.launches)
+    p = torch.empty(16, 16, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        bmu_argmin(p, p)
     x = torch.empty(2, 4, 128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         flash_attention(x, x, x, 2)
@@ -231,4 +235,5 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     with pytest.raises(ValueError, match="unsupported device"):
         shared_prefix_attention_fused_t(q, kt, kt, kb, kb, 1, 0)
     assert (flash_attention.launches,
-            shared_prefix_attention_fused_t.launches) == before
+            shared_prefix_attention_fused_t.launches,
+            fused_bmu.launches) == before
