@@ -12,27 +12,41 @@ Phases (any failure exits non-zero and prints no result line):
 2. build -- compile every CUDA kernel of the port from
    ``qaig_tpu_torch/csrc`` (one nvcc per source, in parallel);
 3. kernels -- hold each kernel against its plain PyTorch version on the
-   card and time kernel, plain version and a PyTorch yardstick: the decode
-   kernels and full-sequence attention in bf16 at the generation path's
-   shapes (atol 2e-2; ``scaled_dot_product_attention`` as the yardstick);
-   full-sequence attention at the training path's 64 heads of dim 8,
-   forward and gradient, bf16 and float32; the BMU kernel at the codebook
-   shapes of the cascade, index for index outside near-ties
-   (``torch.cdist(p, c).argmin(1)`` as the yardstick);
+   card and time kernel, plain version, bound and a PyTorch yardstick:
+   the decode kernels and full-sequence attention in bf16 at the
+   generation path's shapes (atol 2e-2; ``scaled_dot_product_attention``
+   as the yardstick); full-sequence attention at the training path's 64
+   heads of dim 8, forward and gradient, bf16 and float32, with the plain
+   backward against SDPA's; the BMU kernel at the codebook shapes of the
+   cascade, index for index outside near-ties (``torch.cdist(p,
+   c).argmin(1)`` as the yardstick); the flat decode kernel over
+   interleaved caches, bf16 and int8 prefix (atol 2e-2) and float32 (atol
+   1e-5), at the stage-1/2 shapes and at the stage-0 fan;
 4. reference -- a small cascade stage decoded greedily in float32 on the
    card (kernels) and on the CPU (plain versions) must give the same
-   tokens; 4b: one float32 train step of a small windowed cascade on the
-   card and on the CPU must give the same tokens, loss and gradients;
+   tokens; 4c: the same with ``flat_decode=True``; 4b: one float32 train
+   step of a small windowed cascade on the card and on the CPU must give
+   the same tokens, loss and gradients;
 5. generation main path -- the full-width 3-stage cascade of ``bench.py
    --scale full`` with seeded random weights, written as
    ``qaig_tpu``-schema checkpoints and generated through
    ``qaig_tpu_torch.infer.generate.run`` in bf16 on 8 images; then one
    stage-2 rollout with an int8 prefix;
+5b. flat-decode path -- the same checkpoints through
+   ``DecodeEngine(flat_decode=True)`` in ``bench.py --flat-decode``'s
+   stage order (timed in turns with the slot-minor engine), then a stage-2
+   rollout with ``quantized_prefix=True``; launches asserted from the
+   config;
 6. training main path -- ``qaig_tpu_torch.train.transformer.run`` on
    ``examples/configs/transformer_cascade.json`` (full width, 64 heads)
    over seeded random latents and phase 5's stage-2 codebooks and
    decoder: 6 bf16 steps at batch 8, checkpoints and previews at steps 0
-   and 3.
+   and 3;
+7. serving -- ``CascadePipeline`` on phase 5's checkpoints: float32
+   composition invariance of row-keyed sampling (asserted) and the bf16
+   share of equal tokens (reported); then ``python -m
+   qaig_tpu_torch.cli.serve_generation --bf16`` as a subprocess: /healthz,
+   four concurrent /generate requests, /metrics, a PNG, SIGTERM.
 
 The kernels' launch counts are set to 0 before each main path's run and
 read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
@@ -215,6 +229,78 @@ def check_decode(torch, timer, records):
                                      f"version: {err} > {ATOL}")
 
 
+FLAT_SHAPES = [  # (N, B, bw, S, index0, block_index): stage-1/2 widths at
+    # a full, a partly filled and an empty prefix; the stage-0 fan (H*B 256,
+    # which the engine does not route to the flat kernel)
+    (16, 4, 8, 256, 256, 7), (16, 4, 8, 256, 96, 3), (16, 4, 8, 256, 1, 0),
+    (16, 32, 16, 32, 32, 15)]
+
+
+def check_flat(torch, timer, records):
+    """The flat kernel against its plain version on interleaved caches:
+    bf16 and the int8 prefix (atol 2e-2), float32 (atol 1e-5).  Bound: the
+    live prefix K/V (plus the int8 scales), the live block slots, q and
+    out, over the HBM rate (and the flops over the peak, the larger)."""
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    flat = da.shared_prefix_attention_fused_flat
+    for n, b, bw, s, index0, block_index in FLAT_SHAPES:
+        for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            def rnd(*shape):
+                return (torch.randn(*shape, generator=gen, device="cuda")
+                        * 0.5).to(dtype)
+            q = rnd(n * b, 1, H * DH)
+            kt, vt = rnd(n, H, DH, s), rnd(n, H, DH, s)
+            kb, vb = rnd(n * b, H, bw, DH), rnd(n * b, H, bw, DH)
+            (k8, ks), (v8, vs) = quantize_kv_t(kt), quantize_kv_t(vt)
+            size = 2 if kind == "bf16" else 4
+            for name in ("shared_prefix_attention_fused_flat",
+                         "shared_prefix_attention_fused_flat_int8"):
+                if name.endswith("int8"):
+                    args = (q, da.interleave_t(k8), da.interleave_t(v8), kb,
+                            vb, index0, block_index, H)
+                    kw = {"k_scale": da.interleave_scale(ks),
+                          "v_scale": da.interleave_scale(vs)}
+                    prefix_bytes = 2 * n * H * index0 * (DH + 2)
+                else:
+                    args = (q, da.interleave_t(kt), da.interleave_t(vt), kb,
+                            vb, index0, block_index, H)
+                    kw = {}
+                    prefix_bytes = 2 * n * H * index0 * DH * size
+
+                def run_kernel():
+                    return flat(*args, **kw)
+
+                def run_plain():
+                    return da.shared_prefix_attention_flat_reference(
+                        *args, **kw)
+
+                got = run_kernel()
+                want = run_plain()
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                nbytes = (prefix_bytes + 2 * q.numel() * size
+                          + 2 * n * b * H * (block_index + 1) * DH * size)
+                flops = 4 * n * b * H * DH * (index0 + block_index + 1)
+                bound_ms, bound_by = bound(nbytes, flops, kind)
+                rec = {"name": name, "shape": {
+                    "N": n, "B": b, "bw": bw, "S": s, "index0": index0,
+                    "block_index": block_index, "dtype": kind},
+                    "max_abs_err": err, "ms": timer(run_kernel),
+                    "plain_ms": timer(run_plain), "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None}
+                records.append(rec)
+                log(f"[kernels] {name} {kind} N={n} B={b} bw={bw} S={s} "
+                    f"index0={index0} block_index={block_index}: "
+                    f"max_abs_err={err:.3e} ms={rec['ms']:.4f} "
+                    f"plain_ms={rec['plain_ms']:.4f} "
+                    f"bound_ms={bound_ms:.5f} ({bound_by})")
+                if not err <= FWD_ATOL[kind]:
+                    raise SystemExit(f"{name} ({kind}) disagrees with its "
+                                     f"plain version: {err}")
+
+
 def check_flash(torch, timer, records):
     import torch.nn.functional as F
     from qaig_tpu_torch.ops import flash_attention as fa
@@ -305,17 +391,37 @@ def check_flash_train(torch, timer, records):
                 return fa.flash_attention_backward(q, k, v, out, dout, h,
                                                    causal)
 
+            # the yardstick: SDPA's backward through autograd, its forward
+            # (and graph) made once, outside the timed window
+            def heads(x):
+                return x.view(n, s, h, dh).transpose(1, 2)
+            leaves = [heads(x).detach().requires_grad_() for x in (q, k, v)]
+            lib_out = F.scaled_dot_product_attention(*leaves,
+                                                     is_causal=causal)
+            lib_dout = heads(dout.to(dtype))
+
+            def run_library_backward():
+                return torch.autograd.grad(lib_out, leaves, lib_dout,
+                                           retain_graph=True)
+
             pairs = s * (s + 1) // 2 if causal else s * s
             size = 2 if kind == "bf16" else 4
             bound_ms, bound_by = bound(4 * n * s * h * dh * size,
                                        4 * n * h * pairs * dh, kind)
+            # backward: q, k, v, out, dout read, dq, dk, dv written; five
+            # products over the live pairs (scores, dP, dV, dQ, dK)
+            bwd_bound_ms, bwd_bound_by = bound(8 * n * s * h * dh * size,
+                                               10 * n * h * pairs * dh, kind)
             rec = {"name": "flash_attention", "shape": {
                 "N": n, "S": s, "H": h, "dh": dh, "causal": causal,
                 "dtype": kind}, "max_abs_err": err, "grad_max_abs_err":
                 grad_err, "ms": timer(run_kernel),
                 "plain_ms": timer(run_plain), "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": timer(run_library),
-                "backward_ms": timer(run_backward)}
+                "backward_ms": timer(run_backward),
+                "backward_bound_ms": bwd_bound_ms,
+                "backward_bound_by": bwd_bound_by,
+                "backward_library_ms": timer(run_library_backward)}
             records.append(rec)
             log(f"[kernels] flash_attention H={h} dh={dh} N={n} S={s} "
                 f"causal={causal} {kind}: max_abs_err={err:.3e} "
@@ -323,6 +429,8 @@ def check_flash_train(torch, timer, records):
                 f"plain_ms={rec['plain_ms']:.4f} "
                 f"sdpa_ms={rec['library_ms']:.4f} "
                 f"backward_ms={rec['backward_ms']:.4f} "
+                f"sdpa_backward_ms={rec['backward_library_ms']:.4f} "
+                f"backward_bound_ms={bwd_bound_ms:.5f} ({bwd_bound_by}) "
                 f"bound_ms={bound_ms:.5f} ({bound_by})")
             if not err <= FWD_ATOL[kind]:
                 raise SystemExit(f"flash_attention (dh {dh}, {kind}) "
@@ -394,10 +502,11 @@ def check_bmu(torch, timer, records):
 # phase 4: a small cascade stage, card (kernels) against CPU (plain)
 # ---------------------------------------------------------------------------
 
-def check_reference(torch):
+def _greedy_small_stage(torch, steps, beam_width, window, device="cuda",
+                        **engine_kw):
     """Greedy float32 rollouts of a small windowed encoder-decoder stage
-    (dh 32; window 8 gives a crossing segment and steady windowed
-    segments) must give the same tokens on the card as on the CPU."""
+    (dh 32) on the CPU and on ``device`` from the same weights; returns
+    ({"cpu": tokens, "card": tokens}, the second run's launches)."""
     from qaig_tpu_torch.infer import decode
     from qaig_tpu_torch.models.core import init_parameters
     from qaig_tpu_torch.models.transformer import (Transformer,
@@ -415,29 +524,61 @@ def check_reference(torch):
             p.data.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(
                 len(name)))
     cpu_model.requires_grad_(False)
-    cuda_model = Transformer(cfg, device="cuda").requires_grad_(False)
+    cuda_model = Transformer(cfg, device=device).requires_grad_(False)
     cuda_model.load_state_dict(cpu_model.state_dict())
     gen = torch.Generator().manual_seed(4)
     x_enc = torch.randint(0, 32, (2, 16), generator=gen)
     init = torch.full((2, 1), 32, dtype=torch.long)
     settings = decode.SamplerSettings(end_token=32, pos_offset=1)
     sample = decode._categorical
-    decode._categorical = lambda logits, generator: logits.argmax(dim=-1)
+    decode._categorical = lambda logits, rng: logits.argmax(dim=-1)
     try:
         out = {}
-        for device, model in (("cpu", cpu_model), ("cuda", cuda_model)):
-            out[device] = decode.DecodeEngine(model).rollout_generate(
-                init.to(device), 16, torch.Generator(device=device),
-                settings, num_beam=3, beam_width=4,
-                x_enc=x_enc.to(device), sliding_window=8).cpu()
+        for key, dev, model in (("cpu", "cpu", cpu_model),
+                                ("card", device, cuda_model)):
+            synchronize(torch, dev)
+            reset_launches()
+            out[key] = decode.DecodeEngine(
+                model, **engine_kw).rollout_generate(
+                    init.to(dev), steps, torch.Generator(device=dev),
+                    settings, num_beam=3, beam_width=beam_width,
+                    x_enc=x_enc.to(dev), sliding_window=window).cpu()
+            synchronize(torch, dev)
+        launches = read_launches()
     finally:
         decode._categorical = sample
-    same = bool(torch.equal(out["cpu"], out["cuda"]))
+    return out, launches
+
+
+def check_reference(torch, device="cuda"):
+    """Phase 4: window 8 and segments of 4 give a crossing segment and
+    steady windowed segments; the card's tokens must equal the CPU's."""
+    out, _ = _greedy_small_stage(torch, 16, 4, 8, device)
+    same = bool(torch.equal(out["cpu"], out["card"]))
     log(f"[reference] small windowed stage, greedy float32: card tokens "
         f"{'equal' if same else 'DIFFER from'} the CPU's "
-        f"({out['cuda'].tolist()[0][:8]}...)")
+        f"({out['card'].tolist()[0][:8]}...)")
     if not same:
         raise SystemExit("card and CPU generations disagree")
+
+
+def check_flat_reference(torch, device="cuda"):
+    """Phase 4c: the same stage with ``flat_decode=True``, window 20 and
+    segments of 8: two cached segments through the flat kernel (2 layers x
+    16 steps on the card), then a 3-step crossing on kernel B and windowed
+    recompute.  The card's tokens must equal the CPU's."""
+    out, launches = _greedy_small_stage(torch, 24, 8, 20, device,
+                                        flat_decode=True)
+    same = bool(torch.equal(out["cpu"], out["card"]))
+    log(f"[reference] flat decode, small windowed stage, greedy float32: "
+        f"card tokens {'equal' if same else 'DIFFER from'} the CPU's "
+        f"({out['card'].tolist()[0][:8]}...); card launches {launches}")
+    if not same:
+        raise SystemExit("card and CPU flat-decode generations disagree")
+    if launches["shared_prefix_attention_fused_flat"] != 2 * 16 or \
+            launches["shared_prefix_attention_fused_t"] != 2 * 3:
+        raise SystemExit(f"flat-decode stage launched {launches}, expected "
+                         f"32 flat and 6 slot-minor decode launches")
 
 
 def check_train_reference(torch, device="cuda"):
@@ -618,6 +759,10 @@ def _counted():
              da.shared_prefix_attention_fused_t, "launches"),
             ("shared_prefix_attention_fused_int8",
              da.shared_prefix_attention_fused_int8, "launches"),
+            ("shared_prefix_attention_fused_flat",
+             da.shared_prefix_attention_fused_flat, "launches"),
+            ("shared_prefix_attention_fused_flat_int8",
+             da.shared_prefix_attention_fused_flat, "int8_launches"),
             ("fused_bmu", bmu.fused_bmu, "launches")]
 
 
@@ -630,29 +775,36 @@ def read_launches():
     return {name: getattr(fn, attr) for name, fn, attr in _counted()}
 
 
-def run_main_path(torch, workdir, seed=0, num_images=8, device="cuda",
-                  profile=False):
-    """The cascade through ``generate.run`` (bf16), then one stage-2
-    rollout with an int8 prefix (and, with ``profile``, a profiled
-    stage-2 window).  Returns (launches, timings)."""
+def run_main_path(torch, workdir, paths, seed=0, num_images=8,
+                  device="cuda", profile=False):
+    """The cascade of ``paths`` (``write_full_cascade``) through
+    ``generate.run`` (bf16), then one stage-2 rollout with an int8 prefix
+    (and, with ``profile``, a profiled stage-2 window).  Returns (launches,
+    timings)."""
     import numpy as np
     from qaig_tpu_torch.infer import generate
     from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
 
-    t0 = time.perf_counter()
-    config_path, decoder_path, stage2_path = write_full_cascade(
-        torch, workdir, seed, device)
-    log(f"[main] full-width cascade written in "
-        f"{time.perf_counter() - t0:.1f} s")
-
+    config_path, decoder_path, stage2_path = paths
     saved = {}
     save_images = generate.save_images
+    stage_fn = generate.generate_stage_tokens
+    stage_s = []
 
     def recording_save(images, name, dest, **kw):
         saved[name] = images
         return save_images(images, name, dest, **kw)
 
+    def timed_stage(*a, **kw):
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        out = stage_fn(*a, **kw)
+        synchronize(torch, device)
+        stage_s.append(time.perf_counter() - t0)
+        return out
+
     generate.save_images = recording_save
+    generate.generate_stage_tokens = timed_stage
     try:
         synchronize(torch, device)
         reset_launches()
@@ -667,13 +819,15 @@ def run_main_path(torch, workdir, seed=0, num_images=8, device="cuda",
         launches = read_launches()
     finally:
         generate.save_images = save_images
+        generate.generate_stage_tokens = stage_fn
     k = FULL["k"]
     out_seq = seq_len(FULL["patches"][-1])
     cond_seq = seq_len(FULL["patches"][-2])
     side = FULL["image_dim"][0] * 4   # the decoder's two 2x upsamples
     tokens = tokens.cpu()
-    log(f"[main] generate.run: {num_images} images in {run_s:.3f} s; "
-        f"launches {launches}")
+    log(f"[main] generate.run: {num_images} images in {run_s:.3f} s "
+        f"(stage rollouts {[round(x, 3) for x in stage_s]} s); launches "
+        f"{launches}")
     if tokens.shape != (num_images, out_seq):
         raise SystemExit(f"unexpected token grid {tuple(tokens.shape)}")
     if int(tokens.min()) < 0 or int(tokens.max()) >= k:
@@ -723,7 +877,7 @@ def run_main_path(torch, workdir, seed=0, num_images=8, device="cuda",
                          "shared_prefix_attention_fused_int8")
     launches["shared_prefix_attention_fused_int8"] = \
         int8_launches["shared_prefix_attention_fused_int8"]
-    timings = {"run_s": run_s, "int8_stage2_s": int8_s}
+    timings = {"run_s": run_s, "stage_s": stage_s, "int8_stage2_s": int8_s}
     if profile:
         timings["profile"] = profile_window(
             torch, DecodeEngine(model), init, x_enc, gen,
@@ -765,6 +919,367 @@ def profile_window(torch, engine, init, x_enc, gen, settings, num_beam,
     for e in out["top"]:
         log(f"[profile]   {e['ms']:8.2f} ms  {e['count']:6d}x  {e['name']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the flat-decode cascade (bench.py --flat-decode [--int8-kv])
+# ---------------------------------------------------------------------------
+
+def expected_decode_launches(flat):
+    """Decode-kernel launches of the cascade, from FULL and the engine's
+    control flow: per stage, cached rollout segments of ``beam_width``
+    steps, then (with a window) one crossing segment whose cached part has
+    the steps left before the window fills; every cached step runs each
+    decoder layer once.  A segment goes to the flat kernel when
+    ``flat_decode`` is on and its heads x rollouts are at most 64 and its
+    width a positive multiple of 8 (``qaig_tpu/ops/decode_attention.py::
+    flat_segment_supported``), else to the slot-minor kernel.  Returns
+    {stage: {"flat": n, "slot_minor": n}}."""
+    out = {}
+    for i in range(3):
+        num_beam, bw = FULL["beams"][i]
+        total, window = seq_len(FULL["patches"][i + 1]), FULL["sliding"].get(i)
+        counts = {"flat": 0, "slot_minor": 0}
+        gen, cached = 0, True
+        while gen < total:
+            left = total if window is None else max(0, window - 1 - gen)
+            steps = 0
+            if cached:
+                steps = bw if bw <= left else left
+                cached = bw <= left
+            if steps:
+                route = ("flat" if flat and FULL["heads"] * num_beam <= 64
+                         and steps % 8 == 0 else "slot_minor")
+                counts[route] += FULL["dec_layers"] * steps
+            gen += bw
+        out[i] = counts
+    return out
+
+
+def run_flat_path(torch, paths, seed=0, num_images=8, device="cuda"):
+    """Phase 5's checkpoints, loaded once in bf16, run stage by stage in
+    ``bench.py``'s order through ``DecodeEngine(flat_decode=...)``: the
+    slot-minor engine and the flat one in turns (slot-minor, flat, flat,
+    slot-minor; the first flat cascade is the counted path), then one
+    stage-2 rollout with ``quantized_prefix=True, flat_decode=True``.
+    Returns (launches, timings)."""
+    import numpy as np
+    from qaig_tpu_torch.infer import generate
+    from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
+    from qaig_tpu_torch.train import common
+    from qaig_tpu_torch.utils.checkpoint import load_model
+
+    config_path, decoder_path, _ = paths
+    config = json.loads(Path(config_path).read_text())
+    dev = torch.device(device)
+
+    def cast(module):
+        return common.cast_floats(module, torch.bfloat16)
+
+    stages = [generate._load_stage(i, config[i], cast, dev)
+              for i in sorted(config, key=int)]
+    ok, dec_ckpt = load_model(decoder_path)
+    assert ok
+    decoder = cast(common.decoder_from_checkpoint(dec_ckpt, dev)[0])
+    k = FULL["k"]
+
+    def settings(st):
+        return SamplerSettings(temperature=1.0, end_token=k, end_mode="mask",
+                               index_shift=k if st["is_base"] else 0)
+
+    @torch.inference_mode()
+    def cascade(engine_kw):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        tokens = torch.randint(0, k, (num_images, 1), generator=gen,
+                               device=device)
+        per_stage, seconds = [], []
+        for st in stages:
+            init = tokens if st["is_base"] else torch.full(
+                (num_images, 1), k, dtype=torch.long, device=device)
+            synchronize(torch, device)
+            t0 = time.perf_counter()
+            out = DecodeEngine(st["model"], **engine_kw).rollout_generate(
+                init, st["total_seq"], gen, settings(st),
+                num_beam=st["stage_cfg"]["num_beam"],
+                beam_width=st["stage_cfg"]["beam_width"],
+                x_enc=None if st["is_base"] else tokens,
+                sliding_window=st["sliding_window"])
+            synchronize(torch, device)
+            seconds.append(time.perf_counter() - t0)
+            tokens = out - settings(st).index_shift
+            per_stage.append(tokens)
+        return per_stage, seconds
+
+    runs = {"slot_minor": [], "flat": []}
+    launches = None
+    for kind in ("slot_minor", "flat", "flat", "slot_minor"):
+        counted = kind == "flat" and launches is None
+        if counted:
+            synchronize(torch, device)
+            reset_launches()
+        per_stage, seconds = cascade({"flat_decode": kind == "flat"})
+        if counted:
+            launches = read_launches()
+            flat_tokens = per_stage
+        runs[kind].append(seconds)
+    log(f"[flat] bf16 cascade, {num_images} images, stage rollout seconds "
+        f"in turns: slot-minor {[round(x, 3) for x in runs['slot_minor'][0]]}"
+        f", flat {[round(x, 3) for x in runs['flat'][0]]}, flat "
+        f"{[round(x, 3) for x in runs['flat'][1]]}, slot-minor "
+        f"{[round(x, 3) for x in runs['slot_minor'][1]]}; launches "
+        f"{launches}")
+
+    with torch.inference_mode():
+        pixels = decoder(stages[-1]["hr_codebook"].get_quantized_image(
+            flat_tokens[-1])).float().cpu().numpy()
+    side = FULL["image_dim"][0] * 4
+    final = flat_tokens[-1]
+    if final.shape != (num_images, seq_len(FULL["patches"][-1])) or \
+            int(final.min()) < 0 or int(final.max()) >= k:
+        raise SystemExit("flat-decode cascade gave invalid tokens")
+    if pixels.shape != (num_images, 3, side, side) or \
+            not np.isfinite(pixels).all():
+        raise SystemExit("flat-decode cascade gave bad pixels")
+
+    st = stages[-1]
+    synchronize(torch, device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = DecodeEngine(st["model"], quantized_prefix=True,
+                           flat_decode=True).rollout_generate(
+            torch.full((num_images, 1), k, dtype=torch.long, device=device),
+            st["total_seq"], torch.Generator(device=device).manual_seed(seed),
+            settings(st), num_beam=st["stage_cfg"]["num_beam"],
+            beam_width=st["stage_cfg"]["beam_width"], x_enc=flat_tokens[1],
+            sliding_window=st["sliding_window"])
+    synchronize(torch, device)
+    int8_s = time.perf_counter() - t0
+    int8_launches = read_launches()
+    log(f"[flat] stage-2 rollout, int8 prefix + flat: {int8_s:.3f} s; "
+        f"launches {int8_launches}")
+    if int(out.min()) < 0 or int(out.max()) >= k:
+        raise SystemExit("int8 flat-decode rollout gave invalid tokens")
+
+    want = expected_decode_launches(flat=True)
+    expect = {
+        "shared_prefix_attention_fused_flat":
+            (launches, sum(c["flat"] for c in want.values())),
+        "shared_prefix_attention_fused_t":
+            (launches, sum(c["slot_minor"] for c in want.values())),
+        "shared_prefix_attention_fused_flat_int8": (int8_launches,
+                                                    want[2]["flat"]),
+        "shared_prefix_attention_fused_int8": (int8_launches,
+                                               want[2]["slot_minor"])}
+    for name, (counts, n) in expect.items():
+        if counts[name] != n:
+            raise SystemExit(f"the flat-decode path launched {name} "
+                             f"{counts[name]} times, expected {n}")
+    for counts, absent in ((launches, ("shared_prefix_attention_fused_int8",
+                                       "shared_prefix_attention_fused_flat_"
+                                       "int8")),
+                           (int8_launches, ("shared_prefix_attention_fused_t",
+                                            "shared_prefix_attention_fused_"
+                                            "flat"))):
+        for name in absent:
+            if counts[name]:
+                raise SystemExit(f"{name} launched on the wrong run")
+    log(f"[flat] launch counts as derived from the config: "
+        f"{ {name: n for name, (_, n) in expect.items()} }; tokens in "
+        f"[0, {k}), pixels finite, {side}x{side}x3")
+    total = {name: launches[name] + int8_launches[name] for name in launches}
+    return total, {"stage_s": runs, "int8_stage2_s": int8_s}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: serving (CascadePipeline, then the HTTP server's CLI)
+# ---------------------------------------------------------------------------
+
+def decode_png(data):
+    """(H, W, C) uint8 pixels of an 8-bit PNG with filter 0 on every row
+    (what the port's server writes), read with the standard library."""
+    import struct
+    import zlib
+    import numpy as np
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise SystemExit("not a PNG")
+    pos, idat, header = 8, b"", None
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if tag == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+    width, height, depth, color = header[:4]
+    channels = {0: 1, 2: 3}[color]
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        height, 1 + width * channels)
+    if depth != 8 or rows[:, 0].any():
+        raise SystemExit("unexpected PNG depth or row filter")
+    return rows[:, 1:].reshape(height, width, channels)
+
+
+def run_serve_path(torch, paths, device="cuda"):
+    """Phase 7.  (a) The library-level ``CascadePipeline``, float32: the 3
+    rows of ``generate(3, seed=7)`` equal the same rows inside a coalesced
+    8-row ``row_keys`` batch (another request's 2 rows and 3 padding rows,
+    keyed as the server keys them); the counted path.  The bf16 share of
+    equal tokens is reported, not asserted.  (b) ``python -m
+    qaig_tpu_torch.cli.serve_generation --bf16`` as a subprocess: /healthz,
+    four concurrent /generate requests, /metrics, one warm 1-image
+    request, a PNG, SIGTERM.  Returns (launches, timings)."""
+    import base64
+    import os
+    import signal
+    import threading
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    from qaig_tpu_torch.infer.pipeline import (CascadePipeline,
+                                               derive_row_keys)
+
+    config_path, decoder_path, _ = paths
+    config = json.loads(Path(config_path).read_text())
+    merged_keys = torch.cat([derive_row_keys(7, 3), derive_row_keys(11, 2),
+                             derive_row_keys(0, 3, start=1 << 20)])
+    equal = {}
+    for kind, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        pipe = CascadePipeline.from_config(config, decoder_path,
+                                           device=device, dtype=dtype)
+        synchronize(torch, device)
+        if kind == "f32":
+            reset_launches()
+        t0 = time.perf_counter()
+        _, solo = pipe.generate(3, seed=7)
+        _, merged = pipe.generate(8, row_keys=merged_keys)
+        synchronize(torch, device)
+        seconds = time.perf_counter() - t0
+        if kind == "f32":
+            launches = read_launches()
+        equal[kind] = (solo.cpu() == merged[:3].cpu()).double().mean().item()
+        log(f"[serve] CascadePipeline {kind}: generate(3, seed=7) and the "
+            f"same rows in a coalesced 8-row batch: {100 * equal[kind]:.2f}% "
+            f"of tokens equal ({seconds:.3f} s for both calls)")
+        del pipe
+    log(f"[serve] pipeline path launches (float32 calls): {launches}")
+    if equal["f32"] != 1.0:
+        raise SystemExit("float32 row-keyed generation is not "
+                         "composition-invariant on the card")
+    for name in ("flash_attention", "shared_prefix_attention_fused_t"):
+        if launches[name] <= 0:
+            raise SystemExit(f"the pipeline path never launched {name}")
+    torch.cuda.empty_cache()
+
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "qaig_tpu_torch.cli.serve_generation",
+         "--device", device, "--bf16", "--port", "0", "--warmup-batch", "1",
+         "--max-batch", "8", "--config-path", str(config_path),
+         "--decoder-path", str(decoder_path)],
+        cwd=repo, env=dict(os.environ), text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    lines = []
+    pump = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                            daemon=True)
+    pump.start()
+
+    def call(path, payload=None, timeout=600):
+        """(status, JSON body) of one request; an HTTP error's status and
+        body are returned too."""
+        data = None if payload is None else json.dumps(payload).encode()
+        try:
+            with urllib.request.urlopen(urllib.request.Request(
+                    base + path, data=data), timeout=timeout) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as e:
+            return e.code, e.read().decode(errors="replace")
+
+    def server_fault(msg):
+        return SystemExit(f"{msg}\nserver output:\n"
+                          + "".join(lines)[-3000:])
+
+    try:
+        t0 = time.perf_counter()
+        while not any("serving on http" in ln for ln in lines):
+            if proc.poll() is not None:
+                raise server_fault("the server exited early")
+            if time.perf_counter() - t0 > 300:
+                raise SystemExit("the server never came up")
+            time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        serving = next(ln for ln in lines if "serving on http" in ln)
+        base = f"http://127.0.0.1:{int(serving.rsplit(':', 1)[1])}"
+        log(f"[serve] server up in {start_s:.1f} s (load, warm-up at batch "
+            f"1): {serving.strip()}")
+        if call("/healthz") != (200, {"status": "ok"}):
+            raise server_fault("/healthz did not answer ok")
+
+        sizes = (1, 2, 3, 2)
+        results = {}
+
+        def post(i):
+            try:
+                results[i] = call("/generate", {
+                    "num_images": sizes[i], "seed": 1 + i,
+                    "return_images": i == 1})
+            except Exception as e:   # reported below, with the server's log
+                results[i] = (None, repr(e))
+
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(sizes))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        burst_s = time.perf_counter() - t0
+        k, out_seq = FULL["k"], seq_len(FULL["patches"][-1])
+        for i, num in enumerate(sizes):
+            status, out = results[i]
+            if status != 200:
+                raise server_fault(f"request {i} failed: {status} {out}")
+            tokens = np.asarray(out["tokens"])
+            if tokens.shape != (num, out_seq) or tokens.min() < 0 or \
+                    tokens.max() >= k:
+                raise SystemExit(f"request {i}: bad tokens {tokens.shape}")
+        _, metrics = call("/metrics")
+        if metrics["coalesced_dispatches_total"] < 1:
+            raise SystemExit(f"no coalesced dispatch: {metrics}")
+        t0 = time.perf_counter()
+        status, out = call("/generate", {"num_images": 1, "seed": 9})
+        warm_s = time.perf_counter() - t0
+        if status != 200:
+            raise server_fault(f"warm request failed: {status} {out}")
+        pixels = decode_png(base64.b64decode(
+            results[1][1]["images_png_b64"][0]))
+        side = FULL["image_dim"][0] * 4
+        if pixels.shape != (side, side, 3):
+            raise SystemExit(f"bad PNG {pixels.shape}")
+        by_batch = {size: e["seconds_total"] / e["count"]
+                    for size, e in metrics["dispatches_by_batch"].items()}
+        log(f"[serve] 4 concurrent requests (1, 2, 3, 2 images) in "
+            f"{burst_s:.3f} s: {metrics['dispatches_total']} dispatches, "
+            f"{metrics['coalesced_dispatches_total']} coalesced, "
+            f"{metrics['padded_rows_total']} padded rows; seconds per "
+            f"dispatch by padded batch size "
+            f"{ {s: round(t, 4) for s, t in by_batch.items()} }; warm "
+            f"1-image request {warm_s:.3f} s; PNG {side}x{side}x3")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=120)
+        pump.join(timeout=10)
+        if rc != 0 or not any("drained; bye." in ln for ln in lines):
+            raise server_fault(f"the server did not drain cleanly (exit "
+                               f"{rc})")
+        log("[serve] SIGTERM: drained; bye., exit 0")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return launches, {"pipeline_equal_share": equal, "server_start_s":
+                      start_s, "burst_s": burst_s, "warm_request_s": warm_s,
+                      "dispatch_s_by_batch": by_batch, "metrics": metrics}
 
 
 # ---------------------------------------------------------------------------
@@ -957,6 +1472,14 @@ KERNELS = {
         "source": "qaig_tpu_torch/csrc/decode_attention.cu",
         "replaces": "qaig_tpu/ops/decode_attention.py:414",
         "summary": {"S": 256, "bw": 8, "index0": 256}},
+    "shared_prefix_attention_fused_flat": {
+        "source": "qaig_tpu_torch/csrc/decode_attention_flat.cu",
+        "replaces": "qaig_tpu/ops/decode_attention.py:326",
+        "summary": {"S": 256, "bw": 8, "index0": 256, "dtype": "bf16"}},
+    "shared_prefix_attention_fused_flat_int8": {
+        "source": "qaig_tpu_torch/csrc/decode_attention_flat.cu",
+        "replaces": "qaig_tpu/ops/decode_attention.py:326",
+        "summary": {"S": 256, "bw": 8, "index0": 256, "dtype": "bf16"}},
     "fused_bmu": {
         "source": "qaig_tpu_torch/csrc/bmu.cu",
         "replaces": "qaig_tpu/ops/bmu.py:39",
@@ -1012,17 +1535,27 @@ def main():
     check_flash(torch, timer, records)
     check_flash_train(torch, timer, records)
     check_bmu(torch, timer, records)
+    check_flat(torch, timer, records)
     del timer
     check_reference(torch)
+    check_flat_reference(torch)
     check_train_reference(torch)
     with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as workdir:
-        launches, timings = run_main_path(torch, workdir,
-                                          profile=args.profile)
-        train_launches, timings["train"] = run_train_path(
+        t0 = time.perf_counter()
+        paths = write_full_cascade(torch, workdir, 0)
+        log(f"[main] full-width cascade written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        launches = {}
+        launches["generate"], timings = run_main_path(
+            torch, workdir, paths, profile=args.profile)
+        launches["flat_generate"], timings["flat"] = run_flat_path(
+            torch, paths)
+        launches["train"], timings["train"] = run_train_path(
             torch, workdir, profile=args.profile)
+        launches["pipeline"], timings["serve"] = run_serve_path(torch,
+                                                                paths)
 
-    line = kernels_line(records, {"generate": launches,
-                                  "train": train_launches})
+    line = kernels_line(records, launches)
     if args.json_out:
         args.json_out.parent.mkdir(parents=True, exist_ok=True)
         args.json_out.write_text(json.dumps(

@@ -1,0 +1,125 @@
+"""Serve cascade generation over HTTP on one GPU (the port's counterpart of
+``qaig_tpu/cli/serve_generation.py``, same flags and defaults):
+
+    python -m qaig_tpu_torch.cli.serve_generation --config-path gen.json \
+        --decoder-path ae.pt [--port 8000] [--bf16] [--warmup-batch 1] \
+        [--device cuda]
+
+Wraps :class:`qaig_tpu_torch.infer.pipeline.CascadePipeline` in
+:class:`qaig_tpu_torch.serve.GenerationServer`; prints ``serving on
+http://host:port`` once it accepts requests (``--port 0`` binds a free
+port), and on SIGTERM or SIGINT drains every accepted request and exits 0
+after ``drained; bye.``.
+
+The port serves one card: ``--shard-batch``, ``--num-model-shards`` above 1,
+``--compilation-cache-dir`` and ``--compiler-options`` are accepted for
+flag parity and refused with an error (``ROADMAP.md`` queue 1 item 10).
+"""
+
+import argparse
+import pathlib
+import signal
+import time
+
+ONE_CARD = "not in the port yet: it serves one card (ROADMAP.md queue 1 " \
+           "item 10)"
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Serve image generation.")
+    parser.add_argument("--device", choices=["cuda", "cpu"], type=str,
+                        default="cuda",
+                        help="cuda (the default) needs a visible GPU and "
+                             "never falls back to the CPU.")
+    parser.add_argument("--decoder-path", required=True, type=pathlib.Path)
+    parser.add_argument("--config-path", required=True, type=pathlib.Path)
+    parser.add_argument("--host", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--max-batch", type=int, default=64)
+    parser.add_argument("--bf16", action="store_true",
+                        help="Serve in bfloat16 (the benchmark precision).")
+    parser.add_argument("--shard-batch", action="store_true",
+                        help=f"Shard batches over several cards: {ONE_CARD}.")
+    parser.add_argument("--num-model-shards", type=int, default=1,
+                        help=f"Tensor-parallel shards above 1: {ONE_CARD}.")
+    parser.add_argument("--use-ema", action="store_true",
+                        help="Serve the EMA weights (model_ema, written by "
+                             "training under --ema-decay).")
+    parser.add_argument("--max-queue-rows", type=int, default=None,
+                        help="Backpressure bound: reject (503) once this "
+                             "many image rows wait in the dispatch queue "
+                             "(default: 8 x max-batch; floor: max-batch so "
+                             "any admissible request can queue on an idle "
+                             "server).")
+    parser.add_argument("--request-timeout", type=float, default=None,
+                        help="Bound each request's queue wait in seconds "
+                             "(504 on expiry; in-flight dispatches always "
+                             "complete). Default: wait forever.")
+    parser.add_argument("--warmup-batch", type=int, default=0,
+                        help="Run the pipeline once at this batch size "
+                             "before accepting traffic (0 = none).")
+    parser.add_argument("--compilation-cache-dir", default=None,
+                        type=pathlib.Path, help=f"XLA's cache: {ONE_CARD}.")
+    parser.add_argument("--compiler-options", default=None, type=str,
+                        help=f"XLA's options: {ONE_CARD}.")
+    args = parser.parse_args(argv)
+    refused = [flag for flag, used in (
+        ("--shard-batch", args.shard_batch),
+        ("--num-model-shards", args.num_model_shards > 1),
+        ("--compilation-cache-dir", args.compilation_cache_dir is not None),
+        ("--compiler-options", args.compiler_options is not None)) if used]
+    if refused:
+        parser.error(f"{', '.join(refused)}: {ONE_CARD}")
+
+    import torch
+    from qaig_tpu_torch.infer.pipeline import CascadePipeline
+    from qaig_tpu_torch.serve import GenerationServer
+    from qaig_tpu_torch.train import common
+
+    def build_pipeline():
+        # re-read the config too, so a reload picks up both new checkpoint
+        # bytes and updated checkpoint paths inside the same config file
+        pipe = CascadePipeline.from_config(
+            common.load_config(args.config_path), args.decoder_path,
+            device=args.device,
+            dtype=torch.bfloat16 if args.bf16 else None,
+            use_ema=args.use_ema)
+        if args.warmup_batch > 0:
+            # also runs during POST /reload (old weights keep serving), so
+            # the swapped-in pipeline never serves its first, slow call
+            pipe.generate(args.warmup_batch, seed=0)
+            if pipe.device.type == "cuda":
+                torch.cuda.synchronize(pipe.device)
+            print(f"warmed up at batch {args.warmup_batch}", flush=True)
+        return pipe
+
+    # no local keeps the startup pipeline alive: after POST /reload the
+    # batcher holds the only reference, so the old weights free
+    server = GenerationServer(build_pipeline(), host=args.host,
+                              port=args.port, max_batch=args.max_batch,
+                              max_queue_rows=args.max_queue_rows,
+                              request_timeout=args.request_timeout,
+                              reloader=build_pipeline)
+    print(f"serving on http://{args.host}:{server.port}", flush=True)
+
+    # Graceful drain on SIGTERM/SIGINT: stop accepting, finish the in-flight
+    # dispatch and everything already queued, exit 0.  The handler only
+    # flips a flag (an Event.set() from a signal handler can deadlock
+    # against a wait on the same thread); the sleep below wakes on it.
+    stop = {"stop": False}
+
+    def on_signal(*_):
+        stop["stop"] = True
+
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        signal.signal(sig, on_signal)
+    server.start(background=True)
+    while not stop["stop"]:
+        time.sleep(0.2)
+    print("shutting down: draining queued requests...", flush=True)
+    server.stop()
+    print("drained; bye.", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -20,10 +20,20 @@ unrenormalized probability; ``replace_zero`` remaps <end> -> 0;
 ``index_shift`` moves tokens into the combined LR+HR vocabulary;
 ``pos_offset`` is the generation-time position offset.
 
+Options, as in the JAX package: ``quantized_prefix`` keeps the rollout
+prefix int8 (kernel C, or the flat kernel's int8 form); ``flat_decode``
+sends the rollout segments that ``flat_segment_supported`` admits to the
+flat kernel over an interleaved copy of the prefix made once per segment;
+``legacy_windowed_rollouts`` runs sliding-window segments through the
+tile-everything path instead of the shared windowed one.
+
 PyTorch runs eagerly, so the engine is a Python loop over steps.  Position
-counters (``index``, ``pos_next``) are Python ints.  Random draws come from
-one explicit ``torch.Generator`` per call, consumed in step order (batch-
-keyed sampling: all rows draw together; per-row keys come with serving).
+counters (``index``, ``pos_next``) are Python ints.  ``rng`` is either a
+``torch.Generator``, consumed in step order (batch-keyed sampling: all rows
+draw together, the ``generate_images`` semantics), or per-row keys (N, 2)
+(``infer/row_keys.py``): rollout ``b`` of row ``n`` then draws the token of
+global slot ``s`` from ``fold_in(fold_in(row_key[n], b), s)``, so a row's
+tokens depend only on its own key (composition-invariant serving).
 Segments consume their input state: KV caches and blocks are updated **in
 place**.
 """
@@ -33,6 +43,10 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from qaig_tpu_torch.infer import row_keys
+from qaig_tpu_torch.ops.decode_attention import (flat_segment_supported,
+                                                 interleave_scale,
+                                                 interleave_t)
 from qaig_tpu_torch.ops.kv_quant import dequantize_caches, quantize_caches
 
 
@@ -70,14 +84,62 @@ def _bucket_schedule(needed, total):
     return min(cap, total) if needed <= total else needed
 
 
-def _categorical(logits, generator):
-    """One categorical draw per row of (rows, K) float32 logits."""
+def _categorical(logits, draw):
+    """One categorical draw per row of (rows, K) float32 logits: all rows
+    from one ``torch.Generator``, or by Gumbel-max with per-row noise
+    (rows, K) (``_SlotNoise.at``)."""
+    if isinstance(draw, torch.Tensor):
+        return torch.argmax(logits + draw, dim=-1)
     return torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                             generator=generator)[:, 0]
+                             generator=draw)[:, 0]
 
 
-def _sample(logits, generator, s: SamplerSettings):
-    """Returns (context_token (N,), chosen_prob (N,))."""
+def _is_row_keys(rng):
+    """True when ``rng`` is a (rows, 2) tensor of per-row keys rather than a
+    ``torch.Generator``."""
+    return isinstance(rng, torch.Tensor)
+
+
+def _expand_row_keys(keys, num_beam):
+    """Per-row keys (N, 2) -> per-rollout keys (N*num_beam, 2): rollout
+    ``b`` of row ``n`` gets ``fold_in(keys[n], b)``, rows grouped as
+    ``_tile`` groups them."""
+    beams = torch.arange(num_beam, dtype=torch.int64, device=keys.device)
+    return row_keys.fold_in(keys[:, None], beams[None]).reshape(-1, 2)
+
+
+def _rollout_rng(rng, num_beam):
+    return _expand_row_keys(rng, num_beam) if _is_row_keys(rng) else rng
+
+
+class _SlotNoise:
+    """The Gumbel noise of per-row keys for the slots [first, first +
+    count), drawn in one pass when a segment starts: row ``i`` at slot ``s``
+    uses ``fold_in(keys[i], s)`` only, so this gives the draws a step-by-step
+    fold would, with one set of hash kernels per segment instead of one per
+    step."""
+
+    def __init__(self, keys, first, count, vocab):
+        slots = torch.arange(first, first + count, dtype=torch.int64,
+                             device=keys.device)
+        self.first = first
+        self.noise = row_keys.gumbel(row_keys.fold_in(keys[:, None],
+                                                      slots[None]), vocab)
+
+    def at(self, slot):
+        return self.noise[:, slot - self.first]
+
+
+def _draws(rng, first, count, vocab):
+    """What a segment's steps draw from: the generator, or the noise of
+    per-row keys for the segment's slots."""
+    return _SlotNoise(rng, first, count, vocab) if _is_row_keys(rng) else rng
+
+
+def _sample(logits, rng, s: SamplerSettings, slot=None):
+    """Returns (context_token (N,), chosen_prob (N,)).  ``rng`` is a
+    ``torch.Generator`` or a segment's ``_SlotNoise``, read at ``slot`` (the
+    global context index of the token being generated)."""
     scaled = logits.to(torch.float32) / s.temperature
     probs = torch.softmax(scaled, dim=-1)
     if s.end_mode == "mask":
@@ -85,7 +147,8 @@ def _sample(logits, generator, s: SamplerSettings):
         sample_logits = torch.log(torch.clamp(probs, min=1e-38))
     else:
         sample_logits = scaled
-    token = _categorical(sample_logits, generator)
+    draw = rng.at(slot) if isinstance(rng, _SlotNoise) else rng
+    token = _categorical(sample_logits, draw)
     chosen = probs.gather(1, token[:, None])[:, 0]
     if s.end_mode == "replace_zero":
         token = torch.where(token == s.end_token, 0, token)
@@ -124,20 +187,43 @@ def _ceil32(x):
 
 
 class DecodeEngine:
-    def __init__(self, model, quantized_prefix=False):
+    def __init__(self, model, quantized_prefix=False,
+                 legacy_windowed_rollouts=False, flat_decode=False):
         # quantized_prefix: store the rollout decode's SHARED prefix K/V
         # int8 with per-slot scales (ops/kv_quant.py); its attention runs
         # the int8-prefix decode kernel.  Only rollout_generate uses it.
+        # legacy_windowed_rollouts: sliding-window segments take the
+        # tile-everything path instead of the shared windowed one (A/B
+        # testing; taken anyway when beam_width >= window).
+        # flat_decode: rollout segments that flat_segment_supported admits
+        # read an interleaved (N, dh, S*H) copy of the prefix, made once
+        # per segment, through the flat kernel (int8 in the kernel with
+        # quantized_prefix).
         self.model = model
         self.quantized_prefix = quantized_prefix
+        self.legacy_windowed_rollouts = legacy_windowed_rollouts
+        self.flat_decode = flat_decode
+
+    def _flat_segment(self, num_beam, block_width):
+        """Whether this rollout segment's attention goes through the flat
+        kernel: the engine option AND the routing rule (stage-0 fans of 32
+        rollouts and the 7-wide crossing block stay on kernels B/C)."""
+        return self.flat_decode and flat_segment_supported(
+            self.model.cfg.self_attn_heads, num_beam, block_width)
 
     @staticmethod
-    def _read_views(caches, read_len):
+    def _read_views(caches, read_len, flat=False):
         """Per-segment read views of the shared prefix caches: the first
-        ``read_len`` slots, materialized contiguous for the decode
-        kernel."""
-        return [{key: value[..., :read_len].contiguous()
-                 for key, value in c.items()} for c in caches]
+        ``read_len`` slots, materialized contiguous for the decode kernel;
+        with ``flat``, in the interleaved layout of the flat kernel."""
+        views = [{key: value[..., :read_len] for key, value in c.items()}
+                 for c in caches]
+        if flat:
+            return [{key: (interleave_t(value) if value.ndim == 4
+                           else interleave_scale(value))
+                     for key, value in c.items()} for c in views]
+        return [{key: value.contiguous() for key, value in c.items()}
+                for c in views]
 
     # ------------------------------------------------------------------
     # cached state init / segment
@@ -169,7 +255,7 @@ class DecodeEngine:
             state["ctx"] = ctx
         return state
 
-    def _cached_segment(self, arrays, generator, num_steps,
+    def _cached_segment(self, arrays, rng, num_steps,
                         settings: SamplerSettings):
         model = self.model
         use_pos = model.cfg.use_pos_cond
@@ -178,9 +264,10 @@ class DecodeEngine:
                                  arrays["index"])
         ctx = arrays["ctx"].clone() if "ctx" in arrays else None
         logp = torch.zeros(logits.shape[0], device=logits.device)
+        draws = _draws(rng, index, num_steps, model.cfg.out_dim)
         tokens = []
         for _ in range(num_steps):
-            token, p = _sample(logits, generator, settings)
+            token, p = _sample(logits, draws, settings, slot=index)
             if ctx is not None:
                 ctx[:, index] = token
             pos_val = index + settings.pos_offset if use_pos else None
@@ -199,7 +286,7 @@ class DecodeEngine:
     # shared-prefix rollout segment (beam fast path)
     # ------------------------------------------------------------------
 
-    def _rollout_segment(self, arrays, generator, beam_width, num_beam,
+    def _rollout_segment(self, arrays, rng, beam_width, num_beam,
                          settings: SamplerSettings, prefix_len=None):
         """One best-of-B segment with the prefix KV cache SHARED across
         rollouts: only (N*B, H, bw, dh) per-rollout blocks are created,
@@ -218,14 +305,18 @@ class DecodeEngine:
         cross_split = (model.presplit_cross_kv(arrays["cross_kv"])
                        if model.cfg.use_encoder else None)
         block_caches = model.init_block_cache(nb, beam_width)
-        read_caches = self._read_views(arrays["caches"], read_len)
+        read_caches = self._read_views(
+            arrays["caches"], read_len,
+            flat=self._flat_segment(num_beam, beam_width))
+        draw = _draws(_rollout_rng(rng, num_beam), index0, beam_width,
+                      model.cfg.out_dim)
 
         logits = _tile(arrays["logits"], num_beam)
         ctx = _tile(arrays["ctx"], num_beam) if "ctx" in arrays else None
         logp = torch.zeros(nb, device=logits.device)
         tokens = []
         for j in range(beam_width):
-            token, p = _sample(logits, generator, settings)
+            token, p = _sample(logits, draw, settings, slot=index0 + j)
             if ctx is not None:
                 ctx[:, index0 + j] = token
             pos_val = index0 + j + settings.pos_offset if use_pos else None
@@ -253,7 +344,7 @@ class DecodeEngine:
     # shared windowed rollout segment (crossing + steady sliding phases)
     # ------------------------------------------------------------------
 
-    def _windowed_rollout_segment(self, arrays, generator, beam_width,
+    def _windowed_rollout_segment(self, arrays, rng, beam_width,
                                   num_beam, settings: SamplerSettings,
                                   n_cached, window, init_len, gen0, kind):
         """One best-of-B segment once the sliding window is (or becomes)
@@ -286,6 +377,8 @@ class DecodeEngine:
             device = tok_shared.device
             pos0 = arrays["pos_next"]
         nb = n * num_beam
+        draw = _draws(_rollout_rng(rng, num_beam), c0, beam_width,
+                      model.cfg.out_dim)
         logp = torch.zeros(nb, device=device)
         seg_tokens = torch.zeros(nb, 0, dtype=torch.long, device=device)
 
@@ -298,11 +391,12 @@ class DecodeEngine:
             logits = _tile(arrays["logits"], num_beam)
             index0 = arrays["index"]
             cap = arrays["caches"][0]["k"].shape[-1]
-            read_caches = self._read_views(arrays["caches"],
-                                           min(cap, _ceil32(c0)))
+            read_caches = self._read_views(
+                arrays["caches"], min(cap, _ceil32(c0)),
+                flat=self._flat_segment(num_beam, n_cached))
             toks = []
             for j in range(n_cached):
-                token, p = _sample(logits, generator, settings)
+                token, p = _sample(logits, draw, settings, slot=c0 + j)
                 pos_val = (index0 + j + settings.pos_offset) if use_pos \
                     else None
                 logits, block_caches = model.decode_step_shared(
@@ -336,7 +430,7 @@ class DecodeEngine:
                 logits = model.window_forward_shared(
                     sh_tok, seg_tokens, shared_pos_cond=sh_pos,
                     block_pos_cond=blk_pos, cross_kv=cross_kv)
-            token, p = _sample(logits, generator, settings)
+            token, p = _sample(logits, draw, settings, slot=c0 + s)
             logp = logp + _log_prob(p)
             seg_tokens = torch.cat([seg_tokens, token[:, None]], dim=1)
 
@@ -382,19 +476,24 @@ class DecodeEngine:
                 "cross_kv": arrays["cross_kv"],
                 "pos_next": init_len + gen_count + pos_offset}
 
-    def _windowed_segment(self, arrays, generator, num_steps,
+    def _windowed_segment(self, arrays, rng, num_steps,
                           settings: SamplerSettings):
         """Steady-state sliding decode over a full (W-1)-slot buffer."""
         model = self.model
         tok_buf, pos_buf, pos_next = (arrays["tok_buf"], arrays["pos_buf"],
                                       arrays["pos_next"])
         logp = torch.zeros(tok_buf.shape[0], device=tok_buf.device)
+        # pos_next is the position of the token being generated: its global
+        # slot plus the sampler's offset
+        draws = _draws(rng, pos_next - settings.pos_offset, num_steps,
+                       model.cfg.out_dim)
         tokens = []
         for _ in range(num_steps):
             logits = model.window_forward(
                 tok_buf, pos_cond=pos_buf, cross_kv=arrays["cross_kv"],
                 last_only=True)[:, 0]
-            token, prob = _sample(logits, generator, settings)
+            token, prob = _sample(logits, draws, settings,
+                                  slot=pos_next - settings.pos_offset)
             tok_buf = torch.cat([tok_buf[:, 1:], token[:, None]], dim=1)
             pos_buf = torch.cat(
                 [pos_buf[:, 1:],
@@ -441,9 +540,9 @@ class DecodeEngine:
         return DecodeState(mode="cached", arrays=arrays, init_len=init_len,
                            cache_len=first, total_len=total)
 
-    def _cached_run(self, state: DecodeState, generator, num_steps,
-                    settings):
-        """Cached-mode steps with bucketed cache growth."""
+    def _cached_run(self, state: DecodeState, rng, num_steps, settings):
+        """Cached-mode steps with bucketed cache growth (per-row keys pass
+        through unchanged: the slot fold tells the steps apart)."""
         parts, logp = [], 0
         remaining = num_steps
         while remaining > 0:
@@ -456,18 +555,18 @@ class DecodeEngine:
                 capacity = state.cache_len - used
             k = min(remaining, capacity)
             state.arrays, tokens, seg_logp = self._cached_segment(
-                state.arrays, generator, k, settings)
+                state.arrays, rng, k, settings)
             state.gen_count += k
             remaining -= k
             parts.append(tokens)
             logp = logp + seg_logp
         return torch.cat(parts, dim=1), logp
 
-    def segment(self, state: DecodeState, generator, num_steps, settings):
+    def segment(self, state: DecodeState, rng, num_steps, settings):
         """Generate ``num_steps`` tokens from ``state`` (mutating it);
         returns (tokens (N, steps), logp (N,))."""
         if state.window is None:
-            return self._cached_run(state, generator, num_steps, settings)
+            return self._cached_run(state, rng, num_steps, settings)
 
         # hybrid: cached until the context reaches the window size
         n_cached_left = max(
@@ -476,8 +575,7 @@ class DecodeEngine:
         if state.mode == "cached":
             k = min(num_steps, n_cached_left)
             if k > 0:
-                tokens, seg_logp = self._cached_run(state, generator, k,
-                                                    settings)
+                tokens, seg_logp = self._cached_run(state, rng, k, settings)
                 parts.append(tokens)
                 logp = logp + seg_logp
             if state.gen_count >= state.window - state.init_len \
@@ -489,29 +587,32 @@ class DecodeEngine:
             num_steps -= k
         if num_steps > 0:
             state.arrays, tokens, seg_logp = self._windowed_segment(
-                state.arrays, generator, num_steps, settings)
+                state.arrays, rng, num_steps, settings)
             state.gen_count += num_steps
             parts.append(tokens)
             logp = logp + seg_logp
         return torch.cat(parts, dim=1), logp
 
     @torch.inference_mode()
-    def generate(self, init_tokens, num_new_tokens, generator, settings,
+    def generate(self, init_tokens, num_new_tokens, rng, settings,
                  x_enc=None, sliding_window=None):
         """Single-path generation (training-preview decode); returns
-        (N, num_new_tokens) tokens."""
+        (N, num_new_tokens) tokens.  ``rng``: a ``torch.Generator`` or
+        per-row keys (N, 2)."""
         state = self.init_state(init_tokens, num_new_tokens, x_enc=x_enc,
                                 sliding_window=sliding_window)
-        tokens, _ = self.segment(state, generator, num_new_tokens, settings)
+        tokens, _ = self.segment(state, rng, num_new_tokens, settings)
         return tokens
 
     @torch.inference_mode()
-    def rollout_generate(self, init_tokens, num_new_tokens, generator,
-                         settings, num_beam, beam_width, x_enc=None,
+    def rollout_generate(self, init_tokens, num_new_tokens, rng, settings,
+                         num_beam, beam_width, x_enc=None,
                          sliding_window=None):
         """Best-of-``num_beam`` rollout decode (reference beam search),
-        batched over a beam axis.  Returns (N, num_new_tokens) context
-        tokens."""
+        batched over a beam axis.  ``rng``: a ``torch.Generator`` (all rows
+        draw together) or per-row keys (N, 2) (rollout ``b`` of row ``n``
+        draws slot ``s`` from ``fold_in(fold_in(rng[n], b), s)``).  Returns
+        (N, num_new_tokens) context tokens."""
         if num_new_tokens % beam_width != 0:
             raise ValueError("Invalid value for beam_width!")
         n = init_tokens.shape[0]
@@ -533,14 +634,16 @@ class DecodeEngine:
                     state.arrays = self._grow_cache(state.arrays, new_len)
                     state.cache_len = new_len
                 state.arrays, tokens = self._rollout_segment(
-                    state.arrays, generator, beam_width, num_beam, settings,
+                    state.arrays, rng, beam_width, num_beam, settings,
                     prefix_len=state.init_len + state.gen_count)
                 state.gen_count += beam_width
                 out.append(tokens)
                 continue
 
             # shared windowed path (crossing + steady sliding segments)
-            if state.window is not None and beam_width < state.window:
+            if (not self.legacy_windowed_rollouts
+                    and state.window is not None
+                    and beam_width < state.window):
                 if state.mode == "cached":
                     n_cached = cached_left
                     needed = state.init_len + state.gen_count + n_cached
@@ -550,14 +653,14 @@ class DecodeEngine:
                                                         new_len)
                         state.cache_len = new_len
                     state.arrays, tokens = self._windowed_rollout_segment(
-                        state.arrays, generator, beam_width, num_beam,
+                        state.arrays, rng, beam_width, num_beam,
                         settings, n_cached=n_cached, window=state.window,
                         init_len=state.init_len, gen0=state.gen_count,
                         kind="crossing")
                     state.mode = "windowed"
                 else:
                     state.arrays, tokens = self._windowed_rollout_segment(
-                        state.arrays, generator, beam_width, num_beam,
+                        state.arrays, rng, beam_width, num_beam,
                         settings, n_cached=0, window=state.window,
                         init_len=state.init_len, gen0=state.gen_count,
                         kind="steady")
@@ -565,8 +668,9 @@ class DecodeEngine:
                 out.append(tokens)
                 continue
 
-            # legacy path (beam_width >= window): tile the full state,
-            # decode, gather the winner (an int8 prefix converts back once)
+            # legacy path (beam_width >= window, or the option): tile the
+            # full state, decode, gather the winner (an int8 prefix converts
+            # back once)
             if self.quantized_prefix and state.mode == "cached":
                 state.arrays = dict(state.arrays, caches=dequantize_caches(
                     state.arrays["caches"]))
@@ -577,8 +681,8 @@ class DecodeEngine:
                                 window=state.window,
                                 cache_len=state.cache_len,
                                 total_len=state.total_len)
-            tokens, logp = self.segment(tiled, generator, beam_width,
-                                        settings)
+            tokens, logp = self.segment(tiled, _rollout_rng(rng, num_beam),
+                                        beam_width, settings)
             winner = torch.argmax(logp.reshape(n, num_beam), dim=1)
             state.arrays = _select_beam(tiled.arrays, winner, num_beam)
             state.mode = tiled.mode

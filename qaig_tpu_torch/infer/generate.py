@@ -74,33 +74,38 @@ def generate_stage_tokens(model, stage_cfg, generator, is_base_stage,
     return tokens - shift
 
 
-def _load_stage(index, stage_cfg, cast, device, use_ema=False):
+def _load_stage(index, stage_cfg, cast, device, use_ema=False,
+                logging=print):
     """Load one cascade stage's codebooks + transformer."""
     lr_codebook = None
     lr_num_embeddings = 0
     if stage_cfg.get("lr_codebook_path") is not None:
-        status, lr_ckpt = load_model(stage_cfg["lr_codebook_path"])
+        status, lr_ckpt = load_model(stage_cfg["lr_codebook_path"],
+                                     logging=logging)
         if not status:
             raise RuntimeError(
                 "An error occured while loading codebook checkpoint!")
-        lr_codebook = cast(common.codebook_from_checkpoint(lr_ckpt, device))
+        lr_codebook = cast(common.codebook_from_checkpoint(
+            lr_ckpt, device, logging=logging))
         lr_num_embeddings = lr_codebook.num_embeddings
 
-    status, hr_ckpt = load_model(stage_cfg["hr_codebook_path"])
+    status, hr_ckpt = load_model(stage_cfg["hr_codebook_path"],
+                                 logging=logging)
     if not status:
         raise RuntimeError(
             "An error occured while loading codebook checkpoint!")
-    hr_codebook = cast(common.codebook_from_checkpoint(hr_ckpt, device))
+    hr_codebook = cast(common.codebook_from_checkpoint(hr_ckpt, device,
+                                                       logging=logging))
     total_seq = hr_codebook.seq_len
     if total_seq % stage_cfg["beam_width"] != 0:
         raise ValueError("Invalid value for beam_width!")
 
-    status, model_ckpt = load_model(stage_cfg["model_path"])
+    status, model_ckpt = load_model(stage_cfg["model_path"], logging=logging)
     if not status:
         raise RuntimeError(
             "An error occured while loading model checkpoint!")
     model, model_ckpt = transformer_from_checkpoint(
-        model_ckpt, device, use_ema=use_ema)
+        model_ckpt, device, logging=logging, use_ema=use_ema)
     return {
         "index": index, "stage_cfg": stage_cfg, "model": cast(model),
         "lr_codebook": lr_codebook, "lr_num_embeddings": lr_num_embeddings,

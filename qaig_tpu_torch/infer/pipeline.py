@@ -1,0 +1,182 @@
+"""Library-level cascade pipeline: load once, generate many (counterpart of
+``qaig_tpu/infer/pipeline.py``).
+
+Every stage's transformer and codebooks and the FC decoder are loaded once
+onto one device; :meth:`CascadePipeline.generate` then runs the whole
+cascade per call and returns float32 images and the final tokens.  Its
+sampling is row-keyed (``infer/row_keys.py``): row ``j`` draws from
+``derive_row_keys(seed, N)[j]``, or from the keys given, so a row's tokens
+do not depend on the rows it is batched with.  The serving batcher
+(``qaig_tpu_torch/serve.py``) relies on that.
+
+Not ported: the ``mesh`` argument (sharded and tensor-parallel generation,
+``ROADMAP.md`` queue 1 item 10) and the single-program ``fused`` path (its
+counterpart is a CUDA-graph capture of this loop, queue 1 item 6).  The
+port runs the dispatched per-segment loop, to which ``qaig_tpu`` pins its
+fused program token for token.
+"""
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+
+from qaig_tpu_torch.infer import row_keys as rk
+from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
+from qaig_tpu_torch.infer.generate import _load_stage
+from qaig_tpu_torch.train import common
+from qaig_tpu_torch.utils.checkpoint import load_model
+
+# Fold tag separating the stage-0 random conditioning grid's draw from the
+# per-stage / per-beam / per-slot sampling folds (all small ints).
+_INIT_TAG = 424242
+
+
+def derive_row_keys(seed, num_rows, start=0):
+    """Per-row sampling keys (num_rows, 2) int64 on the CPU: row ``j`` gets
+    ``fold_in(key(seed), start + j)``.  The serving batcher builds a merged
+    batch's keys per REQUEST with this (each request's own seed, rows
+    numbered from 0), so a request's tokens do not depend on its
+    co-batch."""
+    rows = torch.arange(start, start + num_rows, dtype=torch.int64)
+    return rk.fold_in(rk.key(seed), rows)
+
+
+@dataclass
+class CascadeStage:
+    engine: DecodeEngine
+    lr_codebook: object
+    hr_codebook: object
+    settings: SamplerSettings
+    num_beam: int
+    beam_width: int
+    sliding_window: int
+    total_seq: int
+    is_base: bool
+
+    @property
+    def lr_num_embeddings(self):
+        return self.lr_codebook.num_embeddings if self.lr_codebook else 0
+
+
+class CascadePipeline:
+    """The full coarse-to-fine generation stack on one device."""
+
+    def __init__(self, stages, decoder, device):
+        self.stages = stages
+        self.decoder = decoder
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            # an explicit index: a serving thread makes it its current
+            # device (torch.cuda.set_device refuses a bare "cuda")
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+
+    @classmethod
+    def from_config(cls, config_dict, decoder_path, logging=print,
+                    device="cuda", dtype=None, use_ema=False):
+        """``config_dict`` is the ``generate_images`` staged config (keys
+        "0", "1", ... with model / codebook paths and sampling settings).
+        ``device`` defaults to ``cuda`` and raises when no GPU is visible.
+        ``dtype`` (``torch.bfloat16`` for serving) casts every float
+        parameter; ``use_ema`` serves the EMA weights (``model_ema``)."""
+        device = common.select_device(device)
+        status, dec_ckpt = load_model(decoder_path, logging=logging)
+        if not status:
+            raise RuntimeError(
+                "An error occured while loading decoder model checkpoint!")
+        decoder, _ = common.decoder_from_checkpoint(dec_ckpt, device,
+                                                    logging=logging)
+
+        def cast(module):
+            return module if dtype is None else common.cast_floats(module,
+                                                                   dtype)
+
+        stages = []
+        for index in sorted(config_dict, key=int):
+            stage_cfg = config_dict[index]
+            st = _load_stage(index, stage_cfg, cast, device, use_ema=use_ema,
+                             logging=logging)
+            settings = SamplerSettings(
+                temperature=stage_cfg["temperature"],
+                end_token=st["hr_num_embeddings"], end_mode="mask",
+                index_shift=st["lr_num_embeddings"] if st["is_base"] else 0,
+                pos_offset=1)  # the reference's generation position quirk
+            stages.append(CascadeStage(
+                engine=DecodeEngine(st["model"]),
+                lr_codebook=st["lr_codebook"], hr_codebook=st["hr_codebook"],
+                settings=settings, num_beam=stage_cfg["num_beam"],
+                beam_width=stage_cfg["beam_width"],
+                sliding_window=st["sliding_window"],
+                total_seq=st["total_seq"], is_base=st["is_base"]))
+        return cls(stages, cast(decoder), device)
+
+    @torch.inference_mode()
+    def generate_tokens(self, num_images, rng=None, init_tokens=None,
+                        temperature=None, row_keys=None):
+        """Run every stage; returns (final HR tokens, per-stage tokens).
+
+        ``init_tokens`` optionally conditions stage 0 (by default random
+        coarse indices, one per image).  ``temperature`` overrides every
+        stage's configured temperature for this call.  Pass EITHER ``rng``
+        (a ``torch.Generator`` on the pipeline's device, consumed stage by
+        stage: batch-keyed sampling) OR ``row_keys`` (N, 2), one key per
+        image row: stage ``i`` of row ``n`` then samples from
+        ``fold_in(row_keys[n], i)`` (and the stage-0 random grid from a
+        further ``_INIT_TAG`` fold), so a row's whole trajectory is a
+        function of its own key."""
+        if (rng is None) == (row_keys is None):
+            raise ValueError("pass exactly one of rng / row_keys")
+        if row_keys is not None:
+            row_keys = torch.as_tensor(row_keys, dtype=torch.int64).to(
+                self.device)
+        tokens = (None if init_tokens is None else
+                  torch.as_tensor(init_tokens).long().to(self.device))
+        per_stage = []
+        for stage_idx, stage in enumerate(self.stages):
+            settings = stage.settings
+            if temperature is not None:
+                settings = dataclasses.replace(
+                    settings, temperature=float(temperature))
+            gen_rng = (rng if row_keys is None
+                       else rk.fold_in(row_keys, stage_idx))
+            if stage.is_base:
+                if tokens is None:
+                    if row_keys is not None:
+                        tokens = rk.randint(rk.fold_in(gen_rng, _INIT_TAG),
+                                            stage.lr_num_embeddings)[:, None]
+                    else:
+                        tokens = torch.randint(
+                            0, stage.lr_num_embeddings, (num_images, 1),
+                            generator=rng, device=self.device)
+                init, x_enc = tokens, None
+            else:
+                init = torch.full((num_images, 1),
+                                  stage.hr_codebook.num_embeddings,
+                                  dtype=torch.long, device=self.device)
+                x_enc = tokens
+            out = stage.engine.rollout_generate(
+                init, stage.total_seq, gen_rng, settings,
+                num_beam=stage.num_beam, beam_width=stage.beam_width,
+                x_enc=x_enc, sliding_window=stage.sliding_window)
+            tokens = out - settings.index_shift
+            per_stage.append(tokens)
+        return tokens, per_stage
+
+    @torch.inference_mode()
+    def generate(self, num_images, seed=0, init_tokens=None,
+                 temperature=None, row_keys=None):
+        """Returns (images (N, C, H, W) float32 in [-1, 1] BGR, final
+        tokens), both on the pipeline's device.
+
+        Sampling is ROW-KEYED: row ``j`` draws from
+        ``derive_row_keys(seed, N)[j]``, or from ``row_keys[j]`` when given
+        (the serving batcher passes per-request keys), so a row's result
+        does not depend on the batch it runs in."""
+        if row_keys is None:
+            row_keys = derive_row_keys(seed, num_images)
+        tokens, _ = self.generate_tokens(num_images, row_keys=row_keys,
+                                         init_tokens=init_tokens,
+                                         temperature=temperature)
+        quant = self.stages[-1].hr_codebook.get_quantized_image(tokens)
+        return self.decoder(quant).float(), tokens

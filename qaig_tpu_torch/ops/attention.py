@@ -9,7 +9,8 @@ Routing (no global switches): :func:`dot_product_attention` sends
 self-attention over equal shapes with no key mask and no query offset to
 :func:`qaig_tpu_torch.ops.flash_attention.flash_attention`, and
 :func:`shared_prefix_attention` always goes to
-``qaig_tpu_torch.ops.decode_attention``; those launch their CUDA kernels on
+``qaig_tpu_torch.ops.decode_attention`` (the flat kernel for an
+interleaved prefix); those launch their CUDA kernels on
 CUDA tensors and run their plain versions on CPU tensors.  The other
 functions here are plain tensor products, as they are XLA einsums in the
 JAX package.
@@ -91,7 +92,14 @@ def shared_prefix_attention(q, k_shared, v_shared, k_block, v_block,
       ``< index0``); int8 when ``k_scale``/``v_scale`` (N, H, S) are given.
     k_block, v_block: (N*B, H, bw, dh) segment K/V (valid slots
       ``<= block_index``).
+    A 3-D prefix (N, dh, S*H) is the interleaved layout of the engine's
+    ``flat_decode`` option (scales (N, S*H)) and goes to the flat kernel.
     Returns (N*B, 1, D)."""
+    if k_shared.ndim == 3:
+        return da.shared_prefix_attention_fused_flat(
+            q, k_shared, v_shared, k_block, v_block, index0, block_index,
+            heads=q.shape[2] // k_shared.shape[1], k_scale=k_scale,
+            v_scale=v_scale)
     if k_scale is not None:
         return da.shared_prefix_attention_fused_int8(
             q, k_shared, k_scale, v_shared, v_scale, k_block, v_block,

@@ -22,9 +22,22 @@ instantiated for a working-dtype or an int8 prefix); on CPU tensors they
 run :func:`shared_prefix_attention_reference`, the plain PyTorch version.
 A CUDA input the kernel does not take raises.  Any ``bw >= 1`` is taken,
 including crossing segments whose width is not a multiple of 8.
+
+Interleaved layout (the engine's ``flat_decode`` option):
+:func:`shared_prefix_attention_fused_flat` computes the same function over
+prefix caches stored (N, dh, S*H), column = slot*H + head (built once per
+segment by :func:`interleave_t` / :func:`interleave_scale`), with per-column
+int8 scales (N, S*H).  Its kernel
+(``qaig_tpu_torch/csrc/decode_attention_flat.cu``) cuts each image's
+prefix into chunks of slots, one block per chunk covering all heads (so
+each d-row of a slot tile is one contiguous run), and merges the chunks'
+softmax states in a second pass.  Its plain version, :func:`shared_prefix_attention_flat_reference`,
+rounds where the TPU kernel does (pre-scaled q and the probabilities in the
+working dtype), not where kernel B does.
 """
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -141,9 +154,9 @@ def _launch(q, k_shared, v_shared, k_scale, v_scale, k_block, v_block,
     return out
 
 
-def _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
-                         v_block, index0, block_index):
-    name = "shared_prefix_attention"
+def _check_tensors(name, q, prefix, k_scale, v_scale, k_block, v_block):
+    """Device, dtype and contiguity of a decode kernel's inputs; ``prefix``
+    names the two prefix caches."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPES:
@@ -152,9 +165,9 @@ def _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
     if quant != (v_scale is not None):
         raise ValueError(f"{name}: give both k_scale and v_scale or neither")
     prefix_dtype = torch.int8 if quant else q.dtype
-    tensors = [("q", q, q.dtype), ("k_shared", k_shared, prefix_dtype),
-               ("v_shared", v_shared, prefix_dtype),
-               ("k_block", k_block, q.dtype), ("v_block", v_block, q.dtype)]
+    tensors = [("q", q, q.dtype)]
+    tensors += [(tname, x, prefix_dtype) for tname, x in prefix]
+    tensors += [("k_block", k_block, q.dtype), ("v_block", v_block, q.dtype)]
     if quant:
         tensors += [("k_scale", k_scale, torch.bfloat16),
                     ("v_scale", v_scale, torch.bfloat16)]
@@ -167,6 +180,17 @@ def _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
                              f"{x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {tname} is not contiguous")
+    if q.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors are not on the current CUDA "
+                         "device")
+
+
+def _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
+                         v_block, index0, block_index):
+    name = "shared_prefix_attention"
+    _check_tensors(name, q, [("k_shared", k_shared), ("v_shared", v_shared)],
+                   k_scale, v_scale, k_block, v_block)
+    quant = k_scale is not None
     if k_shared.ndim != 4 or q.ndim != 3 or q.shape[1] != 1:
         raise ValueError(
             f"{name}: expected q (N*B, 1, D) and slot-minor prefix "
@@ -184,6 +208,12 @@ def _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
                   or v_scale.shape != (n, heads, s)):
         raise ValueError(f"{name}: scales must be (N, H, S) = "
                          f"{(n, heads, s)}")
+    _check_blocks(name, k_block, v_block, nb, heads, dh, s, index0,
+                  block_index)
+
+
+def _check_blocks(name, k_block, v_block, nb, heads, dh, s, index0,
+                  block_index):
     if (k_block.ndim != 4 or k_block.shape[:2] != (nb, heads)
             or k_block.shape[3] != dh or v_block.shape != k_block.shape):
         raise ValueError(
@@ -194,6 +224,190 @@ def _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
     if not (0 <= int(index0) <= s and 0 <= int(block_index) < bw):
         raise ValueError(f"{name}: index0 {index0} / block_index "
                          f"{block_index} outside prefix {s} / block {bw}")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: tensors are not on the current CUDA "
-                         "device")
+
+
+# ---------------------------------------------------------------------------
+# interleaved (N, dh, S*H) prefix: the flat kernel
+# ---------------------------------------------------------------------------
+
+NEG = -1e30
+_FLAT_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
+                  + [ctypes.c_float, ctypes.c_void_p])
+_FLAT_TILES = (32, 16, 8, 4, 2, 1)
+
+
+def flat_segment_supported(heads, num_beam, block_width):
+    """Whether the engine routes a rollout segment to the flat kernel
+    (``qaig_tpu/ops/decode_attention.py::flat_segment_supported``): at most
+    64 rows (heads x rollouts) and a block width that is a positive
+    multiple of 8.  These were the TPU compiler's limits; the port keeps
+    them as the routing rule so that both engines route (and count) the
+    same segments.  The Hopper kernel itself takes any ``bw >= 1``."""
+    return (heads * num_beam <= 64
+            and block_width > 0
+            and block_width % 8 == 0)
+
+
+def interleave_t(x_t):
+    """(N, H, dh, S) -> interleaved (N, dh, S*H), column = slot*H + head
+    (a contiguous copy)."""
+    n, h, dh, s = x_t.shape
+    return x_t.permute(0, 2, 3, 1).reshape(n, dh, s * h)
+
+
+def interleave_scale(scale_t):
+    """(N, H, S) per-slot scales -> (N, S*H)."""
+    n, h, s = scale_t.shape
+    return scale_t.permute(0, 2, 1).reshape(n, s * h)
+
+
+def shared_prefix_attention_flat_reference(q, k_il, v_il, k_block, v_block,
+                                           index0, block_index, heads,
+                                           k_scale=None, v_scale=None):
+    """Plain PyTorch version of the flat kernel, rounding where
+    ``_kernel_flat`` (``qaig_tpu/ops/decode_attention.py:202-276``) does:
+    q pre-scaled by 1/sqrt(dh) in float32 and rounded back to the working
+    dtype (q's); invalid slots at -1e30; the K scales multiply the float32
+    scores, the V scales the probabilities; the probabilities are rounded to
+    the working dtype before both P.V products, whose float32 sum is divided
+    by the float32 denominator.  Only each row's own head and own rollout
+    are computed: the TPU kernel's cross-head and cross-rollout products
+    are masked to exp(-1e30 - m) = 0 and add nothing.
+
+    q (N*B, 1, D); k_il/v_il (N, dh, S*H) (int8 with ``k_scale``/``v_scale``
+    (N, S*H)); k_block/v_block (N*B, H, bw, dh).  Returns (N*B, 1, D) in
+    q's dtype."""
+    nb, _, d = q.shape
+    n, dh, sh = k_il.shape
+    h, b, s = heads, nb // n, sh // heads
+    wd, f32 = q.dtype, torch.float32
+
+    def rounded(x):          # to the working dtype, computed in float32
+        return x.to(wd).to(f32)
+
+    q4 = q.reshape(n, b, h, dh).transpose(1, 2)              # (N, H, B, dh)
+    q4 = rounded(q4.to(f32) / math.sqrt(dh))
+    k = k_il.to(wd).to(f32).reshape(n, dh, s, h)
+    v = v_il.to(wd).to(f32).reshape(n, dh, s, h)
+    sc_s = torch.einsum("nhbd,ndsh->nhbs", q4, k)
+    if k_scale is not None:
+        sc_s = sc_s * k_scale.to(f32).reshape(n, s, h).transpose(1, 2)[
+            :, :, None]
+    live = torch.arange(s, device=q.device) < index0
+    sc_s = sc_s.masked_fill(~live, NEG)
+
+    kb = k_block.reshape(n, b, h, -1, dh).transpose(1, 2).to(f32)
+    vb = v_block.reshape(n, b, h, -1, dh).transpose(1, 2).to(f32)
+    sc_b = torch.einsum("nhbd,nhbtd->nhbt", q4, kb)
+    live_b = torch.arange(kb.shape[3], device=q.device) <= block_index
+    sc_b = sc_b.masked_fill(~live_b, NEG)
+
+    m = torch.maximum(sc_s.amax(-1), sc_b.amax(-1))[..., None]
+    p_s = torch.exp(sc_s - m)
+    p_b = torch.exp(sc_b - m)
+    denom = p_s.sum(-1) + p_b.sum(-1)
+    if v_scale is not None:
+        p_s = p_s * v_scale.to(f32).reshape(n, s, h).transpose(1, 2)[
+            :, :, None]
+    out = (torch.einsum("nhbs,ndsh->nhbd", rounded(p_s), v)
+           + torch.einsum("nhbt,nhbtd->nhbd", rounded(p_b), vb))
+    out = out / denom[..., None]
+    return out.transpose(1, 2).reshape(nb, 1, d).to(wd)
+
+
+def shared_prefix_attention_fused_flat(q, k_il, v_il, k_block, v_block,
+                                       index0, block_index, heads,
+                                       k_scale=None, v_scale=None):
+    """Rollout decode attention over interleaved (N, dh, S*H) prefix caches
+    (the flat kernel on CUDA tensors; with ``k_scale``/``v_scale`` an int8
+    prefix, dequantized in the kernel).  ``index0``/``block_index`` are
+    Python ints.  Launches count in ``.launches`` (working-dtype prefix)
+    and ``.int8_launches``."""
+    if q.device.type == "cpu":
+        return shared_prefix_attention_flat_reference(
+            q, k_il, v_il, k_block, v_block, index0, block_index, heads,
+            k_scale=k_scale, v_scale=v_scale)
+    out = _launch_flat(q, k_il, v_il, k_scale, v_scale, k_block, v_block,
+                       index0, block_index, heads)
+    if k_scale is None:
+        shared_prefix_attention_fused_flat.launches += 1
+    else:
+        shared_prefix_attention_fused_flat.int8_launches += 1
+    return out
+
+
+shared_prefix_attention_fused_flat.launches = 0
+shared_prefix_attention_fused_flat.int8_launches = 0
+
+
+def _launch_flat(q, k_il, v_il, k_scale, v_scale, k_block, v_block, index0,
+                 block_index, heads):
+    name = "shared_prefix_attention_fused_flat"
+    quant = k_scale is not None
+    _check_flat_inputs(name, q, k_il, v_il, k_scale, v_scale, k_block,
+                       v_block, index0, block_index, heads)
+    n, dh, sh = k_il.shape
+    s = sh // heads
+    b = q.shape[0] // n
+    bw = k_block.shape[2]
+    index0 = int(index0)
+    # about two blocks per SM: the prefix in `splits` chunks of `chunk`
+    # slots (at least 8), one block each, plus one block for the segment
+    splits = max(1, min(-(-2 * _sm_count(q.device) // n), -(-index0 // 8)))
+    chunk = -(-index0 // splits)
+    splits = -(-index0 // chunk) if index0 else 1
+    smem_fn = cuda_build.function(
+        "decode_attention_flat", "qaig_flat_attention_smem",
+        [ctypes.c_int] * 5, ctypes.c_size_t)
+    elem = 1 if quant else q.element_size()
+    tile = next((t for t in _FLAT_TILES if t <= max(chunk, 1)
+                 and smem_fn(heads, b, dh, t, elem) <= _MAX_SMEM), None)
+    if tile is None:
+        raise ValueError(
+            f"{name}: {heads} heads x {b} rollouts x dh {dh} need "
+            f"{smem_fn(heads, b, dh, 1, elem)} bytes of shared memory even "
+            f"at one slot per tile, above the {_MAX_SMEM} a block has")
+    out = torch.empty_like(q)
+    partial = torch.empty(n, splits + 1, heads * b, dh + 2,
+                          dtype=torch.float32, device=q.device)
+    fn = cuda_build.function("decode_attention_flat", "qaig_flat_attention",
+                             _FLAT_ARGTYPES)
+    err = fn(q.data_ptr(), k_il.data_ptr(), v_il.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None,
+             k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
+             partial.data_ptr(), n, b, heads, dh, s, bw, index0,
+             int(block_index), tile, splits, chunk, _DTYPES[q.dtype],
+             int(quant), float(math.sqrt(dh)), cuda_build.stream_handle(q))
+    cuda_build.check("decode_attention_flat", err)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _check_flat_inputs(name, q, k_il, v_il, k_scale, v_scale, k_block,
+                       v_block, index0, block_index, heads):
+    _check_tensors(name, q, [("k_il", k_il), ("v_il", v_il)], k_scale,
+                   v_scale, k_block, v_block)
+    quant = k_scale is not None
+    if (k_il.ndim != 3 or q.ndim != 3 or q.shape[1] != 1 or heads < 1
+            or k_il.shape[2] % heads):
+        raise ValueError(
+            f"{name}: expected q (N*B, 1, D) and an interleaved prefix "
+            f"(N, dh, S*H) with H = {heads}, got q {tuple(q.shape)}, prefix "
+            f"{tuple(k_il.shape)}")
+    n, dh, sh = k_il.shape
+    nb, _, d = q.shape
+    if d != heads * dh or nb % n:
+        raise ValueError(f"{name}: q {tuple(q.shape)} does not fit prefix "
+                         f"{tuple(k_il.shape)} with {heads} heads")
+    if v_il.shape != k_il.shape:
+        raise ValueError(f"{name}: v_il shape {tuple(v_il.shape)} != k_il "
+                         f"{tuple(k_il.shape)}")
+    if quant and (k_scale.shape != (n, sh) or v_scale.shape != (n, sh)):
+        raise ValueError(f"{name}: scales must be (N, S*H) = {(n, sh)}")
+    _check_blocks(name, k_block, v_block, nb, heads, dh, sh // heads,
+                  index0, block_index)

@@ -48,7 +48,7 @@ def greedy(monkeypatch):
 
 
 def _rollouts(quantized_prefix=False, window=None, use_encoder=True,
-              steps=16, num_beam=3, beam_width=4, seed=0):
+              steps=16, num_beam=3, beam_width=4, seed=0, **engine_kw):
     from qaig_tpu.infer.decode import DecodeEngine as JaxEngine
     from qaig_tpu.infer.decode import SamplerSettings as JaxSettings
     from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
@@ -64,12 +64,13 @@ def _rollouts(quantized_prefix=False, window=None, use_encoder=True,
     x_enc = rng.integers(0, 8, (n, 4)) if use_encoder else None
     kw = dict(temperature=1.0, end_token=16, end_mode="mask",
               pos_offset=1 if use_pos else 0)
-    want = JaxEngine(jm, quantized_prefix=quantized_prefix).rollout_generate(
+    want = JaxEngine(jm, quantized_prefix=quantized_prefix,
+                     **engine_kw).rollout_generate(
         params, jnp.asarray(init), steps, jax.random.PRNGKey(3),
         JaxSettings(**kw), num_beam=num_beam, beam_width=beam_width,
         x_enc=None if x_enc is None else jnp.asarray(x_enc),
         sliding_window=window)
-    got = DecodeEngine(tm, quantized_prefix=quantized_prefix) \
+    got = DecodeEngine(tm, quantized_prefix=quantized_prefix, **engine_kw) \
         .rollout_generate(torch.from_numpy(init), steps, torch.Generator(),
                           SamplerSettings(**kw), num_beam=num_beam,
                           beam_width=beam_width,
@@ -94,6 +95,35 @@ def test_windowed_encoder_stage_rollout_tokens_match_jax(greedy, window,
 
 def test_int8_prefix_rollout_tokens_match_jax(greedy):
     _rollouts(quantized_prefix=True)
+
+
+@pytest.mark.parametrize("case", ["flat", "flat_falls_back", "flat_int8",
+                                  "legacy_windowed"])
+def test_engine_options_match_jax(greedy, monkeypatch, case):
+    """``flat_decode`` (bw 8: the flat kernel's plain version on every
+    rollout step; bw 4: routed back to the slot-minor path, as in JAX),
+    ``flat_decode`` with an int8 prefix, and ``legacy_windowed_rollouts``
+    on a windowed stage give ``qaig_tpu``'s tokens (its flat kernel in the
+    Pallas interpreter)."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    calls = []
+    flat = da.shared_prefix_attention_fused_flat
+
+    def counting(*a, **kw):
+        calls.append(kw.get("k_scale") is not None)
+        return flat(*a, **kw)
+    monkeypatch.setattr(da, "shared_prefix_attention_fused_flat", counting)
+    if case == "legacy_windowed":
+        _rollouts(window=8, beam_width=4, legacy_windowed_rollouts=True)
+        assert calls == []
+        return
+    bw = 4 if case == "flat_falls_back" else 8
+    _rollouts(quantized_prefix=case == "flat_int8", beam_width=bw,
+              flat_decode=True)
+    # 2 decoder layers x 16 rollout steps, each through the flat kernel
+    want = [] if bw == 4 else [case == "flat_int8"] * 32
+    assert calls == want
 
 
 def test_single_path_generate_matches_jax(greedy):
@@ -256,11 +286,13 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'qaig_tpu', 'flax', 'optax'))\n"
-        "print(len([m for m in sys.modules "
-        "if m.startswith('qaig_tpu_torch.')]), bad)\n"
+        "print(sorted(m for m in sys.modules "
+        "if m.startswith('qaig_tpu_torch.')), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    count = int(proc.stdout.split()[0])
-    assert count >= 20, proc.stdout
+    assert proc.stdout.count("'qaig_tpu_torch.") >= 20, proc.stdout
+    for name in ("serve", "infer.pipeline", "infer.row_keys",
+                 "cli.serve_generation", "ops.decode_attention"):
+        assert f"'qaig_tpu_torch.{name}'" in proc.stdout, name

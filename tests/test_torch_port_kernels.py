@@ -5,8 +5,10 @@ machine with the card:
     python -m pytest tests/test_torch_port_kernels.py -q -m cuda
 
 Tolerance: atol 2e-2 in bf16 (both round the same float32 result to bf16,
-so they differ by at most one bf16 step at these magnitudes) and 1e-5 in
-float32 (summation order only).  Attention gradients: atol 5e-2 in bf16
+so they differ by at most one bf16 step at these magnitudes; the flat
+kernel also rounds q and the probabilities to bf16 as its plain version
+does, in another order across its slot tiles) and 1e-5 in float32
+(summation order only).  Attention gradients: atol 5e-2 in bf16
 (the kernel's bf16 output enters the backward's delta term and the
 gradients are rounded to bf16) and 1e-4 in float32 (products over S keys
 in another order).  BMU indices: the near-tie rule of
@@ -63,6 +65,76 @@ def test_decode_kernels_match_plain(cuda, dtype, b, bw, s, index0,
         q, k8, v8, kb, vb, index0, block_index, k_scale=ks, v_scale=vs)
     torch.testing.assert_close(got.float(), want.float(), rtol=0,
                                atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,bw,s,index0,block_index",
+                         [(4, 8, 256, 256, 7), (4, 8, 256, 96, 3),
+                          (4, 8, 256, 1, 0), (32, 16, 40, 33, 15),
+                          (4, 7, 96, 90, 6), (2, 1, 17, 0, 0)])
+def test_flat_kernel_matches_plain(cuda, dtype, b, bw, s, index0,
+                                   block_index):
+    """The flat kernel (working-dtype and int8 prefix) against its plain
+    version, and against the slot-minor kernel's plain version (the same
+    function; the flat one rounds q and the probabilities to the working
+    dtype, so bf16 compares within the bf16 tolerance)."""
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    gen = torch.Generator(device=cuda).manual_seed(index0 + b)
+    n, h, dh = 3, 8, 64
+    q = _rand(gen, n * b, 1, h * dh, dtype=dtype)
+    kt, vt = (_rand(gen, n, h, dh, s, dtype=dtype) for _ in range(2))
+    kb, vb = (_rand(gen, n * b, h, bw, dh, dtype=dtype) for _ in range(2))
+    k_il, v_il = da.interleave_t(kt), da.interleave_t(vt)
+    flat = da.shared_prefix_attention_fused_flat
+    launches = (flat.launches, flat.int8_launches)
+    got = flat(q, k_il, v_il, kb, vb, index0, block_index, h)
+    want = da.shared_prefix_attention_flat_reference(
+        q, k_il, v_il, kb, vb, index0, block_index, h)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    torch.testing.assert_close(
+        got.float(), da.shared_prefix_attention_reference(
+            q, kt, vt, kb, vb, index0, block_index).float(), rtol=0,
+        atol=TOL[torch.bfloat16])
+    (k8, ks), (v8, vs) = quantize_kv_t(kt), quantize_kv_t(vt)
+    args = (q, da.interleave_t(k8), da.interleave_t(v8), kb, vb, index0,
+            block_index, h)
+    scales = {"k_scale": da.interleave_scale(ks),
+              "v_scale": da.interleave_scale(vs)}
+    got = flat(*args, **scales)
+    want = da.shared_prefix_attention_flat_reference(*args, **scales)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert (flat.launches, flat.int8_launches) == (launches[0] + 1,
+                                                   launches[1] + 1)
+
+
+def test_flat_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    q = torch.zeros(8, 1, 512, device=cuda)
+    k_il = torch.zeros(2, 64, 32 * 8, device=cuda)
+    kb = torch.zeros(8, 8, 4, 64, device=cuda)
+    flat = da.shared_prefix_attention_fused_flat
+    launches = (flat.launches, flat.int8_launches)
+    for args, kw, match in (
+            ((q, k_il, k_il, kb, kb, 33, 0, 8), {}, "outside"),
+            ((q, k_il.bfloat16(), k_il, kb, kb, 1, 0, 8), {}, "must be"),
+            ((q, k_il, k_il, kb, kb, 1, 0, 3), {}, "interleaved"),
+            ((q, k_il.to(torch.int8), k_il.to(torch.int8), kb, kb, 1, 0, 8),
+             {"k_scale": torch.zeros(2, 256, device=cuda,
+                                     dtype=torch.bfloat16)}, "both"),
+            ((torch.zeros(2048, 1, 512, device=cuda),
+              torch.zeros(8, 64, 32 * 8, device=cuda),
+              torch.zeros(8, 64, 32 * 8, device=cuda),
+              torch.zeros(2048, 8, 4, 64, device=cuda),
+              torch.zeros(2048, 8, 4, 64, device=cuda), 1, 0, 8), {},
+             "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            flat(*args, **kw)
+    assert (flat.launches, flat.int8_launches) == launches
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -104,6 +104,73 @@ def test_int8_prefix_attention_matches_jax(index0, block_index):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("index0,block_index", [(200, 5), (1, 0), (256, 7)])
+def test_flat_attention_matches_jax(index0, block_index):
+    """The flat kernel's plain version against the JAX flat Pallas kernel
+    (interpreted) at N8 B4 H8 dh64 S256 bw8, and against the slot-minor
+    plain version (the same function)."""
+    from qaig_tpu.ops import decode_attention as jda
+    from qaig_tpu_torch.ops import attention as ta
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    q, kt, vt, kb, vb = _decode_inputs(n=8)
+    k_il, v_il = da.interleave_t(_t(kt)), da.interleave_t(_t(vt))
+    got = da.shared_prefix_attention_fused_flat(
+        _t(q), k_il, v_il, _t(kb), _t(vb), index0, block_index, 8).numpy()
+    want = jda.shared_prefix_attention_fused_flat(
+        _j(q), _j(k_il), _j(v_il), _j(kb), _j(vb), jnp.asarray(index0),
+        jnp.asarray(block_index), heads=8, interpret=True)
+    assert got.shape == (32, 1, 512)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(
+        got, da.shared_prefix_attention_reference(
+            _t(q), _t(kt), _t(vt), _t(kb), _t(vb), index0,
+            block_index).numpy(), atol=ATOL)
+    # a 3-D prefix routes to the flat kernel
+    np.testing.assert_array_equal(ta.shared_prefix_attention(
+        _t(q), k_il, v_il, _t(kb), _t(vb), index0, block_index).numpy(),
+        got)
+
+
+def test_flat_int8_attention_matches_jax():
+    from qaig_tpu.ops import decode_attention as jda
+    from qaig_tpu.ops.kv_quant import quantize_kv_t as jax_quantize
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    q, kt, vt, kb, vb = _decode_inputs(n=8, seed=1)
+    (k8, ks), (v8, vs) = quantize_kv_t(_t(kt)), quantize_kv_t(_t(vt))
+    got = da.shared_prefix_attention_fused_flat(
+        _t(q), da.interleave_t(k8), da.interleave_t(v8), _t(kb), _t(vb),
+        200, 5, 8, k_scale=da.interleave_scale(ks),
+        v_scale=da.interleave_scale(vs)).numpy()
+    (jk8, jks), (jv8, jvs) = jax_quantize(_j(kt)), jax_quantize(_j(vt))
+    want = jda.shared_prefix_attention_fused_flat(
+        _j(q), jda.interleave_t(jk8), jda.interleave_t(jv8), _j(kb), _j(vb),
+        jnp.asarray(200), jnp.asarray(5), heads=8,
+        k_scale=jda.interleave_scale(jks), v_scale=jda.interleave_scale(jvs),
+        interpret=True)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+def test_interleave_and_flat_routing_rule_match_jax():
+    from qaig_tpu.ops import decode_attention as jda
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    _, kt, _, _, _ = _decode_inputs(n=2, s=40)
+    scale = np.random.default_rng(2).standard_normal((2, 8, 40)).astype(
+        np.float32)
+    np.testing.assert_array_equal(da.interleave_t(_t(kt)).numpy(),
+                                  np.asarray(jda.interleave_t(_j(kt))))
+    np.testing.assert_array_equal(da.interleave_scale(_t(scale)).numpy(),
+                                  np.asarray(jda.interleave_scale(
+                                      _j(scale))))
+    for args in ((8, 4, 8), (8, 8, 16), (8, 32, 16), (8, 4, 7), (8, 4, 4),
+                 (8, 4, 0)):
+        assert da.flat_segment_supported(*args) == \
+            jda.flat_segment_supported(*args), args
+
+
 @pytest.mark.parametrize("s,causal", [(13, True), (16, True), (16, False)])
 def test_flash_attention_reference_matches_jax_kernel(s, causal):
     """The plain version against the JAX Pallas kernel in interpret mode
@@ -218,7 +285,7 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     the kernel wrapper, which refuses what it cannot launch."""
     from qaig_tpu_torch.ops.bmu import bmu_argmin, fused_bmu
     from qaig_tpu_torch.ops.decode_attention import (
-        shared_prefix_attention_fused_t)
+        shared_prefix_attention_fused_flat, shared_prefix_attention_fused_t)
     from qaig_tpu_torch.ops.flash_attention import flash_attention
 
     before = (flash_attention.launches,
@@ -234,6 +301,12 @@ def test_non_cpu_tensors_never_take_the_plain_version():
     kb = torch.empty(8, 8, 8, 64, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         shared_prefix_attention_fused_t(q, kt, kt, kb, kb, 1, 0)
+    flat = shared_prefix_attention_fused_flat
+    flat_before = (flat.launches, flat.int8_launches)
+    k_il = torch.empty(2, 64, 32 * 8, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        flat(q, k_il, k_il, kb, kb, 1, 0, 8)
     assert (flash_attention.launches,
             shared_prefix_attention_fused_t.launches,
             fused_bmu.launches) == before
+    assert (flat.launches, flat.int8_launches) == flat_before
