@@ -8,7 +8,8 @@ Run from the repository root, with no arguments:
 Phases (any failure exits non-zero and prints no result line):
 
 1. device -- require CUDA, print the card's name and power limit, turn
-   TF32 off for matmuls and cuDNN;
+   TF32 off for matmuls and cuDNN through the package's own setting
+   (``train/common.py::full_float32``, which every entry point calls);
 2. build -- compile every CUDA kernel of the port from
    ``qaig_tpu_torch/csrc`` (one nvcc per source, in parallel);
 3. kernels -- hold each kernel against its plain PyTorch version on the
@@ -21,7 +22,10 @@ Phases (any failure exits non-zero and prints no result line):
    cascade, index for index outside near-ties (``torch.cdist(p,
    c).argmin(1)`` as the yardstick); the flat decode kernel over
    interleaved caches, bf16 and int8 prefix (atol 2e-2) and float32 (atol
-   1e-5), at the stage-1/2 shapes and at the stage-0 fan;
+   1e-5), at the stage-1/2 shapes and at the stage-0 fan; the fused MLP
+   (kernel 6) in bf16 (atol 2e-2) at the probe's packed-QKV and FFN
+   shapes, 8192 and 1024 rows and a ragged 1000, beside the same function
+   as two cuBLAS products and elementwise calls;
 4. reference -- a small cascade stage decoded greedily in float32 on the
    card (kernels) and on the CPU (plain versions) must give the same
    tokens; 4c: the same with ``flat_decode=True``; 4b: one float32 train
@@ -46,7 +50,21 @@ Phases (any failure exits non-zero and prints no result line):
    composition invariance of row-keyed sampling (asserted) and the bf16
    share of equal tokens (reported); then ``python -m
    qaig_tpu_torch.cli.serve_generation --bf16`` as a subprocess: /healthz,
-   four concurrent /generate requests, /metrics, a PNG, SIGTERM.
+   four concurrent /generate requests, /metrics, a PNG, SIGTERM;
+8. probe path -- ``qaig_tpu_torch.scripts.probe_mlp_fused.main()`` at its
+   full shapes (D 512, hidden 2048, 8192 and 1024 rows, 7 layers of
+   packed QKV and FFN), kernel 6's launches asserted from its control flow;
+9. front of the pipeline -- 64 seeded 128x128x3 PNGs through the four
+   stage CLIs as subprocesses with ``--device cuda``: the autoencoder of
+   ``examples/configs/autoencoder.json`` (6 float32 steps, then 6 bf16
+   steps, batch 8), feature maps of all 64 images, codebooks on
+   ``codebook_hr.json`` and ``codebook_lr.json`` (6 steps each, previews
+   through the new decoder), pruning of the HR codebook; every file
+   checked, the BMU launches asserted from the control flow;
+4d. reference, front -- one float32 autoencoder step and one codebook step
+   on the card and on the CPU (loss, gradients, BMU indices outside
+   near-ties; the autoencoder step also with cuDNN's TF32 on, reported),
+   and phase 9's latents against the CPU's encoder.
 
 The kernels' launch counts are set to 0 before each main path's run and
 read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
@@ -97,8 +115,13 @@ def phase_device(torch):
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script needs a CUDA GPU")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    repo = Path(__file__).resolve().parent
+    if not (repo / "qaig_tpu_torch" / "csrc").is_dir():
+        raise SystemExit(f"chip_smoke: no qaig_tpu_torch package beside "
+                         f"{Path(__file__).name}; run it from a checkout")
+    sys.path.insert(0, str(repo))
+    from qaig_tpu_torch.train.common import full_float32
+    full_float32()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -107,7 +130,8 @@ def phase_device(torch):
     log(f"[device] {name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
     log(f"[device] allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32}"
-        f" cudnn={torch.backends.cudnn.allow_tf32}")
+        f" cudnn={torch.backends.cudnn.allow_tf32} (qaig_tpu_torch.train."
+        f"common.full_float32)")
     return name, smi
 
 
@@ -498,6 +522,70 @@ def check_bmu(torch, timer, records):
         f"{agree['max_gap']:.3e}")
 
 
+MLP_SHAPES = [  # (N, S, act_last): the probe's packed QKV and FFN at 8192
+    # and 1024 rows, and a ragged N
+    (8192, 3, False), (8192, 1, True), (1024, 3, False), (1024, 1, True),
+    (1000, 3, False), (1000, 1, True)]
+MLP_D, MLP_H = 512, 2048
+
+
+def check_mlp(torch, timer, records):
+    """Kernel 6 against its plain version in bf16 (atol 2e-2) at the
+    probe's shapes.  Bound: the function's operations (both products, no
+    recomputation) and bytes (x, weights, biases read once, out written
+    once).  No single PyTorch call computes the function, so the yardstick
+    is the same arithmetic as two cuBLAS products plus elementwise calls
+    (``library_chain_ms``; ``library_ms`` stays null)."""
+    import torch.nn.functional as F
+    from qaig_tpu_torch.ops import mlp_fused as mf
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d, hid = MLP_D, MLP_H
+    for n, s, act_last in MLP_SHAPES:
+        def rnd(*shape):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * 0.05).to(torch.bfloat16)
+        x, w0, b0 = rnd(n, d), rnd(s * hid, d), rnd(s * hid)
+        w1, b1 = rnd(s, d, hid), rnd(s, d)
+
+        def run_kernel():
+            return mf.mlp2_fused(x, w0, b0, w1, b1, act_last=act_last)
+
+        def run_plain():
+            return mf.mlp2_fused_reference(x, w0, b0, w1, b1, act_last)
+
+        def run_library_chain():
+            h = F.silu(F.linear(x, w0, b0)).view(n, s, hid).transpose(0, 1)
+            o = torch.baddbmm(b1[:, None], h, w1.transpose(1, 2))
+            return F.silu(o) if act_last else o
+
+        err = (run_kernel().float() - run_plain().float()).abs().max().item()
+        chain_err = (run_library_chain().float()
+                     - run_plain().float()).abs().max().item()
+        flops = 2 * n * d * s * hid + 2 * n * s * hid * d
+        nbytes = 2 * (n * d + s * hid * d + s * hid + s * d * hid + s * d
+                      + s * n * d)
+        bound_ms, bound_by = bound(nbytes, flops)
+        row_tiles, _, parts, _ = mf.launch_geometry(n, s, hid, sms)
+        rec = {"name": "mlp2_fused", "shape": {
+            "N": n, "S": s, "act_last": act_last, "D": d, "H": hid,
+            "D2": d}, "blocks": row_tiles * s * parts, "hidden_parts": parts,
+            "max_abs_err": err, "library_chain_max_abs_err": chain_err,
+            "ms": timer(run_kernel), "plain_ms": timer(run_plain),
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "library_chain_ms": timer(run_library_chain)}
+        records.append(rec)
+        log(f"[kernels] mlp2_fused N={n} S={s} act_last={act_last} "
+            f"({rec['blocks']} blocks, hidden in {parts} parts): "
+            f"max_abs_err={err:.3e} (library chain {chain_err:.3e}) "
+            f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+            f"library_chain_ms={rec['library_chain_ms']:.4f} "
+            f"bound_ms={bound_ms:.5f} ({bound_by})")
+        if not err <= ATOL:
+            raise SystemExit(f"mlp2_fused disagrees with its plain version: "
+                             f"{err} > {ATOL}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a small cascade stage, card (kernels) against CPU (plain)
 # ---------------------------------------------------------------------------
@@ -752,6 +840,7 @@ def _counted():
     from qaig_tpu_torch.ops import bmu
     from qaig_tpu_torch.ops import decode_attention as da
     from qaig_tpu_torch.ops import flash_attention as fa
+    from qaig_tpu_torch.ops import mlp_fused as mf
     return [("flash_attention", fa.flash_attention, "launches"),
             ("flash_attention_backward", fa.flash_attention,
              "backward_calls"),
@@ -763,7 +852,8 @@ def _counted():
              da.shared_prefix_attention_fused_flat, "launches"),
             ("shared_prefix_attention_fused_flat_int8",
              da.shared_prefix_attention_fused_flat, "int8_launches"),
-            ("fused_bmu", bmu.fused_bmu, "launches")]
+            ("fused_bmu", bmu.fused_bmu, "launches"),
+            ("mlp2_fused", mf.mlp2_fused, "launches")]
 
 
 def reset_launches():
@@ -1456,6 +1546,387 @@ def stop_trace(prof, wall_s):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the probe of kernel 6
+# ---------------------------------------------------------------------------
+
+PROBE = dict(rows=(8192, 1024), layers=7, reps=20)
+
+
+def run_probe_path(torch, device="cuda"):
+    """``probe_mlp_fused.main()`` at its full shapes.  Per row count the
+    probe runs a 1-layer kernel chain once, then the full chain once to
+    warm up and ``reps`` times timed; each layer of a chain launches the
+    kernel twice (packed QKV, FFN).  Returns (launches, the probe's
+    results)."""
+    from qaig_tpu_torch.scripts import probe_mlp_fused as probe
+
+    synchronize(torch, device)
+    reset_launches()
+    t0 = time.perf_counter()
+    results = probe.main(device=device, rows=PROBE["rows"],
+                         layers=PROBE["layers"], reps=PROBE["reps"])
+    synchronize(torch, device)
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    want = len(PROBE["rows"]) * 2 * (1 + PROBE["layers"]
+                                     * (1 + PROBE["reps"]))
+    log(f"[probe] probe_mlp_fused.main() in {seconds:.1f} s; launches "
+        f"{launches}")
+    if launches["mlp2_fused"] != want:
+        raise SystemExit(f"the probe launched mlp2_fused "
+                         f"{launches['mlp2_fused']} times, expected {want}")
+    for r in results:
+        log(f"[probe] rows={r['rows']}: 1-layer max err {r['max_err']:.5f}; "
+            f"~{r['hbm_mb_avoided']:.0f} MB of hidden-activation round "
+            f"trip avoided per chain; chain of {r['layers']} layers: "
+            f"library {r['library_ms']:.3f} ms, kernel "
+            f"{r['kernel_ms']:.3f} ms")
+        if not r["max_err"] <= ATOL:
+            raise SystemExit(f"the probe's kernel chain disagrees with the "
+                             f"library chain: {r['max_err']}")
+    return launches, {"seconds": seconds, "results": results}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the front of the pipeline through the four stage CLIs
+# ---------------------------------------------------------------------------
+
+FRONT = dict(images=64, side=128, batch=8, steps=6, checkpoint_step=3,
+             autoencoder="examples/configs/autoencoder.json",
+             codebooks={"hr": "examples/configs/codebook_hr.json",
+                        "lr": "examples/configs/codebook_lr.json"},
+             prune_threshold=1)
+
+# runs one CLI's main() in a fresh process, its train steps timed
+# (synchronised), and prints the kernels' launch counts last
+CLI_RUNNER = """
+import importlib, json, sys, time
+import torch
+import chip_smoke
+module, stage, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+device = argv[argv.index("--device") + 1]
+def sync():
+    chip_smoke.synchronize(torch, device)
+steps = []
+if stage:
+    train = importlib.import_module(f"qaig_tpu_torch.train.{stage}")
+    make = train.make_train_step
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+        def timed(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = step(*args)
+            sync()
+            steps.append(time.perf_counter() - t0)
+            return out
+        return timed
+    train.make_train_step = timed_make
+cli = importlib.import_module(f"qaig_tpu_torch.cli.{module}")
+sync()
+chip_smoke.reset_launches()
+t0 = time.perf_counter()
+cli.main(argv)
+sync()
+seconds = time.perf_counter() - t0
+print("LAUNCHES " + json.dumps({"launches": chip_smoke.read_launches(),
+                                "step_s": steps, "seconds": seconds}))
+"""
+
+
+def run_cli(module, stage, argv, device="cuda"):
+    """``python -m qaig_tpu_torch.cli.<module> <argv> --device <device>``
+    through ``CLI_RUNNER``; returns its launches, step seconds and
+    seconds."""
+    import os
+    repo = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-c", CLI_RUNNER, module, stage or "",
+         *[str(a) for a in argv], "--device", device],
+        cwd=repo, env=dict(os.environ), capture_output=True, text=True,
+        timeout=900)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("LAUNCHES ")]
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"{module} failed (exit {proc.returncode}):\n"
+                         + (proc.stdout + proc.stderr)[-4000:])
+    return json.loads(lines[-1][len("LAUNCHES "):])
+
+
+def write_images(root, n, side, seed=0):
+    """``n`` seeded side x side x 3 PNGs (``utils/png.py``) and their
+    manifest."""
+    import numpy as np
+    from qaig_tpu_torch.data.manifest import write_manifest
+    from qaig_tpu_torch.utils import png
+    folder = Path(root) / "images"
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        # smooth colour fields plus noise: something an autoencoder can fit
+        yy, xx = np.mgrid[0:side, 0:side] / side
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        base = 127.5 + 100 * np.sin(2 * np.pi * (xx[..., None] * phase / 3
+                                                 + yy[..., None]) + phase)
+        pixels = np.clip(base + rng.normal(0, 10, (side, side, 3)), 0, 255)
+        path = folder / f"{i}.png"
+        path.write_bytes(png.encode(pixels.astype(np.uint8)))
+        rows.append({"image_fpath": str(path), "labels": []})
+    return write_manifest(Path(root) / "dataset.json", rows)
+
+
+def _finite_losses(out_dir, n):
+    import numpy as np
+    losses = [json.loads(line)["recon_loss"] for line in
+              (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
+    if len(losses) != n or not np.isfinite(losses).all():
+        raise SystemExit(f"{out_dir}: losses not all finite: {losses}")
+    return losses
+
+
+def _step_mean(step_s):
+    return sum(step_s[1:]) / len(step_s[1:])
+
+
+def run_front_path(torch, workdir, device="cuda"):
+    """Phase 9.  Returns (launches by path, timings, paths)."""
+    import numpy as np
+    from qaig_tpu_torch.utils.checkpoint import load_model
+
+    f = FRONT
+    repo = Path(__file__).resolve().parent
+    root = Path(workdir) / "front"
+    t0 = time.perf_counter()
+    dataset = write_images(root, f["images"], f["side"])
+    log(f"[front] {f['images']} PNGs of {f['side']}x{f['side']}x3 written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    checkpoints = list(range(0, f["steps"], f["checkpoint_step"]))
+    common = ["--batch-size", f["batch"], "--max-steps", f["steps"],
+              "--checkpoint-step", f["checkpoint_step"]]
+    launches, timings = {}, {}
+
+    for kind, extra in (("f32", []), ("bf16", ["--bf16"])):
+        out = root / f"ae_{kind}"
+        res = run_cli("train_autoencoder", "autoencoder", [
+            "--dataset-path", dataset, "--config-path",
+            repo / f["autoencoder"], "--out-dir", out, *common, *extra],
+            device)
+        losses = _finite_losses(out, f["steps"])
+        for n in checkpoints:
+            ok, ckpt = load_model(out / "models_checkpoint" / f"model_{n}.pt")
+            if not ok or ckpt["global_steps"] != n or \
+                    ckpt["model_optimizer"] is None:
+                raise SystemExit(f"ae_{kind}: model_{n}.pt is missing or "
+                                 f"incomplete")
+            for grid in ("ground_truth", "recon"):
+                if not (out / "images" / f"{grid}_{n}.jpg").exists():
+                    raise SystemExit(f"ae_{kind}: {grid}_{n}.jpg missing")
+        timings[f"autoencoder_{kind}"] = {
+            "step_s": res["step_s"], "step_mean_s": _step_mean(res["step_s"]),
+            "seconds": res["seconds"], "losses": losses}
+        log(f"[front] train_autoencoder {kind}: {f['steps']} steps at batch "
+            f"{f['batch']}, {_step_mean(res['step_s']):.4f} s per step "
+            f"(steps 1-5; all {[round(x, 4) for x in res['step_s']]}); "
+            f"losses {[round(x, 5) for x in losses]}; checkpoints and grids "
+            f"{checkpoints}")
+    decoder = root / "ae_f32" / "models_checkpoint" / \
+        f"model_{checkpoints[-1]}.pt"
+
+    fmaps = root / "fmaps"
+    res = run_cli("generate_fmap_dataset", None, [
+        "--dataset-path", dataset, "--model-path", decoder, "--out-dir",
+        fmaps, "--batch-size", f["batch"]], device)
+    from qaig_tpu_torch.data.manifest import Manifest
+    rows = Manifest(fmaps / "all_dataset.json").rows
+    if len(rows) != f["images"]:
+        raise SystemExit(f"fmap manifest has {len(rows)} rows")
+    for row in rows:
+        latent = np.load(row["fmap_path"])
+        if latent.shape != (4, 32, 32) or latent.dtype != np.float32 or \
+                not np.isfinite(latent).all():
+            raise SystemExit(f"bad latent {row['fmap_path']}: "
+                             f"{latent.shape} {latent.dtype}")
+    timings["fmap_s"] = res["seconds"]
+    log(f"[front] generate_fmap_dataset: {len(rows)} latents (4, 32, 32) "
+        f"in {res['seconds']:.3f} s")
+
+    books = {}
+    for name, config in f["codebooks"].items():
+        out = root / f"codebook_{name}"
+        res = run_cli("train_codebook", "codebook", [
+            "--dataset-path", fmaps / "all_dataset.json", "--decoder-path",
+            decoder, "-c", repo / config, "--out-dir", out, *common], device)
+        _finite_losses(out, f["steps"])
+        for n in checkpoints:
+            ok, ckpt = load_model(out / "models_checkpoint"
+                                  / f"codebook_{n}.pt")
+            if not ok or ckpt["global_steps"] != n or \
+                    "model_optimizer" not in ckpt:
+                raise SystemExit(f"codebook_{name}: codebook_{n}.pt is "
+                                 f"missing or incomplete")
+            for grid in ("image_plot", "quant_image_plot"):
+                if not (out / "images" / f"{grid}_{n}.jpg").exists():
+                    raise SystemExit(f"codebook_{name}: {grid}_{n}.jpg "
+                                     f"missing")
+        # one BMU call per train step and per preview
+        want = f["steps"] + len(checkpoints)
+        launches[f"train_codebook_{name}"] = res["launches"]
+        if res["launches"]["fused_bmu"] != want:
+            raise SystemExit(f"train_codebook {name} launched fused_bmu "
+                             f"{res['launches']['fused_bmu']} times, "
+                             f"expected {want}")
+        books[name] = out / "models_checkpoint" / \
+            f"codebook_{checkpoints[-1]}.pt"
+        timings[f"codebook_{name}"] = {
+            "step_s": res["step_s"], "step_mean_s": _step_mean(res["step_s"]),
+            "seconds": res["seconds"]}
+        log(f"[front] train_codebook {name}: {f['steps']} steps, "
+            f"{_step_mean(res['step_s']):.4f} s per step (steps 1-5; all "
+            f"{[round(x, 4) for x in res['step_s']]}); fused_bmu calls "
+            f"{want}")
+
+    out = root / "pruned"
+    res = run_cli("prune_codebook", None, [
+        "--dataset-path", fmaps / "all_dataset.json", "--codebook-path",
+        books["hr"], "--out-dir", out, "--batch-size", f["batch"],
+        "--prune-threshold", f["prune_threshold"]], device)
+    ok, pruned = load_model(out / "models_checkpoint" / "pruned_codebook.pt")
+    if not ok or not 0 < pruned["num_embeddings"] <= 512:
+        raise SystemExit("pruned_codebook.pt is missing or empty")
+    want = -(-f["images"] // f["batch"])   # one call per batch, ragged kept
+    launches["prune"] = res["launches"]
+    if res["launches"]["fused_bmu"] != want:
+        raise SystemExit(f"prune_codebook launched fused_bmu "
+                         f"{res['launches']['fused_bmu']} times, expected "
+                         f"{want}")
+    timings["prune_s"] = res["seconds"]
+    log(f"[front] prune_codebook (hr, threshold {f['prune_threshold']}): "
+        f"{pruned['num_embeddings']} of 512 codes kept in "
+        f"{res['seconds']:.3f} s; fused_bmu calls {want}")
+    return launches, timings, {"dataset": dataset, "decoder": decoder,
+                               "fmaps": fmaps / "all_dataset.json"}
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: the front's stages, card against CPU in float32
+# ---------------------------------------------------------------------------
+
+def _sgd_step(torch, model, step_fn):
+    """(loss, gradients as old minus new) of one SGD(lr=1) step."""
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    loss = float(step_fn(torch.optim.SGD(model.parameters(), lr=1.0)))
+    return loss, {n: (before[n] - p.detach()).cpu()
+                  for n, p in model.named_parameters()}
+
+
+def check_front_reference(torch, paths, device="cuda"):
+    """Phase 4d, float32, TF32 off: (a) one autoencoder train step of a
+    small config (32-64 channels, 32x32 images, batch 4): loss rel 1e-5,
+    gradients atol 1e-5, then the same step with cuDNN's TF32 on (reported
+    only: the fault the package's setting repairs); (b) one codebook train step at the HR shape
+    (batch 8 of 4x32x32, patch 8, K 512): BMU indices equal outside
+    near-ties, loss rel 1e-5; (c) phase 9's latents of 8 images (written
+    on the card by the fmap CLI) against the port's encoder on the CPU:
+    atol 1e-5."""
+    import numpy as np
+    from qaig_tpu_torch.models.codebook import Codebook
+    from qaig_tpu_torch.models.core import init_parameters
+    from qaig_tpu_torch.ops.bmu import near_tie_agreement
+    from qaig_tpu_torch.ops.patch import patchify
+    from qaig_tpu_torch.train import autoencoder, codebook, fmap
+    from qaig_tpu_torch.train.common import full_float32
+    from qaig_tpu_torch.data.image_dataset import ImageDataset
+    from qaig_tpu_torch.data.manifest import Manifest
+    from qaig_tpu_torch.utils.checkpoint import load_model
+
+    gen = torch.Generator().manual_seed(8)
+    cfg = dict(json.loads((Path(__file__).resolve().parent
+                           / FRONT["autoencoder"]).read_text()),
+               min_channel=32, max_channel=64)
+    weights = init_parameters(autoencoder.build_autoencoder(cfg)[0],
+                              gen).state_dict()
+    batch = torch.rand(4, 3, 32, 32, generator=gen) * 2 - 1
+
+    def ae_step(dev):
+        model = autoencoder.build_autoencoder(cfg, dev)[0]
+        model.load_state_dict(weights)
+        return _sgd_step(torch, model, lambda opt: autoencoder
+                         .make_train_step(model, opt)(batch.to(dev)))
+
+    def differ(a, b):   # (loss rel, max grad abs diff)
+        return (abs(a[0] - b[0]) / abs(b[0]),
+                max((a[1][n] - g).abs().max().item() for n, g in b[1].items()))
+
+    out = {dev: ae_step(dev) for dev in ("cpu", device)}
+    loss_rel, grad_err = differ(out[device], out["cpu"])
+    log(f"[reference] autoencoder train step, float32: loss card "
+        f"{out[device][0]:.8f} cpu {out['cpu'][0]:.8f} (rel {loss_rel:.2e});"
+        f" max |grad card - grad cpu| {grad_err:.3e}")
+    if not loss_rel <= 1e-5 or not grad_err <= 1e-5:
+        raise SystemExit("card and CPU autoencoder steps differ")
+    # the fault the package's setting repairs: the same step with PyTorch's
+    # default (cuDNN may use TF32), reported, then TF32 off again
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_loss_rel, tf32_grad_err = differ(ae_step(device), out["cpu"])
+    finally:
+        full_float32()
+    log(f"[reference] the same step with cuDNN's TF32 on (PyTorch's "
+        f"default): loss rel {tf32_loss_rel:.2e}, max |grad card - grad cpu| "
+        f"{tf32_grad_err:.3e}")
+
+    book = Codebook(patch_dim=(8, 8), image_dim=(32, 32), image_channel=4,
+                    num_embeddings=512, init_neighbour_range=256)
+    with torch.no_grad():
+        book.codebook.normal_(0.0, 0.5, generator=gen)
+    latents = torch.randn(8, 4, 32, 32, generator=gen)
+    out, tokens = {}, {}
+    for dev in ("cpu", device):
+        model = Codebook(patch_dim=(8, 8), image_dim=(32, 32),
+                         image_channel=4, num_embeddings=512,
+                         init_neighbour_range=256, device=dev)
+        model.load_state_dict(book.state_dict())
+        tokens[dev] = model.get_patches_bmu(latents.to(dev)).cpu()
+        out[dev] = _sgd_step(torch, model, lambda opt: codebook
+                             .make_train_step(model, opt)(latents.to(dev),
+                                                          256.0))
+    patches = patchify(latents, patch_dim=(8, 8)).reshape(-1, 256)
+    agree = near_tie_agreement(patches, book.codebook.detach(),
+                               tokens[device], tokens["cpu"])
+    loss_rel = abs(out[device][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_err = (out[device][1]["codebook"]
+                - out["cpu"][1]["codebook"]).abs().max().item()
+    log(f"[reference] codebook train step (M 128, D 256, K 512), float32: "
+        f"BMU indices differ on {agree['differing_rows']} rows, all within "
+        f"the {agree['near_tie_rows']} near-tie rows; loss card "
+        f"{out[device][0]:.8f} cpu {out['cpu'][0]:.8f} (rel {loss_rel:.2e});"
+        f" max |grad card - grad cpu| {grad_err:.3e}")
+    if not loss_rel <= 1e-5:
+        raise SystemExit("card and CPU codebook losses differ")
+
+    ok, ckpt = load_model(paths["decoder"])
+    assert ok
+    encoder, _ = fmap.encoder_from_checkpoint(ckpt, torch.device("cpu"),
+                                              logging=_no_skips)
+    rows = Manifest(paths["fmaps"]).rows[:8]
+    images = ImageDataset(paths["dataset"], return_filepaths=True)
+    by_path = {images.manifest[i]["image_fpath"]: i
+               for i in range(len(images))}
+    x = np.stack([images[by_path[r["image_path"]]][0] for r in rows])
+    with torch.inference_mode():
+        want = encoder(torch.from_numpy(x)).numpy()
+    got = np.stack([np.load(r["fmap_path"]) for r in rows])
+    err = float(np.abs(got - want).max())
+    log(f"[reference] full-width encoder latents of 8 images: card (fmap "
+        f"CLI) against CPU max abs diff {err:.3e}")
+    if not err <= 1e-5:
+        raise SystemExit(f"card and CPU latents differ: {err}")
+    return {"latent_max_abs_err": err, "autoencoder_tf32_on": {
+        "loss_rel": tf32_loss_rel, "grad_max_abs_err": tf32_grad_err}}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1484,6 +1955,10 @@ KERNELS = {
         "source": "qaig_tpu_torch/csrc/bmu.cu",
         "replaces": "qaig_tpu/ops/bmu.py:39",
         "summary": {"M": 2048, "D": 16, "K": 512}},
+    "mlp2_fused": {
+        "source": "qaig_tpu_torch/csrc/mlp2_fused.cu",
+        "replaces": "scripts/probe_mlp_fused.py:58",
+        "summary": {"N": 8192, "S": 3}},
 }
 
 
@@ -1508,6 +1983,8 @@ def kernels_line(records, launches_by_path):
             "bound_ms": summary["bound_ms"],
             "bound_by": summary["bound_by"],
             "library_ms": summary["library_ms"]})
+        if "library_chain_ms" in summary:
+            out[-1]["library_chain_ms"] = summary["library_chain_ms"]
     return {"kernels": out}
 
 
@@ -1522,11 +1999,6 @@ def main():
 
     import torch
     name, smi = phase_device(torch)
-    repo = Path(__file__).resolve().parent
-    if not (repo / "qaig_tpu_torch" / "csrc").is_dir():
-        raise SystemExit(f"chip_smoke: no qaig_tpu_torch package beside "
-                         f"{Path(__file__).name}; run it from a checkout")
-    sys.path.insert(0, str(repo))
 
     phase_build()
     timer = Timer(torch)
@@ -1536,6 +2008,7 @@ def main():
     check_flash_train(torch, timer, records)
     check_bmu(torch, timer, records)
     check_flat(torch, timer, records)
+    check_mlp(torch, timer, records)
     del timer
     check_reference(torch)
     check_flat_reference(torch)
@@ -1554,6 +2027,12 @@ def main():
             torch, workdir, profile=args.profile)
         launches["pipeline"], timings["serve"] = run_serve_path(torch,
                                                                 paths)
+        launches["probe"], timings["probe"] = run_probe_path(torch)
+        front, timings["front"], front_paths = run_front_path(torch,
+                                                              workdir)
+        launches.update(front)
+        timings["front"]["reference"] = check_front_reference(torch,
+                                                              front_paths)
 
     line = kernels_line(records, launches)
     if args.json_out:

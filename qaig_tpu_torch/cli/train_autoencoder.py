@@ -1,0 +1,74 @@
+"""Train the fully-convolutional autoencoder on one GPU (the port's
+counterpart of ``qaig_tpu/cli/train_autoencoder.py``, same flags and
+defaults):
+
+    python -m qaig_tpu_torch.cli.train_autoencoder \
+        --dataset-path images.json --config-path ae.json --out-dir out \
+        [--device cuda] [--bf16]
+
+Not part of the port (yet): ``--num-model-shards`` and ``--zero-opt``,
+``--checkpoint-backend`` (the port writes reference-compatible pickle
+files only), ``--compiler-options``, ``--compilation-cache-dir`` and the
+multihost runtime flags.
+"""
+
+import argparse
+import pathlib
+
+
+def main(argv=None):
+    from qaig_tpu_torch.train import autoencoder
+
+    parser = argparse.ArgumentParser(
+        description="Train Autoencoder models.")
+    parser.add_argument("--device", choices=["cuda", "cpu"], type=str,
+                        default="cuda",
+                        help="cuda (the default) needs a visible GPU and "
+                             "never falls back to the CPU.")
+    parser.add_argument("--dataset-path", required=True, type=pathlib.Path,
+                        help="File path to image dataset json file.")
+    parser.add_argument("--model-path", default=None, type=pathlib.Path,
+                        help="File path to saved model checkpoint.")
+    parser.add_argument("--load-optim", action="store_true",
+                        help="Load saved optim parameters with model.")
+    parser.add_argument("--auto-resume", action="store_true",
+                        help="Fault recovery: continue from the newest "
+                             "checkpoint in --out-dir (model + optimizer + "
+                             "step counter); starts fresh when none exists. "
+                             "Explicit --model-path wins.")
+    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--checkpoint-step", type=int, default=1_000)
+    parser.add_argument("--lr-step", type=int, default=50_000)
+    parser.add_argument("--max-epoch", type=int, default=1_000)
+    parser.add_argument("--max-steps", type=int, default=None,
+                        help="Optional hard step cap (smoke runs).")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--bf16", action="store_true",
+                        help="Mixed-precision training: bfloat16 compute, "
+                             "float32 master weights/optimizer.")
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="Anomaly detection in the backward "
+                             "(torch.autograd.set_detect_anomaly): fail at "
+                             "the op that produced a NaN.")
+    parser.add_argument("--profile-dir", default=None, type=pathlib.Path,
+                        help="Write a torch.profiler trace of a window of "
+                             "steps here.")
+    parser.add_argument("--profile-start", type=int, default=5)
+    parser.add_argument("--profile-steps", type=int, default=5)
+    parser.add_argument("--config-path", required=True, type=pathlib.Path)
+    parser.add_argument("--log-every", type=int, default=1,
+                        help="Sync loss to host every N steps (1 = "
+                             "reference behavior).")
+    parser.add_argument("--grad-accum", type=int, default=1,
+                        help="Accumulate gradients over N equal chunks of "
+                             "the batch before one Adam update.")
+    parser.add_argument("--keep-checkpoints", type=int, default=None,
+                        help="Retention: keep only the N newest checkpoints "
+                             "in --out-dir.")
+    parser.add_argument("--out-dir", required=True, type=pathlib.Path)
+    args = vars(parser.parse_args(argv))
+    autoencoder.run(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -3,9 +3,12 @@
 
 A worker thread stacks numpy batches into a small queue (items fan out over
 a thread pool: ``np.load`` releases the GIL) so the card never waits on
-file reads; the caller moves each batch to its device.  The shuffle is the
-JAX package's: one ``np.random.default_rng(seed)`` permutation per epoch
-and the remainder dropped, so the same seed gives the same batches.
+file reads; the caller moves each batch to its device.  The order is the
+JAX package's: with ``shuffle``, one ``np.random.default_rng(seed)``
+permutation per epoch; with ``drop_remainder`` (the default) the last
+partial batch is dropped, else it is the last batch.  The same seed gives
+the same batches.  Items that are tuples, such as ``(image, path)``,
+batch column by column: arrays are stacked, anything else is listed.
 """
 
 import queue
@@ -19,24 +22,40 @@ PREFETCH = 2      # batches read ahead
 NUM_WORKERS = 4   # item reads in flight
 
 
+def _stack(samples):
+    if isinstance(samples[0], (tuple, list)):
+        return tuple(np.stack(c) if isinstance(c[0], np.ndarray) else list(c)
+                     for c in zip(*samples))
+    return np.stack(samples)
+
+
 class DataLoader:
-    def __init__(self, dataset, batch_size, seed=0):
+    def __init__(self, dataset, batch_size, shuffle=True, seed=0,
+                 drop_remainder=True):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_remainder = drop_remainder
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        if self.drop_remainder:
+            return len(self.dataset) // self.batch_size
+        return -(-len(self.dataset) // self.batch_size)
 
     def _batch_indices(self):
         order = np.arange(len(self.dataset))
-        self._rng.shuffle(order)
-        for start in range(0, len(self) * self.batch_size, self.batch_size):
+        if self.shuffle:
+            self._rng.shuffle(order)
+        limit = (len(self) * self.batch_size if self.drop_remainder
+                 else len(order))
+        for start in range(0, limit, self.batch_size):
             yield order[start:start + self.batch_size]
 
     def __iter__(self):
-        """Iterate over (batch, ...) numpy arrays, read ahead by a worker
-        thread; an abandoned iterator releases the worker."""
+        """Iterate over batches (numpy arrays, or tuples of columns), read
+        ahead by a worker thread; an abandoned iterator releases the
+        worker."""
         q = queue.Queue(maxsize=PREFETCH)
         sentinel = object()
         error = []
@@ -44,8 +63,8 @@ class DataLoader:
         pool = ThreadPoolExecutor(max_workers=NUM_WORKERS)
 
         def fetch(idx_batch):
-            return np.stack(list(pool.map(self.dataset.__getitem__,
-                                          [int(i) for i in idx_batch])))
+            return _stack(list(pool.map(self.dataset.__getitem__,
+                                        [int(i) for i in idx_batch])))
 
         def put(item):
             while not stop.is_set():

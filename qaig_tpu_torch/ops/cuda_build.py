@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "qaig_tpu_torch_kernels")
 SOURCES = ("flash_attention", "decode_attention", "decode_attention_flat",
-           "bmu")
+           "bmu", "mlp2_fused")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo"]
 

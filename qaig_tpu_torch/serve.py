@@ -63,16 +63,15 @@ precision).
 import base64
 import json
 import math
-import struct
 import threading
 import time
-import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 import torch
 
 from qaig_tpu_torch.infer.pipeline import derive_row_keys
+from qaig_tpu_torch.utils import png
 
 # Per-request temperatures are quantized to this grid and range, the
 # accepted values of ``qaig_tpu``'s server (<= 50 distinct values).
@@ -90,26 +89,11 @@ class RequestTimeoutError(RuntimeError):
 
 def _render_png(image_chw):
     """(C, H, W) float BGR in [-1, 1] -> PNG bytes (RGB, like the grid
-    writer's BGR->RGB flip, ``utils/image_io.py``), written with the
-    standard library only: 8-bit RGB (or grey for one channel), every row
-    with filter 0, one zlib stream."""
+    writer's BGR->RGB flip, ``utils/image_io.py``; grey for one
+    channel), written by ``utils/png.py``."""
     arr = np.asarray(image_chw, np.float32)
     arr = np.clip((arr + 1.0) * 127.5, 0, 255).astype(np.uint8)
-    pixels = np.ascontiguousarray(arr[::-1].transpose(1, 2, 0))  # RGB HWC
-    height, width, channels = pixels.shape
-    rows = np.concatenate(
-        [np.zeros((height, 1), np.uint8), pixels.reshape(height, -1)],
-        axis=1)
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    header = struct.pack(">IIBBBBB", width, height, 8,
-                         {1: 0, 3: 2}[channels], 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header)
-            + chunk(b"IDAT", zlib.compress(rows.tobytes()))
-            + chunk(b"IEND", b""))
+    return png.encode(arr[::-1].transpose(1, 2, 0))   # RGB HWC
 
 
 def _to_numpy(x):

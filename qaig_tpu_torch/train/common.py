@@ -1,6 +1,7 @@
 """Plumbing shared by the stages (counterpart of
-``qaig_tpu/train/common.py``): config load, device selection, dtype casts,
-flat-state restore, rebuilding the FC decoder and codebooks from their
+``qaig_tpu/train/common.py``): config load, device selection (TF32 off),
+dtype casts, checkpoint load, flat-state and optimizer-state restore,
+rebuilding the FC decoder, the autoencoder and codebooks from their
 checkpoints, checkpoint discovery and retention (pickle checkpoints only),
 throughput and metrics logs, a ``torch.profiler`` window, and the NaN
 guard.  Model and optimizer states cross to and from ``qaig_tpu``'s
@@ -16,8 +17,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from qaig_tpu_torch.convert import load_jax_state
+from qaig_tpu_torch.convert import load_jax_state, load_optax_state
 from qaig_tpu_torch.models import core
+from qaig_tpu_torch.utils.checkpoint import load_model
 
 
 def load_config(path):
@@ -25,10 +27,20 @@ def load_config(path):
         return json.load(f)
 
 
+def full_float32():
+    """Float32 on the card is float32: no TF32 in matmuls or in cuDNN's
+    convolutions (PyTorch's default lets cuDNN use it), as ``qaig_tpu``
+    computes float32 on the CPU.  bf16 paths are unaffected."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def select_device(device):
     """The CLI ``--device`` flag as a ``torch.device``.  ``cuda`` (the
     default of the entry points) requires a visible GPU and never falls
-    back to the CPU."""
+    back to the CPU.  Every entry point comes through here, so it also
+    turns TF32 off (:func:`full_float32`)."""
+    full_float32()
     device = torch.device(device or "cuda")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: no CUDA device is visible "
@@ -63,6 +75,28 @@ def restore_model_state(model, state, logging=print, key_map=None):
                          "the port; convert the checkpoint with qaig_tpu "
                          "first")
     return load_jax_state(model, state, key_map=key_map, logging=logging)
+
+
+def load_checkpoint(path, what, log):
+    """A checkpoint dict, or RuntimeError naming ``what``."""
+    status, ckpt = load_model(path, logging=log.info)
+    if not status:
+        raise RuntimeError(f"An error occured while loading {what} "
+                           "checkpoint!")
+    return ckpt
+
+
+def restore_optimizer(model, optimizer, scheduler, state, logging=print):
+    """Fill ``optimizer`` (Adam over ``model``) from a ``qaig_tpu`` optax
+    state and put ``scheduler`` at its update count; a state that does
+    not fit is logged and the optimizer stays fresh."""
+    from qaig_tpu_torch.train import optim
+    try:
+        count = load_optax_state(model, optimizer, state, logging=logging)
+    except Exception as e:
+        logging(f"Could not restore optimizer state: {e}")
+        return
+    optim.set_update_count(optimizer, scheduler, count)
 
 
 def submodule_key_map(keep_prefix, drop_prefixes=()):
@@ -102,6 +136,26 @@ def decoder_from_checkpoint(ckpt, device, logging=print):
     restore_model_state(model, ckpt["model"], logging=logging,
                         key_map=submodule_key_map(
                             "fc_decoder.", drop_prefixes=("fc_encoder.",)))
+    return model, cfg
+
+
+def autoencoder_config(ckpt):
+    """The ``AutoencoderConfig`` a checkpoint describes."""
+    from qaig_tpu_torch.models.conv_nets import AutoencoderConfig
+    return AutoencoderConfig(**{
+        key: ckpt[key] for key in (
+            "num_layers", "image_channel", "min_channel", "max_channel",
+            "latent_channel", "hidden_activation_type",
+            "use_final_enc_activation", "encoder_activation_type",
+            "use_final_dec_activation", "decoder_activation_type")})
+
+
+def autoencoder_from_checkpoint(ckpt, device, logging=print):
+    """Rebuild the whole autoencoder from its checkpoint dict."""
+    from qaig_tpu_torch.models.conv_nets import Autoencoder
+    cfg = autoencoder_config(ckpt)
+    model = init_for_restore(Autoencoder(cfg, device=device), device)
+    restore_model_state(model, ckpt["model"], logging=logging)
     return model, cfg
 
 

@@ -25,15 +25,14 @@ import torch
 import torch.nn.functional as F
 from torch.func import functional_call
 
-from qaig_tpu_torch.convert import (load_optax_state, to_jax_state,
-                                    to_optax_state)
+from qaig_tpu_torch.convert import to_jax_state, to_optax_state
 from qaig_tpu_torch.data.fmap_dataset import FeatureMapDataset
 from qaig_tpu_torch.data.loader import DataLoader
 from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
 from qaig_tpu_torch.models.core import init_parameters
 from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
 from qaig_tpu_torch.train import common, optim
-from qaig_tpu_torch.utils.checkpoint import load_model, save_model
+from qaig_tpu_torch.utils.checkpoint import save_model
 from qaig_tpu_torch.utils.image_io import save_images
 from qaig_tpu_torch.utils.logging_utils import setup_logging
 
@@ -227,14 +226,6 @@ def generate_preview_tokens(engine, feature_map, lr_codebook,
     return tokens - shift
 
 
-def _load(path, what, log):
-    status, ckpt = load_model(path, logging=log.info)
-    if not status:
-        raise RuntimeError(f"An error occured while loading {what} "
-                           "checkpoint!")
-    return ckpt
-
-
 def run(args):
     """Train from the CLI flags in ``args`` (a dict); returns the model.
     ``device`` defaults to ``cuda``."""
@@ -261,14 +252,15 @@ def run(args):
                          f"divide the batch size {batch_size}")
 
     # pre-trained decoder and codebooks (frozen; the codebooks stay float32)
+    load = common.load_checkpoint
     decoder, _ = common.decoder_from_checkpoint(
-        _load(args["decoder_path"], "decoder model", log), device,
+        load(args["decoder_path"], "decoder model", log), device,
         logging=log.info)
     lr_codebook = common.codebook_from_checkpoint(
-        _load(args["lr_codebook_path"], "Low-Resolution codebook", log),
+        load(args["lr_codebook_path"], "Low-Resolution codebook", log),
         device, logging=log.info)
     hr_codebook = common.codebook_from_checkpoint(
-        _load(args["hr_codebook_path"], "High-Resolution codebook", log),
+        load(args["hr_codebook_path"], "High-Resolution codebook", log),
         device, logging=log.info)
     lr_num_embeddings = lr_codebook.num_embeddings
     hr_num_embeddings = hr_codebook.num_embeddings
@@ -313,7 +305,7 @@ def run(args):
             log.info(f"Auto-resume: continuing from {latest}")
 
     if args.get("model_path"):
-        ckpt = _load(args["model_path"], "model", log)
+        ckpt = load(args["model_path"], "model", log)
         common.restore_model_state(model, ckpt["model"], logging=log.info)
         if args.get("auto_resume"):
             resume_steps = int(ckpt.get("global_steps", resume_steps or 0))
@@ -322,13 +314,9 @@ def run(args):
             common.restore_model_state(ema_model, ckpt["model_ema"],
                                        logging=log.info)
         if args.get("load_optim") and ckpt.get("model_optimizer") is not None:
-            try:
-                count = load_optax_state(model, optimizer,
-                                         ckpt["model_optimizer"],
-                                         logging=log.info)
-                optim.set_update_count(optimizer, scheduler, count)
-            except Exception as e:
-                log.info(f"Could not restore optimizer state: {e}")
+            common.restore_optimizer(model, optimizer, scheduler,
+                                     ckpt["model_optimizer"],
+                                     logging=log.info)
     if ema_decay is not None and ema_model is None:
         ema_model = copy.deepcopy(model)
     if ema_model is not None:

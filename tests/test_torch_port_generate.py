@@ -294,5 +294,10 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.count("'qaig_tpu_torch.") >= 20, proc.stdout
     for name in ("serve", "infer.pipeline", "infer.row_keys",
-                 "cli.serve_generation", "ops.decode_attention"):
+                 "cli.serve_generation", "ops.decode_attention",
+                 "ops.mlp_fused", "scripts.probe_mlp_fused", "utils.png",
+                 "data.image_dataset", "train.autoencoder", "train.fmap",
+                 "train.codebook", "train.prune", "cli.train_autoencoder",
+                 "cli.generate_fmap_dataset", "cli.train_codebook",
+                 "cli.prune_codebook"):
         assert f"'qaig_tpu_torch.{name}'" in proc.stdout, name

@@ -15,7 +15,10 @@ in another order).  BMU indices: the near-tie rule of
 ``qaig_tpu_torch.ops.bmu.near_tie_agreement`` (equal wherever the best and
 second-best float64 distances are more than 1e-5 * max(1, |best|) apart;
 elsewhere the kernel's pick lies within that margin of the minimum);
-duplicated codes give the first index exactly.
+duplicated codes give the first index exactly.  The fused MLP (kernel 6):
+atol 2e-2 in bf16 (the kernel and its plain version round the same
+float32 hidden and output to bf16; sums in another order can move one
+bf16 step), its only type on the card.
 """
 
 import pytest
@@ -256,3 +259,57 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="must be"):
         da.shared_prefix_attention_fused_t(q, kt.bfloat16(), kt, kb, kb, 1,
                                            0)
+
+
+@pytest.mark.parametrize("n,splits,act_last,dim,hidden,d2", [
+    (8192, 3, False, 512, 2048, 512), (8192, 1, True, 512, 2048, 512),
+    (1024, 3, False, 512, 2048, 512), (1024, 1, True, 512, 2048, 512),
+    (1000, 3, False, 512, 2048, 512), (1, 1, True, 512, 2048, 512),
+    (77, 2, True, 128, 192, 64), (130, 1, False, 256, 64, 256)])
+def test_mlp2_fused_kernel_matches_plain(cuda, n, splits, act_last, dim,
+                                         hidden, d2):
+    """The probe's shapes (packed QKV and FFN at 8192 and 1024 rows), a
+    ragged N, one row, and narrower widths (one hidden chunk; the split
+    of hidden chunks over blocks at small N)."""
+    from qaig_tpu_torch.ops import mlp_fused as mf
+
+    gen = torch.Generator(device=cuda).manual_seed(n + splits + dim)
+
+    def rnd(*shape):
+        return (torch.randn(*shape, generator=gen, device=cuda)
+                * 0.05).to(torch.bfloat16)
+
+    x = rnd(n, dim)
+    w0, b0 = rnd(splits * hidden, dim), rnd(splits * hidden)
+    w1, b1 = rnd(splits, d2, hidden), rnd(splits, d2)
+    launches = mf.mlp2_fused.launches
+    got = mf.mlp2_fused(x, w0, b0, w1, b1, act_last=act_last)
+    assert mf.mlp2_fused.launches == launches + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (splits, n, d2)
+    want = mf.mlp2_fused_reference(x, w0, b0, w1, b1, act_last=act_last)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=2e-2)
+
+
+def test_mlp2_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from qaig_tpu_torch.ops import mlp_fused as mf
+
+    def z(*shape, dtype=torch.bfloat16):
+        return torch.zeros(*shape, device=cuda, dtype=dtype)
+
+    ok = (z(8, 64), z(128, 64), z(128), z(1, 64, 128), z(1, 64))
+    launches = mf.mlp2_fused.launches
+    for args, match in (
+            ((z(8, 64, dtype=torch.float32),) + ok[1:], "bf16 only"),
+            ((z(8, 128)[:, ::2],) + ok[1:], "contiguous"),
+            ((z(8, 40), z(128, 40), z(128), z(1, 64, 128), z(1, 64)),
+             "D % 16"),
+            ((z(8, 64), z(96, 64), z(96), z(1, 64, 96), z(1, 64)), "H %"),
+            ((z(8, 64), z(128, 64), z(128), z(1, 96, 128), z(1, 96)),
+             "D2 in"),
+            ((z(8, 64), z(128, 32), z(128), z(1, 64, 128), z(1, 64)),
+             "do not fit"),
+            ((z(8, 1024), z(128, 1024), z(128), z(1, 64, 128), z(1, 64)),
+             "shared memory")):
+        with pytest.raises(ValueError, match=match):
+            mf.mlp2_fused(*args)
+    assert mf.mlp2_fused.launches == launches
