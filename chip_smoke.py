@@ -17,9 +17,11 @@ Phases (any failure exits non-zero and prints no result line):
    the decode kernels and full-sequence attention in bf16 at the
    generation path's shapes (atol 2e-2; ``scaled_dot_product_attention``
    as the yardstick); full-sequence attention at the training path's 64
-   heads of dim 8, forward and gradient, bf16 and float32, with the plain
-   backward against SDPA's; the BMU kernel at the codebook shapes of the
-   cascade, index for index outside near-ties (``torch.cdist(p,
+   heads of dim 8 (and at 8 heads of dim 64), forward and gradient, bf16
+   and float32, with the backward kernel against the plain backward
+   products (atol 5e-2 bf16, 1e-4 float32) and SDPA's backward; the BMU
+   kernel at the codebook shapes of the cascade in both launch
+   geometries, index for index outside near-ties (``torch.cdist(p,
    c).argmin(1)`` as the yardstick); the flat decode kernel over
    interleaved caches, bf16 and int8 prefix (atol 2e-2) and float32 (atol
    1e-5), at the stage-1/2 shapes and at the stage-0 fan; the fused MLP
@@ -60,7 +62,8 @@ Phases (any failure exits non-zero and prints no result line):
    steps, batch 8), feature maps of all 64 images, codebooks on
    ``codebook_hr.json`` and ``codebook_lr.json`` (6 steps each, previews
    through the new decoder), pruning of the HR codebook; every file
-   checked, the BMU launches asserted from the control flow;
+   checked, the BMU launches (and the LR codebook's small-M geometry)
+   asserted from the control flow;
 4d. reference, front -- one float32 autoencoder step and one codebook step
    on the card and on the CPU (loss, gradients, BMU indices outside
    near-ties; the autoencoder step also with cuDNN's TF32 on, reported),
@@ -99,8 +102,14 @@ TRAIN_H, TRAIN_DH = 64, 8          # transformer_cascade.json: 512 / 64
 GRAD_ATOL = {"bf16": 5e-2, "f32": 1e-4}
 FWD_ATOL = {"bf16": ATOL, "f32": 1e-5}
 BMU_SHAPES = [  # (M, D, K): HR at batch 8, LR, stage-1 HR, stage-0 LR, ragged
+    # (row tiles); then the small-M geometry at one row and at 31
     (2048, 16, 512), (512, 64, 512), (128, 256, 512), (8, 4096, 512),
-    (300, 16, 64)]
+    (300, 16, 64), (1, 4096, 512), (31, 4096, 512)]
+# backward shapes: the decoder's and the encoder's layers of
+# transformer_cascade.json, and the generation path's 8 heads of dim 64
+FLASH_TRAIN_SHAPES = [  # (H, dh, S, causal)
+    (TRAIN_H, TRAIN_DH, 256, True), (TRAIN_H, TRAIN_DH, 64, False),
+    (H, DH, 256, True)]
 
 
 def log(msg):
@@ -371,19 +380,24 @@ def check_flash(torch, timer, records):
 
 def check_flash_train(torch, timer, records):
     """Kernel A at the training path's head dim (64 heads of 8; decoder S
-    256 causal, encoder S 64), forward and gradient, bf16 and float32; the
-    backward (the plain ``_flash_bwd`` products) is timed too."""
+    256 causal, encoder S 64) and at 8 heads of 64, forward and gradient,
+    bf16 and float32.  The backward kernel is held against the plain
+    ``_flash_bwd`` products on the same (q, k, v, out, dout) and timed
+    beside them, SDPA's backward and its bound."""
     import torch.nn.functional as F
     from qaig_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
-    n, h, dh = FLASH_N, TRAIN_H, TRAIN_DH
-    for s, causal in ((256, True), (64, False)):
+    n = FLASH_N
+    for h, dh, s, causal in FLASH_TRAIN_SHAPES:
         for kind, dtype in (("bf16", torch.bfloat16),
                             ("f32", torch.float32)):
             q, k, v = ((torch.randn(n, s, h * dh, generator=gen,
                                     device="cuda") * 0.5).to(dtype)
                        for _ in range(3))
             weight = torch.randn(n, s, h * dh, generator=gen, device="cuda")
+
+            def heads(x):
+                return x.view(n, s, h, dh).transpose(1, 2)
 
             def run_kernel():
                 return fa.flash_attention(q, k, v, h, causal=causal)
@@ -392,8 +406,6 @@ def check_flash_train(torch, timer, records):
                 return fa.flash_attention_reference(q, k, v, h, causal)
 
             def run_library():
-                def heads(x):
-                    return x.view(n, s, h, dh).transpose(1, 2)
                 return F.scaled_dot_product_attention(
                     heads(q), heads(k), heads(v), is_causal=causal)
 
@@ -412,13 +424,18 @@ def check_flash_train(torch, timer, records):
             dout = torch.randn_like(out)
 
             def run_backward():
+                return fa.fused_flash_attention_backward(q, k, v, out, dout,
+                                                         h, causal)
+
+            def run_plain_backward():
                 return fa.flash_attention_backward(q, k, v, out, dout, h,
                                                    causal)
 
+            bwd_err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(run_backward(),
+                                          run_plain_backward()))
             # the yardstick: SDPA's backward through autograd, its forward
             # (and graph) made once, outside the timed window
-            def heads(x):
-                return x.view(n, s, h, dh).transpose(1, 2)
             leaves = [heads(x).detach().requires_grad_() for x in (q, k, v)]
             lib_out = F.scaled_dot_product_attention(*leaves,
                                                      is_causal=causal)
@@ -436,26 +453,35 @@ def check_flash_train(torch, timer, records):
             # products over the live pairs (scores, dP, dV, dQ, dK)
             bwd_bound_ms, bwd_bound_by = bound(8 * n * s * h * dh * size,
                                                10 * n * h * pairs * dh, kind)
-            rec = {"name": "flash_attention", "shape": {
-                "N": n, "S": s, "H": h, "dh": dh, "causal": causal,
-                "dtype": kind}, "max_abs_err": err, "grad_max_abs_err":
-                grad_err, "ms": timer(run_kernel),
-                "plain_ms": timer(run_plain), "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": timer(run_library),
-                "backward_ms": timer(run_backward),
-                "backward_bound_ms": bwd_bound_ms,
-                "backward_bound_by": bwd_bound_by,
-                "backward_library_ms": timer(run_library_backward)}
-            records.append(rec)
+            shape = {"N": n, "S": s, "H": h, "dh": dh, "causal": causal,
+                     "dtype": kind}
+            bwd = {"name": "flash_attention_backward", "shape": shape,
+                   "max_abs_err": bwd_err, "ms": timer(run_backward),
+                   "plain_ms": timer(run_plain_backward),
+                   "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
+                   "library_ms": timer(run_library_backward)}
+            rec = {"name": "flash_attention", "shape": shape,
+                   "max_abs_err": err, "grad_max_abs_err": grad_err,
+                   "ms": timer(run_kernel), "plain_ms": timer(run_plain),
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": timer(run_library),
+                   "backward_ms": bwd["ms"],
+                   "plain_backward_ms": bwd["plain_ms"],
+                   "backward_bound_ms": bwd_bound_ms,
+                   "backward_bound_by": bwd_bound_by,
+                   "backward_library_ms": bwd["library_ms"]}
+            records += [rec, bwd]
             log(f"[kernels] flash_attention H={h} dh={dh} N={n} S={s} "
                 f"causal={causal} {kind}: max_abs_err={err:.3e} "
                 f"grad_max_abs_err={grad_err:.3e} ms={rec['ms']:.4f} "
                 f"plain_ms={rec['plain_ms']:.4f} "
                 f"sdpa_ms={rec['library_ms']:.4f} "
-                f"backward_ms={rec['backward_ms']:.4f} "
-                f"sdpa_backward_ms={rec['backward_library_ms']:.4f} "
-                f"backward_bound_ms={bwd_bound_ms:.5f} ({bwd_bound_by}) "
                 f"bound_ms={bound_ms:.5f} ({bound_by})")
+            log(f"[kernels] flash_attention_backward H={h} dh={dh} N={n} "
+                f"S={s} causal={causal} {kind}: max_abs_err={bwd_err:.3e} "
+                f"ms={bwd['ms']:.4f} plain_ms={bwd['plain_ms']:.4f} "
+                f"sdpa_backward_ms={bwd['library_ms']:.4f} "
+                f"bound_ms={bwd_bound_ms:.5f} ({bwd_bound_by})")
             if not err <= FWD_ATOL[kind]:
                 raise SystemExit(f"flash_attention (dh {dh}, {kind}) "
                                  f"disagrees with its plain version: {err}")
@@ -463,15 +489,20 @@ def check_flash_train(torch, timer, records):
                 raise SystemExit(f"flash_attention gradient (dh {dh}, "
                                  f"{kind}) disagrees with the plain "
                                  f"version's: {grad_err}")
+            if not bwd_err <= GRAD_ATOL[kind]:
+                raise SystemExit(f"flash_attention_backward (dh {dh}, "
+                                 f"{kind}) disagrees with the plain "
+                                 f"products: {bwd_err}")
 
 
 def check_bmu(torch, timer, records):
     """The BMU kernel against its plain version at the codebook shapes of
-    the cascade, and on a codebook with duplicated rows (first index,
-    exactly)."""
+    the cascade, and on codebooks with duplicated rows in both geometries
+    (first index, exactly)."""
     from qaig_tpu_torch.ops import bmu
     gen = torch.Generator(device="cuda").manual_seed(3)
     for m, d, k in BMU_SHAPES:
+        plan = bmu.launch_plan(m, d, k)
         patches = torch.randn(m, d, generator=gen, device="cuda")
         codes = torch.randn(k, d, generator=gen, device="cuda") * 0.5
 
@@ -491,35 +522,40 @@ def check_bmu(torch, timer, records):
         # max_abs_err: the largest float64 gap between the distance of the
         # kernel's pick and the true minimum (0 where every pick is a best)
         rec = {"name": "fused_bmu", "shape": {"M": m, "D": d, "K": k},
-               "max_abs_err": agree["max_gap"],
+               "plan": plan, "max_abs_err": agree["max_gap"],
                "near_tie_rows": agree["near_tie_rows"],
                "differing_rows": agree["differing_rows"],
                "ms": timer(run_kernel), "plain_ms": timer(run_plain),
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": timer(run_library)}
         records.append(rec)
-        log(f"[kernels] fused_bmu M={m} D={d} K={k}: indices differ on "
+        log(f"[kernels] fused_bmu M={m} D={d} K={k} ({plan['geometry']}, "
+            f"{plan['blocks']} blocks): indices differ on "
             f"{agree['differing_rows']} rows, all within the "
             f"{agree['near_tie_rows']} near-tie rows; largest distance gap "
             f"{agree['max_gap']:.3e}; ms={rec['ms']:.4f} "
             f"plain_ms={rec['plain_ms']:.4f} "
             f"cdist_argmin_ms={rec['library_ms']:.4f} "
             f"bound_ms={bound_ms:.5f} ({bound_by})")
-    codes = torch.randn(64, 16, generator=gen, device="cuda")
-    rows = torch.randint(0, 64, (2048,), generator=gen, device="cuda")
-    patches = (codes[rows] + 1e-3 * torch.randn(2048, 16, generator=gen,
-                                                device="cuda")).contiguous()
-    got = bmu.fused_bmu(patches, torch.cat([codes] * 8).contiguous())
-    if bool((got >= 64).any()):
-        raise SystemExit("fused_bmu: a duplicated codebook did not give "
-                         "the first index")
-    agree = bmu.near_tie_agreement(patches, codes, got,
-                                   bmu.bmu_argmin_reference(patches, codes))
-    log(f"[kernels] fused_bmu duplicated codes (64 x 8 copies, M=2048): "
-        f"first index on every row; against the 64 distinct codes, "
-        f"indices differ on {agree['differing_rows']} rows, "
-        f"{agree['near_tie_rows']} near-tie rows, largest distance gap "
-        f"{agree['max_gap']:.3e}")
+    for m, d in ((2048, 16), (8, 4096)):   # row tiles; small M
+        codes = torch.randn(64, d, generator=gen, device="cuda")
+        rows = torch.randint(0, 64, (m,), generator=gen, device="cuda")
+        patches = (codes[rows] + 1e-3 * torch.randn(
+            m, d, generator=gen, device="cuda")).contiguous()
+        copies = torch.cat([codes] * 8).contiguous()
+        got = bmu.fused_bmu(patches, copies)
+        if bool((got >= 64).any()):
+            raise SystemExit(f"fused_bmu (M {m}, D {d}): a duplicated "
+                             f"codebook did not give the first index")
+        agree = bmu.near_tie_agreement(patches, codes, got,
+                                       bmu.bmu_argmin_reference(patches,
+                                                                codes))
+        log(f"[kernels] fused_bmu duplicated codes (64 x 8 copies, M={m}, "
+            f"D={d}, {bmu.launch_plan(m, d, 512)['geometry']}): first "
+            f"index on every row; against the 64 distinct codes, indices "
+            f"differ on {agree['differing_rows']} rows, "
+            f"{agree['near_tie_rows']} near-tie rows, largest distance gap "
+            f"{agree['max_gap']:.3e}")
 
 
 MLP_SHAPES = [  # (N, S, act_last): the probe's packed QKV and FFN at 8192
@@ -677,9 +713,11 @@ def check_train_reference(torch, device="cuda"):
     (plain) from the same weights, batch and window starts.  SGD(lr=1), so
     old minus new parameters are the gradients.  Tokens equal, loss within
     relative 1e-5, gradients within atol 1e-4 (float32 sums in another
-    order through four layers)."""
+    order through four layers).  On the card each layer's self-attention
+    gradient is one launch of the backward kernel (its float32 form)."""
     from qaig_tpu_torch.models.codebook import Codebook
     from qaig_tpu_torch.models.core import init_parameters
+    from qaig_tpu_torch.ops import flash_attention as fa
     from qaig_tpu_torch.models.transformer import (Transformer,
                                                    TransformerConfig)
     from qaig_tpu_torch.train import transformer as train
@@ -714,7 +752,9 @@ def check_train_reference(torch, device="cuda"):
         step = train.make_train_step(
             model, torch.optim.SGD(model.parameters(), lr=1.0), lr_cb,
             hr_cb, False, k, k, window)
+        backward = fa.fused_flash_attention_backward.launches
         loss = float(step(x, torch.Generator().manual_seed(6)))
+        backward = fa.fused_flash_attention_backward.launches - backward
         grads = {n: (before[n] - p.detach()).cpu()
                  for n, p in model.named_parameters()}
         out[device] = ([t.cpu() for t in tokens], loss, grads)
@@ -726,7 +766,11 @@ def check_train_reference(torch, device="cuda"):
     log(f"[reference] train step, small windowed cascade, float32: tokens "
         f"{'equal' if same_tokens else 'DIFFER'}; loss card {card[1]:.7f} "
         f"cpu {cpu[1]:.7f} (rel {loss_rel:.2e}); max |grad card - grad "
-        f"cpu| {grad_err:.3e}")
+        f"cpu| {grad_err:.3e}; backward kernel launches {backward}")
+    layers = cfg.num_enc_layers + cfg.num_dec_layers
+    if device != "cpu" and backward != layers:
+        raise SystemExit(f"the card's train step launched the backward "
+                         f"kernel {backward} times, expected {layers}")
     if not same_tokens:
         raise SystemExit("card and CPU train steps tokenize differently")
     if not loss_rel <= 1e-5:
@@ -842,8 +886,8 @@ def _counted():
     from qaig_tpu_torch.ops import flash_attention as fa
     from qaig_tpu_torch.ops import mlp_fused as mf
     return [("flash_attention", fa.flash_attention, "launches"),
-            ("flash_attention_backward", fa.flash_attention,
-             "backward_calls"),
+            ("flash_attention_backward", fa.fused_flash_attention_backward,
+             "launches"),
             ("shared_prefix_attention_fused_t",
              da.shared_prefix_attention_fused_t, "launches"),
             ("shared_prefix_attention_fused_int8",
@@ -853,6 +897,7 @@ def _counted():
             ("shared_prefix_attention_fused_flat_int8",
              da.shared_prefix_attention_fused_flat, "int8_launches"),
             ("fused_bmu", bmu.fused_bmu, "launches"),
+            ("fused_bmu_small_m", bmu.fused_bmu, "small_m_launches"),
             ("mlp2_fused", mf.mlp2_fused, "launches")]
 
 
@@ -1473,7 +1518,8 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
     log(f"[train] checkpoints {checkpoints} load back through the port; "
         f"previews written")
     # kernel A runs every equal-shape self-attention: per step the
-    # encoder's and the decoder's layers, forward and backward; per preview
+    # encoder's and the decoder's layers, forward and backward (one launch
+    # of the backward kernel pair per layer); per preview
     # the encoder, the prefill of <start>, and each windowed step once the
     # context fills the window (its last layer reads one query: not A)
     cfg = json.loads(config.read_text())
@@ -1483,7 +1529,8 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
     want = {"fused_bmu": 2 * t["steps"] + 3 * len(checkpoints),
             "flash_attention": (enc + dec) * t["steps"] + len(checkpoints)
             * (enc + dec + windowed * (dec - 1)),
-            "flash_attention_backward": (enc + dec) * t["steps"]}
+            "flash_attention_backward": (enc + dec) * t["steps"],
+            "fused_bmu_small_m": 0}
     for name, n in want.items():
         if launches[name] != n:
             raise SystemExit(f"the training path launched {name} "
@@ -1769,13 +1816,18 @@ def run_front_path(torch, workdir, device="cuda"):
                 if not (out / "images" / f"{grid}_{n}.jpg").exists():
                     raise SystemExit(f"codebook_{name}: {grid}_{n}.jpg "
                                      f"missing")
-        # one BMU call per train step and per preview
+        # one BMU call per train step and per preview; the LR codebook's
+        # (M 8, D 4096) in the small-M geometry, the HR's (M 128) in row
+        # tiles
         want = f["steps"] + len(checkpoints)
+        want_small = want if name == "lr" else 0
         launches[f"train_codebook_{name}"] = res["launches"]
-        if res["launches"]["fused_bmu"] != want:
+        if res["launches"]["fused_bmu"] != want or \
+                res["launches"]["fused_bmu_small_m"] != want_small:
             raise SystemExit(f"train_codebook {name} launched fused_bmu "
-                             f"{res['launches']['fused_bmu']} times, "
-                             f"expected {want}")
+                             f"{res['launches']['fused_bmu']} times "
+                             f"({res['launches']['fused_bmu_small_m']} "
+                             f"small-M), expected {want} ({want_small})")
         books[name] = out / "models_checkpoint" / \
             f"codebook_{checkpoints[-1]}.pt"
         timings[f"codebook_{name}"] = {
@@ -1784,7 +1836,7 @@ def run_front_path(torch, workdir, device="cuda"):
         log(f"[front] train_codebook {name}: {f['steps']} steps, "
             f"{_step_mean(res['step_s']):.4f} s per step (steps 1-5; all "
             f"{[round(x, 4) for x in res['step_s']]}); fused_bmu calls "
-            f"{want}")
+            f"{want}, {want_small} of them small-M")
 
     out = root / "pruned"
     res = run_cli("prune_codebook", None, [
@@ -1951,6 +2003,11 @@ KERNELS = {
         "source": "qaig_tpu_torch/csrc/decode_attention_flat.cu",
         "replaces": "qaig_tpu/ops/decode_attention.py:326",
         "summary": {"S": 256, "bw": 8, "index0": 256, "dtype": "bf16"}},
+    "flash_attention_backward": {
+        "source": "qaig_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "qaig_tpu/ops/flash_attention.py:85",
+        "summary": {"H": TRAIN_H, "S": 256, "causal": True,
+                    "dtype": "bf16"}},
     "fused_bmu": {
         "source": "qaig_tpu_torch/csrc/bmu.cu",
         "replaces": "qaig_tpu/ops/bmu.py:39",

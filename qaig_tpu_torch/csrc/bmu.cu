@@ -28,6 +28,22 @@
 // reduces the per-split minima in split order.  Only float32 FMAs: no TF32
 // and no tensor cores, so tokens match the float32 pipeline.  M is not
 // padded: the ragged edge is masked.
+//
+// Small M (at most 32 rows, D a multiple of 128; the LR codebook's M 8,
+// D 4096, K 512) is a second geometry, chosen by ops/bmu.py::launch_plan.
+// There the row tiles would leave all but a few SMs idle while 8 MB of
+// codes stream through them, so the work is cut by code and D slice
+// instead: a block owns 8 codes (one a warp) and one slice of D (128-1024
+// wide, picked so the grid has >= 264 blocks, two per SM), stages the M
+// rows' matching slice in shared memory, and each warp streams its code's
+// slice with 16-byte loads (all issued before the rows are staged, so the
+// two latencies overlap), accumulates the M partial dots and the slice's
+// |c|^2 per lane, and reduces them with warp shuffles.  A second launch
+// sums the slices of each (row, code) in slice order and takes the
+// lexicographic (distance, index) minimum per row.  A code's sum runs in
+// the same order whichever block, warp or lane holds it (per lane over its
+// float4s, the shuffle tree, then the slices in order), so equal codes get
+// bit-equal distances and the first index wins.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -162,6 +178,124 @@ __global__ void bmu_reduce_kernel(const float* __restrict__ part_dist,
   out[m] = bi == kNone ? 0 : bi;
 }
 
+constexpr int kSmallWarps = 8;      // codes per block, one per warp
+constexpr int kSliceChunks = 8;     // float4 per lane: slices <= 1024 wide
+
+template <int MAXM>
+__global__ void __launch_bounds__(kSmallWarps * 32) bmu_small_m_kernel(
+    const float* __restrict__ patches, const float* __restrict__ codes,
+    int M, int K, int D, int slice, float* __restrict__ part_dot,
+    float* __restrict__ part_sq) {
+  extern __shared__ float4 rows[];  // M x slice / 4
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int split = blockIdx.y;
+  const int d0 = split * slice;
+  const int k = blockIdx.x * kSmallWarps + warp;
+  const int chunks = slice / 128;
+  const int row4 = slice / 4;
+
+  // the code's slice first: its loads are in flight while the rows stage
+  float4 c[kSliceChunks];
+#pragma unroll
+  for (int t = 0; t < kSliceChunks; ++t) {
+    c[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (k < K && t < chunks)
+      c[t] = __ldcs(reinterpret_cast<const float4*>(
+                        codes + (size_t)k * D + d0) + lane + 32 * t);
+  }
+  for (int i = threadIdx.x; i < M * row4; i += kSmallWarps * 32) {
+    const int r = i / row4, c4 = i % row4;
+    rows[i] = reinterpret_cast<const float4*>(patches + (size_t)r * D + d0)[c4];
+  }
+  __syncthreads();
+  if (k >= K) return;
+
+  float acc[MAXM];
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) acc[m] = 0.f;
+  float sq = 0.f;
+#pragma unroll
+  for (int t = 0; t < kSliceChunks; ++t) {
+    if (t >= chunks) break;
+    const float4 cv = c[t];
+    sq = fmaf(cv.x, cv.x, sq);
+    sq = fmaf(cv.y, cv.y, sq);
+    sq = fmaf(cv.z, cv.z, sq);
+    sq = fmaf(cv.w, cv.w, sq);
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m >= M) break;
+      const float4 p = rows[m * row4 + lane + 32 * t];
+      acc[m] = fmaf(p.x, cv.x, acc[m]);
+      acc[m] = fmaf(p.y, cv.y, acc[m]);
+      acc[m] = fmaf(p.z, cv.z, acc[m]);
+      acc[m] = fmaf(p.w, cv.w, acc[m]);
+    }
+  }
+  // butterfly sums: every lane ends with the same bits
+  for (int offset = 16; offset > 0; offset >>= 1)
+    sq += __shfl_xor_sync(0xffffffffu, sq, offset);
+#pragma unroll
+  for (int m = 0; m < MAXM; ++m) {
+    if (m >= M) break;
+    for (int offset = 16; offset > 0; offset >>= 1)
+      acc[m] += __shfl_xor_sync(0xffffffffu, acc[m], offset);
+  }
+  if (lane == 0) {
+    part_sq[(size_t)split * K + k] = sq;
+#pragma unroll
+    for (int m = 0; m < MAXM; ++m) {
+      if (m >= M) break;
+      part_dot[((size_t)split * M + m) * K + k] = acc[m];
+    }
+  }
+}
+
+// one block per row: the slices of each code summed in slice order, then
+// the lexicographic (distance, index) minimum over the codes
+__global__ void __launch_bounds__(256) bmu_small_m_reduce_kernel(
+    const float* __restrict__ part_dot, const float* __restrict__ part_sq,
+    int M, int K, int splits, int64_t* __restrict__ out) {
+  __shared__ float warp_best[8];
+  __shared__ int warp_idx[8];
+  const int m = blockIdx.x;
+  float b = INFINITY;
+  int bi = kNone;
+  for (int k = threadIdx.x; k < K; k += 256) {  // increasing code index
+    float sq = 0.f, dot = 0.f;
+    for (int s = 0; s < splits; ++s) {
+      sq += part_sq[(size_t)s * K + k];
+      dot += part_dot[((size_t)s * M + m) * K + k];
+    }
+    const float dist = sq - 2.f * dot;
+    if (better(dist, k, b, bi)) {
+      b = dist;
+      bi = k;
+    }
+  }
+  for (int offset = 16; offset > 0; offset >>= 1) {
+    const float ob = __shfl_xor_sync(0xffffffffu, b, offset);
+    const int oi = __shfl_xor_sync(0xffffffffu, bi, offset);
+    if (better(ob, oi, b, bi)) {
+      b = ob;
+      bi = oi;
+    }
+  }
+  if ((threadIdx.x & 31) == 0) {
+    warp_best[threadIdx.x >> 5] = b;
+    warp_idx[threadIdx.x >> 5] = bi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < 8; ++w)
+      if (better(warp_best[w], warp_idx[w], b, bi)) {
+        b = warp_best[w];
+        bi = warp_idx[w];
+      }
+    out[m] = bi == kNone ? 0 : bi;
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -184,6 +318,34 @@ int qaig_bmu(const void* patches, const void* codes, int M, int K, int D,
   bmu_reduce_kernel<<<(M + 255) / 256, 256, 0, st>>>(
       static_cast<const float*>(part_dist), static_cast<const int*>(part_idx),
       M, splits, static_cast<int64_t*>(out));
+  return (int)cudaGetLastError();
+}
+
+// The small-M geometry: M <= 32, D a multiple of `slice`, slice a multiple
+// of 128 and at most 1024, M * slice floats of shared memory (at most 48
+// KB); patches and codes 16-byte aligned.  part_dot (splits, M, K) and
+// part_sq (splits, K) float32 are scratch, splits = D / slice.  Returns the
+// cudaError_t of the launches.
+int qaig_bmu_small_m(const void* patches, const void* codes, int M, int K,
+                     int D, int slice, int splits, void* out, void* part_dot,
+                     void* part_sq, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((K + kSmallWarps - 1) / kSmallWarps, splits);
+  const size_t smem = (size_t)M * slice * sizeof(float);
+  const float* p = static_cast<const float*>(patches);
+  const float* c = static_cast<const float*>(codes);
+  float* dot = static_cast<float*>(part_dot);
+  float* sq = static_cast<float*>(part_sq);
+  if (M <= 8)
+    bmu_small_m_kernel<8><<<grid, kSmallWarps * 32, smem, st>>>(
+        p, c, M, K, D, slice, dot, sq);
+  else
+    bmu_small_m_kernel<32><<<grid, kSmallWarps * 32, smem, st>>>(
+        p, c, M, K, D, slice, dot, sq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bmu_small_m_reduce_kernel<<<M, 256, 0, st>>>(dot, sq, M, K, splits,
+                                               static_cast<int64_t*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -6,9 +6,11 @@ ties (the ``|p|^2`` term cannot change the argmin).  The indices carry no
 gradient.
 
 On a CUDA tensor, :func:`bmu_argmin` launches :func:`fused_bmu`, the
-hand-written Hopper kernel of ``qaig_tpu_torch/csrc/bmu.cu`` (rows and
-codes streamed through shared memory, float32 FMAs only, the (M, K)
-distances never written out).  On a CPU tensor it runs
+hand-written Hopper kernel of ``qaig_tpu_torch/csrc/bmu.cu`` (float32 FMAs
+only, the (M, K) distances never written out) in one of two launch
+geometries that :func:`launch_plan` picks from the shape: row tiles (rows
+and codes streamed through shared memory) or, for a few rows against long
+codes, code-and-D-slice blocks.  On a CPU tensor it runs
 :func:`bmu_argmin_reference`, the plain version.  There is no switch and no
 other route: a CUDA input the kernel does not take raises.
 """
@@ -24,7 +26,12 @@ MAX_K = 4096
 _ROWS_PER_BLOCK = 32
 _CODES_PER_TILE = 64
 _TARGET_BLOCKS = 264   # two per SM of an H100's 132
+SMALL_M_ROWS = 32      # the small-M geometry takes at most this many rows
+_SMALL_M_CODES = 8     # codes per small-M block, one per warp
+_SMALL_M_SLICE = 1024  # widest D slice (8 float4 per lane)
+_SMALL_M_SMEM = 48 * 1024
 NEAR_TIE = 1e-5        # near-tie margin, relative to max(1, |best|)
+# qaig_bmu and qaig_bmu_small_m: two pointers, five ints, four pointers
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
              + [ctypes.c_void_p] * 4)
 
@@ -71,38 +78,80 @@ def near_tie_agreement(patches, codes, got, want):
             "max_gap": float(gap.max())}
 
 
-def fused_bmu(patches, codes):
-    """The BMU kernel: (M, D) float32 patches x (K, D) float32 codes on the
-    current CUDA device -> (M,) int64 indices."""
-    _check_kernel_inputs(patches, codes)
-    m, d = patches.shape
-    k = codes.shape[0]
+def launch_plan(m, d, k, aligned=True):
+    """The kernel's launch geometry for (M, D) patches against (K, D)
+    codes.
+
+    ``"small_m"`` when M <= ``SMALL_M_ROWS``, D is a multiple of 128 and
+    both inputs are 16-byte aligned: blocks of 8 codes x one D slice, the
+    widest slice (128-1024, dividing D, its M rows within 48 KB of shared
+    memory) that still gives at least 264 blocks (two per SM), else the
+    narrowest; ``splits`` = D / ``slice`` partial sums per (row, code),
+    added in order by a second launch.  Otherwise ``"row_tiled"``: 32-row
+    blocks over 64-code tiles, the tiles split over ``splits`` blocks per
+    row tile (each taking ``tiles_per_split``) when the rows alone give
+    fewer than 264 blocks, with a second launch that reduces the splits.
+    Returns a dict with ``geometry``, ``blocks`` (of the first launch) and
+    those fields."""
+    if m <= SMALL_M_ROWS and d % 128 == 0 and aligned:
+        chunks = -(-k // _SMALL_M_CODES)
+        units = d // 128
+        widths = [u for u in range(min(units, _SMALL_M_SLICE // 128), 0, -1)
+                  if units % u == 0 and m * u * 128 * 4 <= _SMALL_M_SMEM]
+        u = next((u for u in widths
+                  if chunks * (units // u) >= _TARGET_BLOCKS), widths[-1])
+        return {"geometry": "small_m", "slice": 128 * u,
+                "splits": units // u, "blocks": chunks * (units // u)}
     row_blocks = -(-m // _ROWS_PER_BLOCK)
     k_tiles = -(-k // _CODES_PER_TILE)
-    # split the code tiles over a second grid axis when the rows alone
-    # leave the card idle; a second launch reduces the splits in order
     splits = min(k_tiles, max(1, -(-_TARGET_BLOCKS // row_blocks)))
     tiles_per_split = -(-k_tiles // splits)
     splits = -(-k_tiles // tiles_per_split)
-    out = torch.empty(m, dtype=torch.int64, device=patches.device)
-    part_dist = part_idx = None
-    if splits > 1:
-        part_dist = torch.empty(splits, m, dtype=torch.float32,
-                                device=patches.device)
-        part_idx = torch.empty(splits, m, dtype=torch.int32,
-                               device=patches.device)
-    fn = cuda_build.function("bmu", "qaig_bmu", _ARGTYPES)
-    err = fn(patches.data_ptr(), codes.data_ptr(), m, k, d, splits,
-             tiles_per_split, out.data_ptr(),
-             None if part_dist is None else part_dist.data_ptr(),
-             None if part_idx is None else part_idx.data_ptr(),
-             cuda_build.stream_handle(patches))
+    return {"geometry": "row_tiled", "splits": splits,
+            "tiles_per_split": tiles_per_split, "blocks": row_blocks * splits}
+
+
+def fused_bmu(patches, codes):
+    """The BMU kernel: (M, D) float32 patches x (K, D) float32 codes on the
+    current CUDA device -> (M,) int64 indices, in the geometry of
+    :func:`launch_plan`."""
+    _check_kernel_inputs(patches, codes)
+    m, d = patches.shape
+    k = codes.shape[0]
+    plan = launch_plan(m, d, k, aligned=patches.data_ptr() % 16 == 0
+                       and codes.data_ptr() % 16 == 0)
+    splits = plan["splits"]
+    dev = patches.device
+    out = torch.empty(m, dtype=torch.int64, device=dev)
+    if plan["geometry"] == "small_m":
+        part_dot = torch.empty(splits, m, k, dtype=torch.float32, device=dev)
+        part_sq = torch.empty(splits, k, dtype=torch.float32, device=dev)
+        fn = cuda_build.function("bmu", "qaig_bmu_small_m", _ARGTYPES)
+        err = fn(patches.data_ptr(), codes.data_ptr(), m, k, d,
+                 plan["slice"], splits, out.data_ptr(), part_dot.data_ptr(),
+                 part_sq.data_ptr(), cuda_build.stream_handle(patches))
+    else:
+        part_dist = part_idx = None
+        if splits > 1:
+            part_dist = torch.empty(splits, m, dtype=torch.float32,
+                                    device=dev)
+            part_idx = torch.empty(splits, m, dtype=torch.int32, device=dev)
+        fn = cuda_build.function("bmu", "qaig_bmu", _ARGTYPES)
+        err = fn(patches.data_ptr(), codes.data_ptr(), m, k, d, splits,
+                 plan["tiles_per_split"], out.data_ptr(),
+                 None if part_dist is None else part_dist.data_ptr(),
+                 None if part_idx is None else part_idx.data_ptr(),
+                 cuda_build.stream_handle(patches))
     cuda_build.check("bmu", err)
     fused_bmu.launches += 1
+    if plan["geometry"] == "small_m":
+        fused_bmu.small_m_launches += 1
     return out
 
 
+# kernel launches, and those of them in the small-M geometry
 fused_bmu.launches = 0
+fused_bmu.small_m_launches = 0
 
 
 def bmu_argmin(patches, codes):

@@ -26,8 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[2] / "build"
              / "qaig_tpu_torch_kernels")
-SOURCES = ("flash_attention", "decode_attention", "decode_attention_flat",
-           "bmu", "mlp2_fused")
+SOURCES = ("flash_attention", "flash_attention_bwd", "decode_attention",
+           "decode_attention_flat", "bmu", "mlp2_fused")
 NVCC_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-lineinfo"]
 

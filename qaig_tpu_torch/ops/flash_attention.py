@@ -10,11 +10,13 @@ version of the same function.  There is no other route: a CUDA input the
 kernel does not take raises.  The kernel reads and writes the projections'
 (N, S, H*dh) layout directly.
 
-The gradient is :func:`flash_attention_backward`, the JAX package's
-``custom_vjp`` backward (``_flash_bwd``): the log-sum-exp is recomputed
-from the saved (q, k, v, out) and dq, dk, dv are formed in float32 by plain
-tensor products, as XLA einsums form them there.  CPU and CUDA tensors go
-through the same ``autograd.Function``.
+The gradient is the JAX package's ``custom_vjp`` backward (``_flash_bwd``):
+the log-sum-exp is recomputed from the saved (q, k, v, out) and dq, dk, dv
+are formed in float32.  On CUDA tensors it launches
+:func:`fused_flash_attention_backward`, the hand-written kernel pair of
+``qaig_tpu_torch/csrc/flash_attention_bwd.cu`` (no (S, S) tensor in device
+memory); on CPU tensors it runs :func:`flash_attention_backward`, the plain
+tensor products that XLA's einsums form there.
 """
 
 import ctypes
@@ -27,6 +29,8 @@ from qaig_tpu_torch.ops import cuda_build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (8, 16, 32, 64, 128)
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+                 + [ctypes.c_void_p])
 
 
 def supported(q, k, v, heads, causal, kv_mask, q_offset):
@@ -105,10 +109,14 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        if q.device.type != "cpu":
+        if q.device.type == "cpu":
+            grads = flash_attention_backward(q, k, v, out, dout, ctx.heads,
+                                             ctx.causal)
+        else:
             flash_attention.backward_calls += 1
-        return (*flash_attention_backward(q, k, v, out, dout, ctx.heads,
-                                          ctx.causal), None, None)
+            grads = fused_flash_attention_backward(q, k, v, out, dout,
+                                                   ctx.heads, ctx.causal)
+        return (*grads, None, None)
 
 
 def flash_attention(q, k, v, heads, causal=False):
@@ -121,6 +129,44 @@ def flash_attention(q, k, v, heads, causal=False):
 # kernel launches of the forward, and backward passes on CUDA tensors
 flash_attention.launches = 0
 flash_attention.backward_calls = 0
+
+
+def fused_flash_attention_backward(q, k, v, out, dout, heads, causal):
+    """The backward kernel: (dq, dk, dv) of :func:`flash_attention` at
+    (q, k, v) with saved output ``out`` and output gradient ``dout``, all
+    (N, S, H*dh) on the current CUDA device in q's dtype; the function of
+    :func:`flash_attention_backward`.  ``dout`` may be non-contiguous (as
+    autograd hands it over).  Two launches (dq; dk and dv) with float32
+    (N, H, S) scratch for each row's log-sum-exp and delta."""
+    _check_kernel_inputs(q, k, v, heads)
+    dout = dout.contiguous()
+    for name, x in (("out", out), ("dout", dout)):
+        if x.device != q.device or x.dtype != q.dtype or x.shape != q.shape:
+            raise ValueError(
+                f"flash_attention backward: {name} must match q in device, "
+                f"dtype and shape (q {tuple(q.shape)} {q.dtype}, {name} "
+                f"{tuple(x.shape)} {x.dtype} {x.device})")
+    if not out.is_contiguous():
+        raise ValueError("flash_attention backward: out is not contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v, out, dout)):
+        raise ValueError("flash_attention backward: inputs must be 16-byte "
+                         "aligned")
+    n, s, d = q.shape
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    lse2, delta = (torch.empty(n, heads, s, dtype=torch.float32,
+                               device=q.device) for _ in range(2))
+    fn = cuda_build.function("flash_attention_bwd",
+                             "qaig_flash_attention_bwd", _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             lse2.data_ptr(), delta.data_ptr(), n, s, heads, d // heads,
+             int(causal), _DTYPES[q.dtype], cuda_build.stream_handle(q))
+    cuda_build.check("flash_attention_bwd", err)
+    fused_flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+fused_flash_attention_backward.launches = 0
 
 
 def _launch(q, k, v, heads, causal):

@@ -11,7 +11,8 @@ does, in another order across its slot tiles) and 1e-5 in float32
 (summation order only).  Attention gradients: atol 5e-2 in bf16
 (the kernel's bf16 output enters the backward's delta term and the
 gradients are rounded to bf16) and 1e-4 in float32 (products over S keys
-in another order).  BMU indices: the near-tie rule of
+in another order); the backward kernel is held to the same against the
+plain backward products on the same inputs.  BMU indices: the near-tie rule of
 ``qaig_tpu_torch.ops.bmu.near_tie_agreement`` (equal wherever the best and
 second-best float64 distances are more than 1e-5 * max(1, |best|) apart;
 elsewhere the kernel's pick lies within that margin of the minimum);
@@ -184,10 +185,64 @@ def test_flash_attention_gradient_matches_plain(cuda, dtype, heads, dh, s,
                                    atol=GRAD_TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("s", [1, 13, 64, 255, 256])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, dh, s,
+                                                       causal):
+    """The backward kernel called directly, against the plain ``_flash_bwd``
+    products on the same (q, k, v, out, dout); ragged S, one key, both
+    masks, every head dim the forward takes."""
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(s + dh)
+    heads = 3
+    q, k, v, dout = (_rand(gen, 2, s, heads * dh, dtype=dtype)
+                     for _ in range(4))
+    out = fa.flash_attention(q, k, v, heads, causal=causal)
+    launches = fa.fused_flash_attention_backward.launches
+    got = fa.fused_flash_attention_backward(q, k, v, out, dout, heads,
+                                            causal)
+    assert fa.fused_flash_attention_backward.launches == launches + 1
+    want = fa.flash_attention_backward(q, k, v, out, dout, heads, causal)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=GRAD_TOL[dtype])
+
+
+def test_flash_attention_backward_kernel_takes_a_non_contiguous_dout(cuda):
+    """Autograd may hand the backward a strided output gradient: the
+    wrapper makes it contiguous, and refuses what the kernel cannot take."""
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (_rand(gen, 2, 40, 4 * 16, dtype=torch.bfloat16)
+               for _ in range(3))
+    out = fa.flash_attention(q, k, v, 4, causal=True)
+    dout = _rand(gen, 40, 2, 4 * 16, dtype=torch.bfloat16).transpose(0, 1)
+    assert not dout.is_contiguous()
+    got = fa.fused_flash_attention_backward(q, k, v, out, dout, 4, True)
+    want = fa.flash_attention_backward(q, k, v, out, dout.contiguous(), 4,
+                                       True)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=GRAD_TOL[torch.bfloat16])
+    launches = fa.fused_flash_attention_backward.launches
+    for args, match in (((q, k, v, out.float(), dout, 4, True), "out must"),
+                        ((q, k, v, out, dout[:, :-1], 4, True), "dout must"),
+                        ((q, k, v, out, dout, 3, True), "H\\*dh")):
+        with pytest.raises(ValueError, match=match):
+            fa.fused_flash_attention_backward(*args)
+    assert fa.fused_flash_attention_backward.launches == launches
+
+
 @pytest.mark.parametrize("m,d,k", [(2048, 16, 512), (512, 64, 512),
                                    (128, 256, 512), (8, 4096, 512),
                                    (300, 16, 64), (1, 8, 1),
-                                   (77, 40, 4096)])
+                                   (77, 40, 4096), (8, 4096, 4096),
+                                   (31, 4096, 512), (1, 4096, 512)])
 def test_bmu_kernel_matches_plain(cuda, m, d, k):
     from qaig_tpu_torch.ops import bmu
 
@@ -195,22 +250,28 @@ def test_bmu_kernel_matches_plain(cuda, m, d, k):
     patches = torch.randn(m, d, generator=gen, device=cuda)
     codes = torch.randn(k, d, generator=gen, device=cuda) * 0.5
     launches = bmu.fused_bmu.launches
+    small = bmu.fused_bmu.small_m_launches
     got = bmu.bmu_argmin(patches, codes)
     assert bmu.fused_bmu.launches == launches + 1
+    assert bmu.fused_bmu.small_m_launches == small + (
+        bmu.launch_plan(m, d, k)["geometry"] == "small_m")
     assert got.dtype == torch.int64 and got.shape == (m,)
     bmu.near_tie_agreement(patches, codes, got,
                            bmu.bmu_argmin_reference(patches, codes))
 
 
-def test_bmu_kernel_duplicated_codes_give_the_first_index(cuda):
+@pytest.mark.parametrize("m,d", [(500, 16), (8, 4096)])
+def test_bmu_kernel_duplicated_codes_give_the_first_index(cuda, m, d):
+    """Three copies of 64 codes, in the row tiles (M 500, D 16) and in the
+    small-M geometry (M 8, D 4096, where D is split over blocks)."""
     from qaig_tpu_torch.ops import bmu
 
     gen = torch.Generator(device=cuda).manual_seed(7)
-    codes = torch.randn(64, 16, generator=gen, device=cuda)
+    codes = torch.randn(64, d, generator=gen, device=cuda)
     codes = torch.cat([codes, codes, codes]).contiguous()   # K 192
-    patches = codes[torch.randint(0, 64, (500,), generator=gen,
+    patches = codes[torch.randint(0, 64, (m,), generator=gen,
                                   device=cuda)] + 1e-3 * torch.randn(
-        500, 16, generator=gen, device=cuda)
+        m, d, generator=gen, device=cuda)
     patches = patches.contiguous()
     got = bmu.fused_bmu(patches, codes)
     # the first of three equal distances, and the nearest of the 64 codes

@@ -310,3 +310,49 @@ def test_non_cpu_tensors_never_take_the_plain_version():
             shared_prefix_attention_fused_t.launches,
             fused_bmu.launches) == before
     assert (flat.launches, flat.int8_launches) == flat_before
+
+
+def test_non_cpu_tensors_take_the_backward_kernel():
+    """The gradient of a non-CPU attention goes to the backward kernel's
+    wrapper (counted as a CUDA backward pass), which refuses what it cannot
+    launch; the plain products run for CPU tensors only."""
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    x = torch.empty(2, 4, 128, device="meta")
+    calls = fa.flash_attention.backward_calls
+    launches = fa.fused_flash_attention_backward.launches
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa._FlashAttention.backward(
+            type("Ctx", (), {"saved_tensors": (x, x, x, x), "heads": 2,
+                             "causal": True})(), x)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fa.fused_flash_attention_backward(x, x, x, x, x, 2, False)
+    assert fa.flash_attention.backward_calls == calls + 1
+    assert fa.fused_flash_attention_backward.launches == launches
+
+
+@pytest.mark.parametrize("m,d,k,geometry,splits", [
+    (8, 4096, 512, "small_m", 8), (31, 4096, 512, "small_m", 16),
+    (1, 4096, 512, "small_m", 8), (8, 4096, 4096, "small_m", 4),
+    (2048, 16, 512, "row_tiled", 4), (128, 256, 512, "row_tiled", 8),
+    (512, 64, 512, "row_tiled", 8), (77, 40, 4096, "row_tiled", 64),
+    (1, 8, 1, "row_tiled", 1), (8, 4104, 512, "row_tiled", 8)])
+def test_bmu_launch_plan(m, d, k, geometry, splits):
+    """The BMU kernel's geometry by shape: few rows against long codes
+    (the LR codebook's M 8, D 4096) take the small-M blocks, at least two
+    per SM of the H100's 132 where the codes allow; the training and HR
+    shapes keep the row tiles; every code and D column is covered."""
+    from qaig_tpu_torch.ops.bmu import launch_plan
+
+    plan = launch_plan(m, d, k)
+    assert (plan["geometry"], plan["splits"]) == (geometry, splits)
+    if geometry == "small_m":
+        assert plan["slice"] * plan["splits"] == d
+        assert plan["slice"] % 128 == 0 and plan["slice"] <= 1024
+        assert m * plan["slice"] * 4 <= 48 * 1024
+        assert plan["blocks"] == -(-k // 8) * splits >= 264
+    else:
+        assert plan["tiles_per_split"] * 64 * splits >= k
+        assert plan["blocks"] == -(-m // 32) * splits
+    # a misaligned input keeps the row tiles, which take any alignment
+    assert launch_plan(m, d, k, aligned=False)["geometry"] == "row_tiled"

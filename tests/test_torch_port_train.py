@@ -209,17 +209,27 @@ def test_transformer_forward_matches_jax_apply(kind):
             torch.testing.assert_close(remat[n], p.grad, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("heads,dh", [(4, 8), (2, 32)])
-@pytest.mark.parametrize("causal", [True, False])
-def test_flash_attention_gradient_matches_jax(heads, dh, causal):
+# (heads, dh, S, causal): S 16 both ways, a ragged causal S (the JAX kernel
+# pads it to 16; the causal mask hides the padding) and a non-causal S 64
+_GRAD_CASES = [(heads, dh, s, causal)
+               for s, causal in ((16, True), (16, False), (13, True),
+                                 (64, False))
+               for heads, dh in ((4, 8), (2, 32))]
+
+
+@pytest.mark.parametrize(
+    "heads,dh,s,causal", _GRAD_CASES,
+    ids=[f"{c}-{h}-{d}" + ("" if s == 16 else f"-s{s}")
+         for h, d, s, c in _GRAD_CASES])
+def test_flash_attention_gradient_matches_jax(heads, dh, s, causal):
     """The port's ``autograd.Function`` (plain forward on the CPU, the
     ``_flash_bwd`` products) against ``jax.grad`` through the JAX kernel in
     interpret mode."""
     from qaig_tpu.ops.flash_attention import flash_attention as jax_flash
     from qaig_tpu_torch.ops.flash_attention import flash_attention
 
-    rng = np.random.default_rng(dh + causal)
-    q, k, v, w = (rng.standard_normal((2, 16, heads * dh)).astype(np.float32)
+    rng = np.random.default_rng(dh + causal + s)
+    q, k, v, w = (rng.standard_normal((2, s, heads * dh)).astype(np.float32)
                   for _ in range(4))
     want = jax.grad(lambda q, k, v: jnp.sum(jax_flash(
         q, k, v, heads, causal=causal, interpret=True) * _j(w)),
