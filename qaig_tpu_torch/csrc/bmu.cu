@@ -44,6 +44,17 @@
 // the same order whichever block, warp or lane holds it (per lane over its
 // float4s, the shuffle tree, then the slices in order), so equal codes get
 // bit-equal distances and the first index wins.
+//
+// Limits (from the kernels as written; ops/bmu.py checks them).  M, K and D
+// are ints of at least 1.  The row tiles take any D (the 32-wide slices
+// are masked at D's edge, so D 2 is one partly filled slice and D 8192 is
+// 256 slices), any K (64-code tiles, the last masked) and any M (grid x is
+// M / 32; the splits on grid y are at most 264), at any alignment.  The
+// small-M geometry needs M <= 32, D a multiple of 128 with D / slice <=
+// 65535 (grid y), 16-byte aligned inputs, and M * slice floats within 48
+// KB of shared memory (launch_plan picks the slice); its scratch part_dot is
+// (D / slice, M, K) float32: 2 MB at M 32, D 8192, K 512 (slice 256), 32 MB
+// at K 8192.
 
 #include <cuda_runtime.h>
 #include <math.h>

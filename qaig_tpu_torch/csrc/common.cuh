@@ -1,5 +1,6 @@
 // Helpers shared by the port's attention kernels: element conversions,
-// warp reductions and the online-softmax row update.
+// warp reductions, the online-softmax row update, and the tensor-core and
+// asynchronous-copy primitives of the full-sequence kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,6 +77,110 @@ __device__ __forceinline__ void softmax_update(float* scores, int pitch,
       m[r] = m_new;
     }
   }
+}
+
+// 2^x in one instruction (relative error ~2^-22; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// mma.sync fragments (PTX ISA, "Matrix fragments for mma.m16n8k16"): with
+// g = lane / 4 and t = lane % 4, a 16 x 8 float accumulator d holds
+// (row g, cols 2t, 2t+1) in d[0..1] and (row g+8, the same cols) in d[2..3];
+// A (16 x 16, row-major) holds those rows at cols 2t.. and 2t+8..; B (16 x 8,
+// "col") holds rows 2t, 2t+1 and 2t+8, 2t+9 of col g.
+
+// d += a (16 x 8, row) . b (8 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_16x8x8(float (&d)[4], uint32_t a0,
+                                           uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// d += a (16 x 16, row) . b (16 x 8, col), bf16 in, float32 accumulate
+__device__ __forceinline__ void mma_16x8x16(float (&d)[4],
+                                            const uint32_t (&a)[4],
+                                            uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: lane i names row i % 8 of 8x8 matrix i / 8 (16 bytes each) and
+// receives (row lane / 4, cols 2 (lane % 4), +1) of every matrix, or with
+// .trans (rows 2 (lane % 4), +1, col lane / 4)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// .x2 reads the addresses of lanes 0-15 only
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_addr(p))
+      : "memory");
+}
+
+// 16-byte asynchronous copy global -> shared; with live false the 16 bytes
+// are zero-filled (src is not read, but must be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `n` of this thread's newest copy groups are pending
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n) : "memory");
 }
 
 }  // namespace qaig

@@ -27,7 +27,7 @@
 // atomic (deterministic):
 //   pass 1, over query tiles: a block owns up to 128 query rows of one
 //     (n, h), each row's dh in registers across dh / 8 lanes (8 elements a
-//     lane).  K and V stream through shared memory as float32 tiles; per
+//     lane; past dh 128, 32 lanes of dh / 32).  K and V stream through shared memory as float32 tiles; per
 //     key one sweep recomputes s, keeps the row's running max and sum
 //     (online softmax, base 2) and accumulates dq, rescaling it when the
 //     max moves.  It writes dq, and the row's log2-sum-exp and delta as
@@ -42,7 +42,7 @@
 // version is the summation order and, in bf16, the final rounding.  A warp's loop over a
 // tile stops at its own last live pair, so causal warps skip the masked
 // half; keys and queries are read from shared memory as broadcasts.  Head
-// dims 8, 16, 32, 64 and 128, as the forward.
+// dims 8, 16, 32, 64, 128, 192 and 256, as the forward.
 //
 // bf16 at dh 8 (the training path's 64 heads of 8) takes a tensor-core
 // form of the same two passes, ~3x faster at the training shape:
@@ -61,9 +61,20 @@
 
 namespace {
 
+using qaig::fast_exp2;
+using qaig::mma_16x8x8;
+using qaig::pack_bf16;
+using qaig::unpack_bf16;
+
 constexpr int kThreads = 128;
-constexpr int kLaneDims = 8;  // head-dim elements a lane holds
 constexpr float kLog2e = 1.4426950408889634f;
+
+// head-dim elements a lane holds: 8 (one 16-byte bf16 load) up to dh 128,
+// then dh / 32 so that a row's lanes stay within one warp
+template <int DH>
+__host__ __device__ constexpr int lane_dims() {
+  return DH <= 128 ? 8 : DH / 32;
+}
 
 // keys (pass 1) or queries (pass 2) per shared-memory tile: two float32
 // tiles of at most 16 KB each
@@ -72,52 +83,94 @@ __host__ __device__ constexpr int tile_rows() {
   return 4096 / DH < 128 ? 4096 / DH : 128;
 }
 
-// 2^x in one instruction (relative error ~2^-22; 2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ void load8(const float* p, float (&x)[8]) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0];
-  const float4 b = reinterpret_cast<const float4*>(p)[1];
-  x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-  x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&x)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+// E consecutive elements, E a multiple of 2: 16-byte accesses where E and
+// the alignment allow (E a multiple of 8 elements), else 8-byte (float32) or
+// 4-byte (bf16) ones
+template <int E>
+__device__ __forceinline__ void load_e(const float* p, float (&x)[E]) {
+  if constexpr (E % 4 == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    x[2 * i] = f.x;
-    x[2 * i + 1] = f.y;
+    for (int i = 0; i < E / 4; ++i) {
+      const float4 a = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = a.x; x[4 * i + 1] = a.y; x[4 * i + 2] = a.z; x[4 * i + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      const float2 a = reinterpret_cast<const float2*>(p)[i];
+      x[2 * i] = a.x; x[2 * i + 1] = a.y;
+    }
   }
 }
 
-__device__ __forceinline__ void store8(float* p, const float (&x)[8]) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(x[0], x[1], x[2], x[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(x[4], x[5], x[6], x[7]);
-}
-
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float (&x)[8]) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+template <int E>
+__device__ __forceinline__ void load_e(const __nv_bfloat16* p, float (&x)[E]) {
+  if constexpr (E % 8 == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-template <typename T>
-__device__ __forceinline__ void load8_or_zero(const T* p, bool live,
-                                              float (&x)[8]) {
-  if (live) {
-    load8(p, x);
+    for (int i = 0; i < E / 8; ++i) {
+      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        x[8 * i + 2 * j] = f.x;
+        x[8 * i + 2 * j + 1] = f.y;
+      }
+    }
   } else {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) x[i] = 0.f;
+    for (int i = 0; i < E / 2; ++i) {
+      const float2 f = __bfloat1622float2(
+          reinterpret_cast<const __nv_bfloat162*>(p)[i]);
+      x[2 * i] = f.x;
+      x[2 * i + 1] = f.y;
+    }
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_e(float* p, const float (&x)[E]) {
+  if constexpr (E % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 4; ++i)
+      reinterpret_cast<float4*>(p)[i] =
+          make_float4(x[4 * i], x[4 * i + 1], x[4 * i + 2], x[4 * i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i)
+      reinterpret_cast<float2*>(p)[i] = make_float2(x[2 * i], x[2 * i + 1]);
+  }
+}
+
+template <int E>
+__device__ __forceinline__ void store_e(__nv_bfloat16* p,
+                                        const float (&x)[E]) {
+  if constexpr (E % 8 == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 8; ++i) {
+      uint4 u;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h[j] = __floats2bfloat162_rn(x[8 * i + 2 * j], x[8 * i + 2 * j + 1]);
+      reinterpret_cast<uint4*>(p)[i] = u;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i)
+      reinterpret_cast<__nv_bfloat162*>(p)[i] =
+          __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
+  }
+}
+
+template <typename T, int E>
+__device__ __forceinline__ void load_e_or_zero(const T* p, bool live,
+                                               float (&x)[E]) {
+  if (live) {
+    load_e(p, x);
+  } else {
+#pragma unroll
+    for (int i = 0; i < E; ++i) x[i] = 0.f;
   }
 }
 
@@ -136,12 +189,13 @@ __device__ __forceinline__ float group_sum(float x) {
 template <typename T, int DH>
 __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
                                       size_t base, int D, int r0, int rows) {
-  constexpr int G = DH / kLaneDims;
+  constexpr int E = lane_dims<DH>();
+  constexpr int G = DH / E;
   for (int i = threadIdx.x; i < rows * G; i += kThreads) {
-    const int r = i / G, c = (i % G) * kLaneDims;
-    float x[8];
-    load8(src + base + (size_t)(r0 + r) * D + c, x);
-    store8(dst + r * DH + c, x);
+    const int r = i / G, c = (i % G) * E;
+    float x[E];
+    load_e(src + base + (size_t)(r0 + r) * D + c, x);
+    store_e(dst + r * DH + c, x);
   }
 }
 
@@ -152,35 +206,37 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     const T* __restrict__ out, const T* __restrict__ dout,
     T* __restrict__ dq, float* __restrict__ lse2, float* __restrict__ delta,
     int S, int H, int causal, float scale, float scale_log2) {
-  constexpr int G = DH / kLaneDims;  // lanes per query row
+  constexpr int E = lane_dims<DH>();
+  constexpr int G = DH / E;  // lanes per query row
   constexpr int kRows = kThreads / G;
   constexpr int kTile = tile_rows<DH>();
   __shared__ __align__(16) float ks[kTile * DH];
   __shared__ __align__(16) float vs[kTile * DH];
 
   const int tid = threadIdx.x;
-  const int c = (tid % G) * kLaneDims;  // this lane's head-dim slice
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kRows;
+  const int c = (tid % G) * E;  // this lane's head-dim slice
+  const int bh = blockIdx.x;
+  // the longest causal rows first: blocks start in order of blockIdx.y
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
   const int r = q0 + tid / G;
   const bool live = r < S;
   const int D = H * DH;
   const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * DH;
   const size_t at = base + (size_t)r * D + c;
 
-  float qr[8], dor[8], acc[8];
-  load8_or_zero(q + at, live, qr);
-  load8_or_zero(dout + at, live, dor);
+  float qr[E], dor[E], acc[E];
+  load_e_or_zero(q + at, live, qr);
+  load_e_or_zero(dout + at, live, dor);
   float dl = 0.f;
   {
-    float o[8];
-    load8_or_zero(out + at, live, o);
+    float o[E];
+    load_e_or_zero(out + at, live, o);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dl = fmaf(dor[i], o[i], dl);
+    for (int i = 0; i < E; ++i) dl = fmaf(dor[i], o[i], dl);
   }
   dl = group_sum<G>(dl);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  for (int i = 0; i < E; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
 
   // the rows of this warp: keys past its last row are masked for all
@@ -197,12 +253,12 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     if (warp_first >= S) wk = 0;
 #pragma unroll 1
     for (int j = 0; j < wk; ++j) {
-      float kk[8], vv[8];
-      load8(ks + j * DH + c, kk);
-      load8(vs + j * DH + c, vv);
+      float kk[E], vv[E];
+      load_e(ks + j * DH + c, kk);
+      load_e(vs + j * DH + c, vv);
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < E; ++i) {
         s = fmaf(qr[i], kk[i], s);
         dp = fmaf(dor[i], vv[i], dp);
       }
@@ -213,14 +269,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
           const float f = fast_exp2(m - s);
           l *= f;
 #pragma unroll
-          for (int i = 0; i < 8; ++i) acc[i] *= f;
+          for (int i = 0; i < E; ++i) acc[i] *= f;
           m = s;
         }
         const float e = fast_exp2(s - m);
         l += e;
         const float t = e * (dp - dl);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] = fmaf(t, kk[i], acc[i]);
+        for (int i = 0; i < E; ++i) acc[i] = fmaf(t, kk[i], acc[i]);
       }
     }
   }
@@ -229,8 +285,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
     // every row keeps key 0, so l >= 1
     const float f = scale / l;
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] *= f;
-    store8(dq + at, acc);
+    for (int i = 0; i < E; ++i) acc[i] *= f;
+    store_e(dq + at, acc);
     if (c == 0) {
       lse2[(size_t)bh * S + r] = m + log2f(l);
       delta[(size_t)bh * S + r] = dl;
@@ -245,7 +301,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     const T* __restrict__ dout, const float* __restrict__ lse2,
     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
     int S, int H, int causal, float scale, float scale_log2) {
-  constexpr int G = DH / kLaneDims;  // lanes per key row
+  constexpr int E = lane_dims<DH>();
+  constexpr int G = DH / E;  // lanes per key row
   constexpr int kRows = kThreads / G;
   constexpr int kTile = tile_rows<DH>();
   __shared__ __align__(16) float qs[kTile * DH];
@@ -253,20 +310,20 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   __shared__ float2 stats[kTile];  // (log2-sum-exp, delta) per query
 
   const int tid = threadIdx.x;
-  const int c = (tid % G) * kLaneDims;
-  const int bh = blockIdx.y;
-  const int j0 = blockIdx.x * kRows;
+  const int c = (tid % G) * E;
+  const int bh = blockIdx.x;
+  const int j0 = blockIdx.y * kRows;
   const int j = j0 + tid / G;
   const bool live = j < S;
   const int D = H * DH;
   const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * DH;
   const size_t at = base + (size_t)j * D + c;
 
-  float kk[8], vv[8], dka[8], dva[8];
-  load8_or_zero(k + at, live, kk);
-  load8_or_zero(v + at, live, vv);
+  float kk[E], vv[E], dka[E], dva[E];
+  load_e_or_zero(k + at, live, kk);
+  load_e_or_zero(v + at, live, vv);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < E; ++i) dka[i] = dva[i] = 0.f;
 
   // queries before this warp's first key are masked for all its keys
   const int warp_first = j0 + (tid & ~31) / G;
@@ -283,13 +340,13 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     if (warp_first >= S) first = nq;
 #pragma unroll 1
     for (int i = first; i < nq; ++i) {
-      float qi[8], doi[8];
-      load8(qs + i * DH + c, qi);
-      load8(dos + i * DH + c, doi);
+      float qi[E], doi[E];
+      load_e(qs + i * DH + c, qi);
+      load_e(dos + i * DH + c, doi);
       const float2 st = stats[i];
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int d = 0; d < 8; ++d) {
+      for (int d = 0; d < E; ++d) {
         s = fmaf(qi[d], kk[d], s);
         dp = fmaf(doi[d], vv[d], dp);
       }
@@ -299,7 +356,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
         const float p = fast_exp2(fmaf(s, scale_log2, -st.x));
         const float ds = p * (dp - st.y);
 #pragma unroll
-        for (int d = 0; d < 8; ++d) {
+        for (int d = 0; d < E; ++d) {
           dva[d] = fmaf(p, doi[d], dva[d]);
           dka[d] = fmaf(ds, qi[d], dka[d]);
         }
@@ -309,9 +366,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
   if (live) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) dka[i] *= scale;
-    store8(dk + at, dka);
-    store8(dv + at, dva);
+    for (int i = 0; i < E; ++i) dka[i] *= scale;
+    store_e(dk + at, dka);
+    store_e(dv + at, dva);
   }
 }
 
@@ -319,21 +376,6 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
 
 constexpr int kTcTile = 256;             // keys / queries per staged tile
 constexpr int kTcPitch = kTcTile + 8;    // bf16 pitch of the transposed tiles
-
-// d += a (16 x 8, row) . b (8 x 8, col), bf16 in, float32 accumulate
-__device__ __forceinline__ void mma_16x8x8(float (&d)[4], uint32_t a0,
-                                           uint32_t a1, uint32_t b0) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(b0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
 
 // elements (row, 2t) and (row, 2t + 1) of one head, zeros past the sequence
 __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* x,
@@ -344,15 +386,11 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* x,
                  : 0u;
 }
 
-__device__ __forceinline__ float2 unpack(uint32_t u) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
-}
-
-// the 16-row group of this warp: block b of nb takes groups 4b..4b+3
-// (warps 0-3) and 8nb-1-4b-k (warps 4-7, k = w - 4)
+// the 16-row group of this warp: block b of nb (grid y) takes groups
+// 4b..4b+3 (warps 0-3) and 8nb-1-4b-k (warps 4-7, k = w - 4)
 __device__ __forceinline__ int tc_group() {
   const int w = threadIdx.x >> 5, k = w & 3;
-  const int b = blockIdx.x, nb = gridDim.x;
+  const int b = blockIdx.y, nb = gridDim.y;
   return w < 4 ? 4 * b + k : 8 * nb - 1 - 4 * b - k;
 }
 
@@ -386,7 +424,7 @@ __global__ void __launch_bounds__(256, 4) flash_bwd_dq_tc_kernel(
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int r0 = tc_group() * 16;
   const int ra = r0 + g, rb = ra + 8;  // this thread's two rows
-  const int bh = blockIdx.y, D = H * 8;
+  const int bh = blockIdx.x, D = H * 8;
   const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * 8;
 
   const uint32_t aq0 = load_pair(q, base, ra, t, S, D);
@@ -395,9 +433,9 @@ __global__ void __launch_bounds__(256, 4) flash_bwd_dq_tc_kernel(
   const uint32_t ad1 = load_pair(dout, base, rb, t, S, D);
   float da, db;
   {
-    const float2 d0 = unpack(ad0), d1 = unpack(ad1);
-    const float2 o0 = unpack(load_pair(out, base, ra, t, S, D));
-    const float2 o1 = unpack(load_pair(out, base, rb, t, S, D));
+    const float2 d0 = unpack_bf16(ad0), d1 = unpack_bf16(ad1);
+    const float2 o0 = unpack_bf16(load_pair(out, base, ra, t, S, D));
+    const float2 o1 = unpack_bf16(load_pair(out, base, rb, t, S, D));
     da = fmaf(d0.y, o0.y, d0.x * o0.x);
     db = fmaf(d1.y, o1.y, d1.x * o1.x);
     for (int offset = 1; offset < 4; offset <<= 1) {
@@ -409,8 +447,8 @@ __global__ void __launch_bounds__(256, 4) flash_bwd_dq_tc_kernel(
   float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
 
   // the block's last row is in its first mirrored group
-  const int kend = causal ? min(S, 16 * (8 * (int)gridDim.x - 4 * (int)blockIdx.x))
-                          : S;
+  const int kend =
+      causal ? min(S, 16 * (8 * (int)gridDim.y - 4 * (int)blockIdx.y)) : S;
   for (int k0 = 0; k0 < kend; k0 += kTcTile) {
     const int nk = min(kTcTile, kend - k0);
     __syncthreads();
@@ -505,7 +543,7 @@ __global__ void __launch_bounds__(256, 4) flash_bwd_dkdv_tc_kernel(
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   const int j0 = tc_group() * 16;
   const int ja = j0 + g, jb = ja + 8;  // this thread's two keys
-  const int bh = blockIdx.y, D = H * 8;
+  const int bh = blockIdx.x, D = H * 8;
   const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * 8;
 
   const uint32_t ak0 = load_pair(k, base, ja, t, S, D);
@@ -515,7 +553,7 @@ __global__ void __launch_bounds__(256, 4) flash_bwd_dkdv_tc_kernel(
   float dka[4] = {0.f, 0.f, 0.f, 0.f}, dva[4] = {0.f, 0.f, 0.f, 0.f};
 
   // the block's first key is in its first front group
-  for (int i0 = causal ? 64 * blockIdx.x : 0; i0 < S; i0 += kTcTile) {
+  for (int i0 = causal ? 64 * blockIdx.y : 0; i0 < S; i0 += kTcTile) {
     const int nq8 = (min(kTcTile, S - i0) + 7) & ~7;
     __syncthreads();
     stage_tc(qs, qts, q, base, D, i0, nq8, S);
@@ -574,7 +612,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       void* dv, float* lse2, float* delta, int N, int S,
                       int H, int causal, cudaStream_t stream) {
   using bf16 = __nv_bfloat16;
-  const dim3 grid((S + 127) / 128, N * H);  // 8 groups of 16 rows a block
+  // (n, h) on x, 8 groups of 16 rows a block on y
+  const dim3 grid(N * H, (S + 127) / 128);
   const float scale = 1.0f / sqrtf(8.f);
   const float scale_log2 = scale * kLog2e;
   flash_bwd_dq_tc_kernel<<<grid, 256, 0, stream>>>(
@@ -601,8 +640,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     return launch_tc(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S, H,
                      causal, stream);
   } else {
-    constexpr int kRows = kThreads / (DH / kLaneDims);
-    const dim3 grid((S + kRows - 1) / kRows, N * H);
+    constexpr int kRows = kThreads / (DH / lane_dims<DH>());
+    const dim3 grid(N * H, (S + kRows - 1) / kRows);
     const float scale = 1.0f / sqrtf((float)DH);
     const float scale_log2 = scale * kLog2e;
     flash_bwd_dq_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
@@ -642,6 +681,12 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N,
                             S, H, causal, stream);
+    case 192:
+      return launch<T, 192>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N,
+                            S, H, causal, stream);
+    case 256:
+      return launch<T, 256>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N,
+                            S, H, causal, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -653,8 +698,11 @@ extern "C" {
 
 // q, k, v, out, dout, dq, dk, dv: (N, S, H*dh), contiguous, 16-byte
 // aligned.  lse2, delta: float32 (N, H, S) scratch.  dtype: 0 = float32,
-// 1 = bfloat16.  dh in {8, 16, 32, 64, 128}.  Launches pass 1 then pass 2
-// on `stream`; returns the cudaError_t of the launches.
+// 1 = bfloat16.  dh in {8, 16, 32, 64, 128, 192, 256}.  N * H runs on grid
+// x (up to 2^31 - 1), the row tiles on grid y (S up to 65535 * 4 at dh 192
+// and 256).
+// Launches pass 1 then pass 2 on `stream`; returns the cudaError_t of the
+// launches.
 int qaig_flash_attention_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout, void* dq,
                              void* dk, void* dv, void* lse2, void* delta,

@@ -6,7 +6,8 @@ and key masks set scores to -inf before a float32 softmax, and there is no
 output projection after the heads merge.
 
 Routing (no global switches): :func:`dot_product_attention` sends
-self-attention over equal shapes with no key mask and no query offset to
+self-attention over equal shapes with no key mask and no query offset, at a
+head dim the kernel instantiates (``flash_attention.supported``), to
 :func:`qaig_tpu_torch.ops.flash_attention.flash_attention`, and
 :func:`shared_prefix_attention` always goes to
 ``qaig_tpu_torch.ops.decode_attention`` (the flat kernel for an

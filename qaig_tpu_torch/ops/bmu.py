@@ -21,8 +21,6 @@ import torch
 
 from qaig_tpu_torch.ops import cuda_build
 
-MAX_D = 4096
-MAX_K = 4096
 _ROWS_PER_BLOCK = 32
 _CODES_PER_TILE = 64
 _TARGET_BLOCKS = 264   # two per SM of an H100's 132
@@ -30,6 +28,7 @@ SMALL_M_ROWS = 32      # the small-M geometry takes at most this many rows
 _SMALL_M_CODES = 8     # codes per small-M block, one per warp
 _SMALL_M_SLICE = 1024  # widest D slice (8 float4 per lane)
 _SMALL_M_SMEM = 48 * 1024
+_SMALL_M_MAX_D = 65535 * 128  # the D slices (at least 128 wide) on grid y
 NEAR_TIE = 1e-5        # near-tie margin, relative to max(1, |best|)
 # qaig_bmu and qaig_bmu_small_m: two pointers, five ints, four pointers
 _ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
@@ -93,7 +92,7 @@ def launch_plan(m, d, k, aligned=True):
     fewer than 264 blocks, with a second launch that reduces the splits.
     Returns a dict with ``geometry``, ``blocks`` (of the first launch) and
     those fields."""
-    if m <= SMALL_M_ROWS and d % 128 == 0 and aligned:
+    if m <= SMALL_M_ROWS and d % 128 == 0 and d <= _SMALL_M_MAX_D and aligned:
         chunks = -(-k // _SMALL_M_CODES)
         units = d // 128
         widths = [u for u in range(min(units, _SMALL_M_SLICE // 128), 0, -1)
@@ -182,12 +181,15 @@ def _check_kernel_inputs(patches, codes):
     k, dc = codes.shape
     if dc != d:
         raise ValueError(f"fused_bmu: patches have D {d}, codes {dc}")
-    if not 8 <= d <= MAX_D:
-        raise ValueError(f"fused_bmu: D {d} outside [8, {MAX_D}]")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"fused_bmu: K {k} outside [1, {MAX_K}]")
+    # the kernels take any M, K and D of at least 1 (csrc/bmu.cu)
     if m < 1:
         raise ValueError("fused_bmu: no patches (M = 0)")
+    if k < 1:
+        raise ValueError("fused_bmu: no codes (K = 0)")
+    if d < 1:
+        raise ValueError("fused_bmu: empty patches (D = 0)")
+    if max(m, k, d) >= 2 ** 31:
+        raise ValueError("fused_bmu: M, K or D does not fit a 32-bit int")
     if patches.device.index != torch.cuda.current_device():
         raise ValueError("fused_bmu: tensors are not on the current CUDA "
                          "device")

@@ -3,12 +3,23 @@
 
 On a CUDA tensor, the forward of :func:`flash_attention` launches the
 hand-written Hopper kernel of ``qaig_tpu_torch/csrc/flash_attention.cu``
-(tiled K/V in shared memory, online float32 softmax, ragged S and the
-causal mask handled in the kernel, so no padding; head dims 8 to 128).  On
-a CPU tensor it runs :func:`flash_attention_reference`, the plain PyTorch
+(K/V tiles streamed through shared memory by ``cp.async``, online float32
+softmax, bf16 products on ``mma.sync``, float32 on register-blocked FMAs;
+ragged S and the causal mask handled in the kernel, so no padding).  On a
+CPU tensor it runs :func:`flash_attention_reference`, the plain PyTorch
 version of the same function.  There is no other route: a CUDA input the
 kernel does not take raises.  The kernel reads and writes the projections'
 (N, S, H*dh) layout directly.
+
+Routing, decided from the shape alone (:func:`supported`, as
+``qaig_tpu/ops/flash_attention.py::supported`` routes what its Pallas
+kernel does not take to XLA einsums): the kernel instantiates head dims 8,
+16, 32, 64, 128, 192 and 256, and
+:func:`qaig_tpu_torch.ops.attention.dot_product_attention` sends any other
+head dim to its plain products, on every device.  The Pallas kernel takes
+every multiple of 64 (and no smaller head dim); this one takes those up to
+256, past which a warp's 16 rows of the output no longer fit in its
+registers.
 
 The gradient is the JAX package's ``custom_vjp`` backward (``_flash_bwd``):
 the log-sum-exp is recomputed from the saved (q, k, v, out) and dq, dk, dv
@@ -27,7 +38,9 @@ import torch
 from qaig_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (8, 16, 32, 64, 128)
+# the head dims the kernels instantiate
+HEAD_DIMS = (8, 16, 32, 64, 128, 192, 256)
+_MAX_S = 65535 * 4   # grid y holds the backward's 4-row tiles past dh 128
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                  + [ctypes.c_void_p])
@@ -36,13 +49,14 @@ _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
 def supported(q, k, v, heads, causal, kv_mask, q_offset):
     """The calls :func:`qaig_tpu_torch.ops.attention.dot_product_attention`
     sends here: self-attention over equal (N, S, D) shapes with no key mask
-    and no query offset."""
+    and no query offset, at a head dim in :data:`HEAD_DIMS`.  Decided from
+    the shapes alone, before any launch, on every device."""
     del causal
     if kv_mask is not None or q_offset is not None:
         return False
     if q.shape != k.shape or k.shape != v.shape:
         return False
-    return q.shape[-1] % heads == 0
+    return q.shape[-1] % heads == 0 and q.shape[-1] // heads in HEAD_DIMS
 
 
 def _split(x, heads):
@@ -148,7 +162,7 @@ def fused_flash_attention_backward(q, k, v, out, dout, heads, causal):
                 f"{tuple(x.shape)} {x.dtype} {x.device})")
     if not out.is_contiguous():
         raise ValueError("flash_attention backward: out is not contiguous")
-    if any(x.data_ptr() % 16 for x in (q, k, v, out, dout)):
+    if out.data_ptr() % 16 or dout.data_ptr() % 16:
         raise ValueError("flash_attention backward: inputs must be 16-byte "
                          "aligned")
     n, s, d = q.shape
@@ -199,18 +213,21 @@ def _check_kernel_inputs(q, k, v, heads):
             f"flash_attention: q must be (N, S, H*dh), got {tuple(q.shape)} "
             f"with {heads} heads")
     dh = q.shape[2] // heads
-    if dh not in _HEAD_DIMS:
+    if dh not in HEAD_DIMS:
         raise ValueError(
             f"flash_attention: the kernel has no head dim {dh}; it takes "
-            f"head dims {', '.join(map(str, _HEAD_DIMS))}")
-    if q.shape[0] * heads > 65535:
-        raise ValueError("flash_attention: N * heads exceeds the grid's "
-                         "y dimension (65535)")
-    if q.shape[1] == 0:
-        raise ValueError("flash_attention: empty sequence")
+            f"head dims {', '.join(map(str, HEAD_DIMS))}, and "
+            f"dot_product_attention routes any other head dim to its plain "
+            f"products (supported() is False)")
+    if not 0 < q.shape[1] <= _MAX_S:
+        raise ValueError(f"flash_attention: S {q.shape[1]} outside "
+                         f"[1, {_MAX_S}]")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not x.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
+        if x.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned")
     if q.device.index != torch.cuda.current_device():
         raise ValueError("flash_attention: tensors are not on the current "
                          "CUDA device")

@@ -142,10 +142,14 @@ def test_flat_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
-@pytest.mark.parametrize("s", [1, 13, 64, 100, 255])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128, 192, 256])
+@pytest.mark.parametrize("s", [1, 13, 64, 65, 100, 129, 255])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_kernel_matches_plain(cuda, dtype, dh, s, causal):
+    """Every head dim, both masks, and S around the 64-key tiles: one key,
+    a ragged first tile, one full tile, a tile and one key, ragged and full
+    later tiles (past dh 128 fewer K/V slots than tiles, so slots are
+    refilled)."""
     from qaig_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device=cuda).manual_seed(s)
@@ -186,7 +190,7 @@ def test_flash_attention_gradient_matches_plain(cuda, dtype, heads, dh, s,
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128, 192, 256])
 @pytest.mark.parametrize("s", [1, 13, 64, 255, 256])
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, dh, s,
@@ -210,6 +214,90 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, dh, s,
         assert g.dtype == dtype and g.shape == q.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=0,
                                    atol=GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_runs_past_65535_heads_of_rows(cuda, dtype, causal):
+    """N * H = 65536 (1024 rows of 64 heads of 8, S 64): the forward and
+    the backward put (n, h) on the grid's x axis, which a y axis (at most
+    65535) could not hold."""
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    n, heads, dh, s = 1024, 64, 8, 64
+    q, k, v, dout = (_rand(gen, n, s, heads * dh, dtype=dtype)
+                     for _ in range(4))
+    launches = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, heads, causal=causal)
+    assert fa.flash_attention.launches == launches + 1
+    torch.testing.assert_close(
+        out.float(), fa.flash_attention_reference(q, k, v, heads,
+                                                  causal).float(),
+        rtol=0, atol=TOL[dtype])
+    got = fa.fused_flash_attention_backward(q, k, v, out, dout, heads,
+                                            causal)
+    want = fa.flash_attention_backward(q, k, v, out, dout, heads, causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                   atol=GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,dh", [(16, 24)])
+def test_attention_routes_other_head_dims_past_the_kernel(cuda, dtype,
+                                                          heads, dh):
+    """dot_product_attention at a head dim the kernel does not instantiate
+    runs its plain products on the card, with their gradient, and launches
+    neither kernel."""
+    from qaig_tpu_torch.ops import attention
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q, k, v = (_rand(gen, 3, 40, heads * dh, dtype=dtype).requires_grad_()
+               for _ in range(3))
+    launches = (fa.flash_attention.launches,
+                fa.fused_flash_attention_backward.launches)
+    for causal in (True, False):
+        got = attention.dot_product_attention(q, k, v, heads, causal=causal)
+        torch.testing.assert_close(
+            got.float(), fa.flash_attention_reference(
+                q, k, v, heads, causal).float(), rtol=0, atol=TOL[dtype])
+        got.float().sum().backward()
+    assert q.grad is not None
+    assert (fa.flash_attention.launches,
+            fa.fused_flash_attention_backward.launches) == launches
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("heads,dh", [(2, 256), (4, 192)])
+def test_attention_sends_wide_head_dims_to_the_kernel(cuda, dtype, heads,
+                                                      dh):
+    """dot_product_attention at the head dims past 128 that ``qaig_tpu``'s
+    Pallas kernel takes (in_dim 512 in 2 heads, 768 in 4) launches kernel A
+    forward and backward, and matches the plain version and its gradient."""
+    from qaig_tpu_torch.ops import attention
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(dh)
+    q, k, v = (_rand(gen, 3, 100, heads * dh, dtype=dtype).requires_grad_()
+               for _ in range(3))
+    weight = torch.randn(3, 100, heads * dh, generator=gen, device=cuda)
+    for causal in (True, False):
+        launches = (fa.flash_attention.launches,
+                    fa.fused_flash_attention_backward.launches)
+        got = attention.dot_product_attention(q, k, v, heads, causal=causal)
+        grads = torch.autograd.grad((got.float() * weight).sum(), (q, k, v))
+        assert (fa.flash_attention.launches,
+                fa.fused_flash_attention_backward.launches) == (
+                    launches[0] + 1, launches[1] + 1)
+        want = fa.flash_attention_reference(q, k, v, heads, causal)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=TOL[dtype])
+        for g, w in zip(grads, torch.autograd.grad(
+                (want.float() * weight).sum(), (q, k, v))):
+            torch.testing.assert_close(g.float(), w.float(), rtol=0,
+                                       atol=GRAD_TOL[dtype])
 
 
 def test_flash_attention_backward_kernel_takes_a_non_contiguous_dout(cuda):
@@ -242,8 +330,16 @@ def test_flash_attention_backward_kernel_takes_a_non_contiguous_dout(cuda):
                                    (128, 256, 512), (8, 4096, 512),
                                    (300, 16, 64), (1, 8, 1),
                                    (77, 40, 4096), (8, 4096, 4096),
-                                   (31, 4096, 512), (1, 4096, 512)])
+                                   (31, 4096, 512), (1, 4096, 512),
+                                   (2048, 2, 512), (8, 2, 64), (5, 1, 3),
+                                   (8, 8192, 512), (32, 8192, 512),
+                                   (300, 8200, 64), (2048, 16, 8192),
+                                   (8, 4096, 8192)])
 def test_bmu_kernel_matches_plain(cuda, m, d, k):
+    """The cascade's codebook shapes in both geometries, and the shapes the
+    wrapper once refused: D 1-2 (``bench.py``'s smoke cascade), D 8192
+    (``codebook_lr.json`` at ``image_C`` 8; small M and row tiles), K
+    8192."""
     from qaig_tpu_torch.ops import bmu
 
     gen = torch.Generator(device=cuda).manual_seed(m + d + k)
@@ -260,10 +356,12 @@ def test_bmu_kernel_matches_plain(cuda, m, d, k):
                            bmu.bmu_argmin_reference(patches, codes))
 
 
-@pytest.mark.parametrize("m,d", [(500, 16), (8, 4096)])
+@pytest.mark.parametrize("m,d", [(500, 16), (8, 4096), (8, 8192),
+                                 (500, 8192)])
 def test_bmu_kernel_duplicated_codes_give_the_first_index(cuda, m, d):
-    """Three copies of 64 codes, in the row tiles (M 500, D 16) and in the
-    small-M geometry (M 8, D 4096, where D is split over blocks)."""
+    """Three copies of 64 codes, in the row tiles (M 500, D 16 and D 8192)
+    and in the small-M geometry (M 8, D 4096 and 8192, where D is split
+    over blocks)."""
     from qaig_tpu_torch.ops import bmu
 
     gen = torch.Generator(device=cuda).manual_seed(7)
@@ -289,11 +387,9 @@ def test_bmu_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     for patches, codes, match in (
             (p.double(), c.double(), "float32"),
             (p[:, ::2], c[:, ::2], "not contiguous"),
-            (torch.zeros(4, 4, device=cuda), torch.zeros(8, 4, device=cuda),
-             "outside"),
-            (torch.zeros(1, 4104, device=cuda),
-             torch.zeros(1, 4104, device=cuda), "outside"),
-            (p, torch.zeros(4097, 16, device=cuda), "outside"),
+            (p, torch.zeros(0, 16, device=cuda), "K = 0"),
+            (torch.zeros(4, 0, device=cuda), torch.zeros(8, 0, device=cuda),
+             "D = 0"),
             (p, torch.zeros(8, 32, device=cuda), "codes"),
             (torch.zeros(0, 16, device=cuda), c, "M = 0")):
         with pytest.raises(ValueError, match=match):
@@ -306,8 +402,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     from qaig_tpu_torch.ops import flash_attention as fa
 
     x = torch.zeros(2, 8, 4 * 24, device=cuda)
-    with pytest.raises(ValueError, match="head dim 24"):
+    with pytest.raises(ValueError, match="head dim 24.*routes"):
         fa.flash_attention(x, x, x, 4)
+    z = torch.zeros(2 * 8 * 128 + 1, device=cuda)[1:].view(2, 8, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(z, z, z, 2)
     y = torch.zeros(2, 8, 128, device=cuda)
     with pytest.raises(ValueError, match="not contiguous"):
         fa.flash_attention(y.transpose(0, 1).contiguous().transpose(0, 1),

@@ -215,6 +215,58 @@ def test_dot_product_attention_matches_jax(case):
     np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("heads,dh,kernel", [
+    (16, 24, False), (2, 256, True), (4, 192, True), (1, 320, False)])
+def test_dot_product_attention_other_head_dims_match_jax(heads, dh, kernel,
+                                                         causal,
+                                                         monkeypatch):
+    """Head dims past the repo's configs match ``qaig_tpu``: in_dim 384 in 16
+    heads (24) and 320 in one go to the plain products, as ``qaig_tpu``
+    routes 24 to XLA einsums; 512 in 2 heads (256) and 768 in 4 (192) go to
+    the flash wrapper, as they go to the Pallas kernel there."""
+    from qaig_tpu.ops.attention import dot_product_attention as jax_dpa
+    from qaig_tpu_torch.ops import attention, flash_attention as fa
+
+    calls = []
+    wrapper = fa.flash_attention
+
+    def recording(*args, **kwargs):
+        calls.append(args[3])
+        return wrapper(*args, **kwargs)
+
+    monkeypatch.setattr(fa, "flash_attention", recording)
+    rng = np.random.default_rng(dh)
+    q, k, v = (rng.standard_normal((2, 9, heads * dh)).astype(np.float32)
+               for _ in range(3))
+    assert fa.supported(_t(q), _t(k), _t(v), heads, causal, None,
+                        None) == kernel
+    got = attention.dot_product_attention(_t(q), _t(k), _t(v), heads,
+                                          causal=causal).numpy()
+    assert calls == ([heads] if kernel else [])
+    want = jax_dpa(_j(q), _j(k), _j(v), heads, causal=causal)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("dh", [4, 8, 16, 24, 32, 40, 64, 96, 128, 192, 256,
+                                320, 512])
+def test_flash_attention_supported_head_dims(dh):
+    """The routing rule is the shape alone: the head dims the kernel
+    instantiates (8, 16, 32, 64, 128, 192, 256) go to it, any other to the
+    plain products; key masks, query offsets and unequal shapes never do."""
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    x = torch.zeros(2, 5, 3 * dh)
+    assert fa.supported(x, x, x, 3, True, None, None) == (
+        dh in (8, 16, 32, 64, 128, 192, 256))
+    assert fa.supported(x, x, x, 3, False, None, None) == (
+        dh in fa.HEAD_DIMS)
+    assert not fa.supported(x, x, x, 3, True, torch.ones(2, 5, dtype=bool),
+                            None)
+    assert not fa.supported(x, x, x, 3, True, None, 4)
+    assert not fa.supported(x, x[:, :4], x[:, :4], 3, False, None, None)
+
+
 def test_shared_cross_and_block_and_presplit_attention_match_jax():
     from qaig_tpu.ops import attention as ja
     from qaig_tpu_torch.ops import attention as ta
@@ -336,12 +388,19 @@ def test_non_cpu_tensors_take_the_backward_kernel():
     (1, 4096, 512, "small_m", 8), (8, 4096, 4096, "small_m", 4),
     (2048, 16, 512, "row_tiled", 4), (128, 256, 512, "row_tiled", 8),
     (512, 64, 512, "row_tiled", 8), (77, 40, 4096, "row_tiled", 64),
-    (1, 8, 1, "row_tiled", 1), (8, 4104, 512, "row_tiled", 8)])
+    (1, 8, 1, "row_tiled", 1), (8, 4104, 512, "row_tiled", 8),
+    (2048, 2, 512, "row_tiled", 4), (8, 2, 512, "row_tiled", 8),
+    (8, 8192, 512, "small_m", 8), (32, 8192, 512, "small_m", 32),
+    (8, 4096, 8192, "small_m", 4), (2048, 16, 8192, "row_tiled", 5),
+    (1, 8192, 8192, "small_m", 8)])
 def test_bmu_launch_plan(m, d, k, geometry, splits):
     """The BMU kernel's geometry by shape: few rows against long codes
     (the LR codebook's M 8, D 4096) take the small-M blocks, at least two
     per SM of the H100's 132 where the codes allow; the training and HR
-    shapes keep the row tiles; every code and D column is covered."""
+    shapes keep the row tiles; every code and D column is covered.  D 2
+    (``bench.py``'s smoke cascade), D 8192 (``codebook_lr.json`` at
+    ``image_C`` 8) and K 8192 are inside the kernels' limits, and the
+    small-M scratch (splits, M, K) float32 stays within 8 MB."""
     from qaig_tpu_torch.ops.bmu import launch_plan
 
     plan = launch_plan(m, d, k)
@@ -351,6 +410,7 @@ def test_bmu_launch_plan(m, d, k, geometry, splits):
         assert plan["slice"] % 128 == 0 and plan["slice"] <= 1024
         assert m * plan["slice"] * 4 <= 48 * 1024
         assert plan["blocks"] == -(-k // 8) * splits >= 264
+        assert splits * m * k * 4 <= 8 * 2 ** 20
     else:
         assert plan["tiles_per_split"] * 64 * splits >= k
         assert plan["blocks"] == -(-m // 32) * splits
