@@ -18,8 +18,9 @@ Phases (any failure exits non-zero and prints no result line):
    generation path's shapes, full-sequence attention there in bf16 and
    float32 (atol 2e-2 / 1e-5; ``scaled_dot_product_attention`` as the
    yardstick); full-sequence attention at the training path's 64
-   heads of dim 8 (and at 8 heads of dim 64), forward and gradient, bf16
-   and float32, with the backward kernel against the plain backward
+   heads of dim 8 (and at in_dim 512 in heads of 64, 16, 32 and 128),
+   forward and gradient, bf16 and float32, with the backward kernel
+   against the plain backward
    products (atol 5e-2 bf16, 1e-4 float32) and SDPA's backward; both at
    N * H = 65536 (1024 rows of 64 heads, S 64) and at head dims 256 and
    192 through ``dot_product_attention``, which must launch both kernels
@@ -32,7 +33,9 @@ Phases (any failure exits non-zero and prints no result line):
    1e-5), at the stage-1/2 shapes and at the stage-0 fan; the fused MLP
    (kernel 6) in bf16 (atol 2e-2) at the probe's packed-QKV and FFN
    shapes, 8192 and 1024 rows and a ragged 1000, beside the same function
-   as two cuBLAS products and elementwise calls;
+   as two cuBLAS products and elementwise calls, with its cluster size,
+   the weight bytes it reads from L2 and ``ptxas``'s registers and spills
+   (phase 2's build log);
 4. reference -- a small cascade stage decoded greedily in float32 on the
    card (kernels) and on the CPU (plain versions) must give the same
    tokens; 4c: the same with ``flat_decode=True``; 4b: one float32 train
@@ -115,10 +118,13 @@ BMU_SHAPES = [  # (M, D, K): HR at batch 8, LR, stage-1 HR, stage-0 LR, ragged
     (300, 16, 64), (1, 4096, 512), (31, 4096, 512), (2048, 2, 512),
     (8, 8192, 512), (32, 8192, 512), (2048, 16, 8192), (8, 4096, 8192)]
 # backward shapes: the decoder's and the encoder's layers of
-# transformer_cascade.json, and the generation path's 8 heads of dim 64
+# transformer_cascade.json, the generation path's 8 heads of dim 64, and
+# in_dim 512 in heads of 16, 32 and 128, so that every head dim the
+# kernels instantiate has a time (192 and 256: FLASH_WIDE_DH)
 FLASH_TRAIN_SHAPES = [  # (H, dh, S, causal)
     (TRAIN_H, TRAIN_DH, 256, True), (TRAIN_H, TRAIN_DH, 64, False),
-    (H, DH, 256, True)]
+    (H, DH, 256, True), (32, 16, 256, True), (16, 32, 256, True),
+    (4, 128, 256, True)]
 # N * H = 65536, past the 65535 of a grid's y axis: 1024 rows of the
 # training path's 64 heads; S 64 keeps the plain version's N*H*S^2 float32
 # scores at 1 GB
@@ -174,6 +180,28 @@ def phase_build():
             for line in report.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     log(f"[build] {name}: {line.strip()}")
+
+
+def ptxas_report(name):
+    """Registers and spill bytes of each kernel of one source, from the
+    ``-Xptxas -v`` report that phase 2's build keeps beside the library."""
+    from qaig_tpu_torch.ops import cuda_build
+    kernels, current = [], None
+    report = (cuda_build.BUILD_DIR / f"{name}.log").read_text()
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            current = {"function": line.split("'")[1]}
+            kernels.append(current)
+        elif current is not None and "spill stores" in line:
+            words = line.replace(",", "").split()
+            current["spill_store_bytes"] = int(words[words.index("spill") - 2])
+            current["spill_load_bytes"] = int(words[-4])
+        elif current is not None and "Used" in line and "registers" in line:
+            words = line.split()
+            current["registers"] = int(words[words.index("registers,") - 1]
+                                       if "registers," in words else
+                                       words[words.index("registers") - 1])
+    return kernels
 
 
 # ---------------------------------------------------------------------------
@@ -537,8 +565,9 @@ def check_flash_wide(torch, timer, records):
 
 def check_flash_train(torch, timer, records):
     """Kernel A at the training path's head dim (64 heads of 8; decoder S
-    256 causal, encoder S 64) and at 8 heads of 64, forward and gradient,
-    bf16 and float32.  The backward kernel is held against the plain
+    256 causal, encoder S 64) and at 8 heads of 64, 32 of 16, 16 of 32 and
+    4 of 128 (S 256 causal), forward and gradient, bf16 and float32.  The
+    backward kernel is held against the plain
     ``_flash_bwd`` products on the same (q, k, v, out, dout) and timed
     beside them, SDPA's backward and its bound."""
     import torch.nn.functional as F
@@ -732,8 +761,14 @@ def check_mlp(torch, timer, records):
     import torch.nn.functional as F
     from qaig_tpu_torch.ops import mlp_fused as mf
     gen = torch.Generator(device="cuda").manual_seed(6)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     d, hid = MLP_D, MLP_H
+    resident = mf.resident_blocks(d, d, torch.device("cuda", 0))
+    log(f"[kernels] mlp2_fused resident blocks by cluster size: {resident}")
+    for kernel in ptxas_report("mlp2_fused"):
+        log(f"[kernels] mlp2_fused ptxas {kernel['function']}: "
+            f"{kernel.get('registers')} registers, spill stores / loads "
+            f"{kernel.get('spill_store_bytes')} / "
+            f"{kernel.get('spill_load_bytes')} bytes")
     for n, s, act_last in MLP_SHAPES:
         def rnd(*shape):
             return (torch.randn(*shape, generator=gen, device="cuda")
@@ -759,17 +794,32 @@ def check_mlp(torch, timer, records):
         nbytes = 2 * (n * d + s * hid * d + s * hid + s * d * hid + s * d
                       + s * n * d)
         bound_ms, bound_by = bound(nbytes, flops)
-        row_tiles, _, parts, _ = mf.launch_geometry(n, s, hid, sms)
+        geo = mf.launch_geometry(n, s, hid, resident)
         rec = {"name": "mlp2_fused", "shape": {
             "N": n, "S": s, "act_last": act_last, "D": d, "H": hid,
-            "D2": d}, "blocks": row_tiles * s * parts, "hidden_parts": parts,
+            "D2": d}, "blocks": geo.grid_x * s * geo.parts,
+            "hidden_parts": geo.parts, "cluster": geo.cluster,
+            "weight_l2_bytes": mf.weight_l2_bytes(n, d, s, hid, d, resident),
+            "ptxas": ptxas_report("mlp2_fused"),
             "max_abs_err": err, "library_chain_max_abs_err": chain_err,
             "ms": timer(run_kernel), "plain_ms": timer(run_plain),
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "library_chain_ms": timer(run_library_chain)}
+        if n == 8192:  # the same call in each cluster size
+            rec["ms_by_cluster"] = {c: timer(lambda: mf.mlp2_fused(
+                x, w0, b0, w1, b1, act_last=act_last, cluster=c))
+                for c in (1, 2, 4)}
+            sweep = []
+            for c, ms in rec["ms_by_cluster"].items():
+                gb = mf.weight_l2_bytes(n, d, s, hid, d, resident, c) / 1e9
+                sweep.append(f"{c}: {ms:.4f} ms ({gb:.3f} GB)")
+            log(f"[kernels] mlp2_fused N={n} S={s} by cluster size: "
+                + ", ".join(sweep))
         records.append(rec)
         log(f"[kernels] mlp2_fused N={n} S={s} act_last={act_last} "
-            f"({rec['blocks']} blocks, hidden in {parts} parts): "
+            f"({rec['blocks']} blocks in clusters of {geo.cluster}, hidden "
+            f"in {geo.parts} parts, {rec['weight_l2_bytes'] / 1e9:.3f} GB "
+            f"of weights from L2): "
             f"max_abs_err={err:.3e} (library chain {chain_err:.3e}) "
             f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
             f"library_chain_ms={rec['library_chain_ms']:.4f} "

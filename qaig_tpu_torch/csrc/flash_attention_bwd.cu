@@ -16,44 +16,51 @@
 //
 // What bounds it on the H100.  Five products over the live (query, key)
 // pairs, 10 * N * H * pairs * dh flops, on 8 * N * S * H*dh elements moved:
-// at the training path's dh 8 that is ~S / 2 operations per byte, so the
-// bytes bound it on paper (5 us at N 8, H 64, S 256 in bf16).  In practice
-// the instructions per pair bound it: with float32 FMAs one key read from
-// shared memory serves 32 pairs of a warp, and every product is only dh
-// deep.
+// at S 256 that is ~S / 2 operations per byte, so the bytes bound it on
+// paper (5 us at N 8, H 64, S 256 in bf16).  In practice the latency of a
+// block's chain of products sets it, and in float32 the FMAs.
 //
 // What the design does about it.  FlashAttention-2's split into two
 // launches, so no (S, S) tensor reaches device memory and nothing needs an
 // atomic (deterministic):
-//   pass 1, over query tiles: a block owns up to 128 query rows of one
-//     (n, h), each row's dh in registers across dh / 8 lanes (8 elements a
-//     lane; past dh 128, 32 lanes of dh / 32).  K and V stream through shared memory as float32 tiles; per
-//     key one sweep recomputes s, keeps the row's running max and sum
-//     (online softmax, base 2) and accumulates dq, rescaling it when the
-//     max moves.  It writes dq, and the row's log2-sum-exp and delta as
-//     float32 (N, H, S) scratch;
-//   pass 2, over key tiles: a block owns up to 128 keys of one (n, h),
-//     held the same way with their dk and dv accumulators; Q, dout, lse
-//     and delta stream through shared memory (causal: only the queries at
-//     or after the block's first key) and each (query, key) pair's p and
-//     ds are recomputed.
-// In this form every product is a float32 FMA, for float32 inputs and for
-// bf16 at dh >= 16 (no TF32, no tensor cores): the error against the plain
-// version is the summation order and, in bf16, the final rounding.  A warp's loop over a
-// tile stops at its own last live pair, so causal warps skip the masked
-// half; keys and queries are read from shared memory as broadcasts.  Head
-// dims 8, 16, 32, 64, 128, 192 and 256, as the forward.
-//
-// bf16 at dh 8 (the training path's 64 heads of 8) takes a tensor-core
-// form of the same two passes, ~3x faster at the training shape:
-// mma.sync m16n8k8 (bf16 in, float32 accumulate) computes a warp's 16 x 8 tile of scores and of dout v^T at
-// once, exactly (a bf16 x bf16 product is exact in float32), and the three
-// products that take p or ds (dv, dq, dk) round that float32 operand to
-// bf16 (relative error 2^-9), reusing the score tile's accumulator layout
-// as the next product's A operand.  A warp owns 16 rows; a block of 8
-// warps takes row groups 4b..4b+3 from the front of the sequence and
-// their mirror images from the back, so causal blocks carry equal work
-// and each scheduler pairs a short group with a long one.
+//   pass 1, over query tiles: recompute s, keep each row's running max and
+//     sum (online softmax, base 2) and accumulate dq, rescaling it when the
+//     max moves; write dq, and the row's log2-sum-exp and delta as float32
+//     (N, H, S) scratch;
+//   pass 2, over key tiles: stream Q, dout, lse and delta (causal: only the
+//     queries at or after the block's first key), recompute each (query,
+//     key) pair's p and ds, and accumulate dk and dv.
+// Three forms of the two passes:
+//   bf16 at dh 16-256: tensor cores, mma.sync m16n8k16 (bf16 in, float32
+//     accumulate), the forward's building blocks.  A block is 4 warps of 16
+//     fixed rows (queries in pass 1, keys in pass 2); the streamed tiles
+//     (K/V, or Q/dout with their lse and delta) go through a ring of
+//     cp.async slots (all of S <= 256 in flight up to dh 64).  The fixed
+//     rows' A fragments come from ldmatrix (kept in registers up to dh 64),
+//     the streamed rows' B fragments from ldmatrix, and from ldmatrix.trans
+//     for the products whose depth is the tile (dq += ds K, dv += p^T dout,
+//     dk += ds^T q).  The score and dP accumulators (a bf16 x bf16 product
+//     is exact in float32) are repacked pairwise, rounded to bf16 (relative
+//     error 2^-9), as the A fragments of those products, so p and ds never
+//     touch shared memory.  Past dh 64 a block writes half of the head dim
+//     of the gradients (grid z): a warp's 16 x dh float32 accumulators (two
+//     in pass 2, dh registers a lane) would not fit beside the score tiles,
+//     and each half recomputes the scores, two products of dh against the
+//     four of dh / 2 it keeps.  Past dh 128 the tiles are 32 rows wide.
+//     Causal tiles stop at the diagonal and the longest query tiles start
+//     first; column tiles with no live pair for a warp are skipped.
+//   bf16 at dh 8 (the training path's 64 heads of 8): the same products as
+//     mma.sync m16n8k8 without padding dh; a block of 8 warps takes row
+//     groups 4b..4b+3 from the front of the sequence and their mirror
+//     images from the back, so causal blocks carry equal work.
+//   float32: exact float32 FMAs (no TF32, no tensor cores), as the port's
+//     float32 numerics require: each row's dh in registers across dh / 8
+//     lanes (past dh 128, 32 lanes of dh / 32); K and V (pass 1) or Q and
+//     dout (pass 2) stream through shared memory as float32 tiles, and one
+//     key read from shared memory serves 32 pairs of a warp.  The error
+//     against the plain version is the summation order.  A warp's loop over
+//     a tile stops at its own last live pair.
+// Head dims 8, 16, 32, 64, 128, 192 and 256, as the forward.
 
 #include "common.cuh"
 
@@ -104,31 +111,6 @@ __device__ __forceinline__ void load_e(const float* p, float (&x)[E]) {
 }
 
 template <int E>
-__device__ __forceinline__ void load_e(const __nv_bfloat16* p, float (&x)[E]) {
-  if constexpr (E % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < E / 8; ++i) {
-      const uint4 u = reinterpret_cast<const uint4*>(p)[i];
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float2 f = __bfloat1622float2(h[j]);
-        x[8 * i + 2 * j] = f.x;
-        x[8 * i + 2 * j + 1] = f.y;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < E / 2; ++i) {
-      const float2 f = __bfloat1622float2(
-          reinterpret_cast<const __nv_bfloat162*>(p)[i]);
-      x[2 * i] = f.x;
-      x[2 * i + 1] = f.y;
-    }
-  }
-}
-
-template <int E>
 __device__ __forceinline__ void store_e(float* p, const float (&x)[E]) {
   if constexpr (E % 4 == 0) {
 #pragma unroll
@@ -139,27 +121,6 @@ __device__ __forceinline__ void store_e(float* p, const float (&x)[E]) {
 #pragma unroll
     for (int i = 0; i < E / 2; ++i)
       reinterpret_cast<float2*>(p)[i] = make_float2(x[2 * i], x[2 * i + 1]);
-  }
-}
-
-template <int E>
-__device__ __forceinline__ void store_e(__nv_bfloat16* p,
-                                        const float (&x)[E]) {
-  if constexpr (E % 8 == 0) {
-#pragma unroll
-    for (int i = 0; i < E / 8; ++i) {
-      uint4 u;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        h[j] = __floats2bfloat162_rn(x[8 * i + 2 * j], x[8 * i + 2 * j + 1]);
-      reinterpret_cast<uint4*>(p)[i] = u;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < E / 2; ++i)
-      reinterpret_cast<__nv_bfloat162*>(p)[i] =
-          __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
   }
 }
 
@@ -607,6 +568,529 @@ __global__ void __launch_bounds__(256, 4) flash_bwd_dkdv_tc_kernel(
   }
 }
 
+// ---- bf16 at dh 16-256: mma.sync m16n8k16 ---------------------------------
+
+using bf16 = __nv_bfloat16;
+
+template <int DH>
+struct MmaLayout {
+  // bf16 pitch: 8 rows of an ldmatrix land in distinct 16-byte bank groups
+  static constexpr int LD = DH + 8;
+  // past dh 64 a block writes half the head dim of the gradients (grid z):
+  // a warp's two float32 accumulators of 16 x dh would not fit beside the
+  // score tiles, and recomputing a half's scores costs two products of
+  // dh, against four of dh / 2 that the split saves in registers
+  static constexpr int kSplit = DH >= 128 ? 2 : 1;
+  static constexpr int DHP = DH / kSplit;
+  // keys (pass 1) or queries (pass 2) per streamed tile
+  static constexpr int kTile = DH >= 192 ? 32 : 64;
+  // tiles in flight: all of S <= 256 up to dh 64, two past it
+  static constexpr int kStages = DH <= 64 ? 4 : 2;
+  // up to dh 64 the fixed rows' A fragments stay in registers
+  static constexpr bool kRegs = DH <= 64;
+  // 64 fixed rows of two tensors, kStages tiles of two, and (pass 2) the
+  // streamed queries' log2-sum-exp and delta
+  static constexpr size_t bytes =
+      (size_t)(2 * 64 + 2 * kStages * kTile) * LD * 2 + kStages * kTile * 8;
+};
+
+// rows [r0, r0 + ROWS) of one head of an (N, S, H*DH) bf16 tensor into dst
+// (pitch LD) by 16-byte cp.async; rows at or past S are zeroed
+template <int ROWS, int DH, int LD>
+__device__ __forceinline__ void load_rows(bf16* dst,
+                                          const bf16* __restrict__ src,
+                                          size_t base, int D, int r0, int S) {
+  constexpr int kChunks = DH / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += 128) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const bool live = r0 + r < S;
+    qaig::cp_async16(dst + r * LD + c,
+                     src + base + (size_t)(live ? r0 + r : 0) * D + c, live);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   qaig::smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// A fragments (16 x 16 at depth 16s) of rows 16w.. of a tile with pitch LD
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* x, int w,
+                                       int s) {
+  const int lane = threadIdx.x & 31;
+  qaig::ldmatrix_x4(a, x + (w * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                           s * 16 + (lane >> 4) * 8);
+}
+
+// d[2p], d[2p+1] += a . (rows 16p..16p+15 of x at depth 16s)^T: the B
+// fragments of a row-major tile whose rows are the product's columns
+template <int LD>
+__device__ __forceinline__ void mma_rows(float (&d0)[4], float (&d1)[4],
+                                         const uint32_t (&a)[4], const bf16* x,
+                                         int p, int s) {
+  const int lane = threadIdx.x & 31;
+  uint32_t b[4];
+  qaig::ldmatrix_x4(b, x + (16 * p + (lane >> 4) * 8 + (lane & 7)) * LD +
+                           s * 16 + ((lane >> 3) & 1) * 8);
+  qaig::mma_16x8x16(d0, a, b[0], b[1]);
+  qaig::mma_16x8x16(d1, a, b[2], b[3]);
+}
+
+// d[2c], d[2c+1] += a . x[16s..16s+15, col..col+15]: the B fragments of a
+// row-major tile whose rows are the product's depth (ldmatrix.trans)
+template <int LD>
+__device__ __forceinline__ void mma_cols(float (&d0)[4], float (&d1)[4],
+                                         const uint32_t (&a)[4], const bf16* x,
+                                         int s, int col) {
+  const int lane = threadIdx.x & 31;
+  uint32_t b[4];
+  qaig::ldmatrix_x4_trans(
+      b, x + (16 * s + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + col +
+             (lane >> 4) * 8);
+  qaig::mma_16x8x16(d0, a, b[0], b[1]);
+  qaig::mma_16x8x16(d1, a, b[2], b[3]);
+}
+
+// Write a warp's 16 x DHP float32 accumulator, times f[row half], as bf16
+// through its own 16 rows of a shared tile (pitch LD) to rows r0w.. and
+// columns c0.. of one head of an (N, S, H*DH) tensor.
+template <int DH, int DHP, int LD>
+__device__ __forceinline__ void store_rows(bf16* stage,
+                                           const float (&acc)[DHP / 8][4],
+                                           const float (&f)[2], bf16* dst,
+                                           size_t base, int D, int r0w,
+                                           int c0, int S) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int d = 0; d < DHP / 8; ++d) {
+    *reinterpret_cast<uint32_t*>(stage + g * LD + 8 * d + 2 * t) =
+        pack_bf16(acc[d][0] * f[0], acc[d][1] * f[0]);
+    *reinterpret_cast<uint32_t*>(stage + (g + 8) * LD + 8 * d + 2 * t) =
+        pack_bf16(acc[d][2] * f[1], acc[d][3] * f[1]);
+  }
+  __syncwarp();
+  for (int i = lane; i < 16 * (DHP / 8); i += 32) {
+    const int r = i / (DHP / 8), c = (i % (DHP / 8)) * 8;
+    if (r0w + r < S)
+      *reinterpret_cast<uint4*>(dst + base + (size_t)(r0w + r) * D + c0 + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+  }
+}
+
+// Pass 1: dq (columns c0.. of block z), and the rows' log2-sum-exp and
+// delta.  4 warps of 16 query rows; K/V tiles stream through a cp.async
+// ring; the longest causal rows start first.
+template <int DH>
+__global__ void __launch_bounds__(128) flash_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ out,
+    const bf16* __restrict__ dout, bf16* __restrict__ dq,
+    float* __restrict__ lse2, float* __restrict__ delta, int S, int H,
+    int causal, float scale, float scale_log2) {
+  using L = MmaLayout<DH>;
+  constexpr int LD = L::LD, kBK = L::kTile, kStages = L::kStages;
+  constexpr int NB = kBK / 8;      // 8-key column tiles of a score tile
+  constexpr int kSteps = DH / 16;  // depth steps of the score products
+  constexpr int kDt = L::DHP / 8;  // 8-wide column tiles of dq
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // later the dq tile
+  bf16* dos = qs + 64 * LD;
+  bf16* ks = dos + 64 * LD;                      // kStages K tiles
+  bf16* vs = ks + kStages * kBK * LD;            // kStages V tiles
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * 64;
+  const int r0w = q0 + w * 16;  // this warp's first row
+  const int c0 = blockIdx.z * L::DHP;
+  const int D = H * DH;
+  const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * DH;
+  const int kend = causal ? min(S, q0 + 64) : S;
+  const int ntiles = (kend + kBK - 1) / kBK;
+
+  auto load_kv = [&](int j) {
+    if (j < ntiles) {
+      const int slot = (j % kStages) * kBK * LD;
+      load_rows<kBK, DH, LD>(ks + slot, k, base, D, j * kBK, S);
+      load_rows<kBK, DH, LD>(vs + slot, v, base, D, j * kBK, S);
+    }
+    qaig::cp_async_commit();
+  };
+  load_rows<64, DH, LD>(qs, q, base, D, q0, S);
+  load_rows<64, DH, LD>(dos, dout, base, D, q0, S);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) load_kv(j);
+
+  uint32_t qa[L::kRegs ? kSteps : 1][4], da[L::kRegs ? kSteps : 1][4];
+  float acc[kDt][4];
+#pragma unroll
+  for (int d = 0; d < kDt; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[d][e] = 0.f;
+  // running max of the scaled base-2 scores, this lane's share of the sum,
+  // and delta, for rows g and g + 8
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, dl[2];
+
+  for (int j = 0; j < ntiles; ++j) {
+    load_kv(j + kStages - 1);  // into the slot that tile j - 1 freed
+    qaig::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if (j == 0) {
+      if constexpr (L::kRegs) {
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          frag_a<LD>(qa[s], qs, w, s);
+          frag_a<LD>(da[s], dos, w, s);
+        }
+      }
+      // delta = rowsum(dout * out): two lanes a row, half the head dim each
+      const int rr = lane >> 1, row = r0w + rr;
+      float sum = 0.f;
+      if (row < S) {
+#pragma unroll
+        for (int c = (lane & 1) * (DH / 2); c < (lane & 1) * (DH / 2) + DH / 2;
+             c += 8) {
+          const uint4 o = *reinterpret_cast<const uint4*>(
+              out + base + (size_t)row * D + c);
+          const uint4 d = *reinterpret_cast<const uint4*>(
+              dos + (w * 16 + rr) * LD + c);
+          const uint32_t* ou = reinterpret_cast<const uint32_t*>(&o);
+          const uint32_t* du = reinterpret_cast<const uint32_t*>(&d);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 fo = unpack_bf16(ou[e]), fd = unpack_bf16(du[e]);
+            sum = fmaf(fd.x, fo.x, sum);
+            sum = fmaf(fd.y, fo.y, sum);
+          }
+        }
+      }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      dl[0] = __shfl_sync(0xffffffffu, sum, 2 * g);
+      dl[1] = __shfl_sync(0xffffffffu, sum, 2 * g + 16);
+    }
+    const int k0 = j * kBK;
+    const bf16* kt = ks + (j % kStages) * kBK * LD;
+    const bf16* vt = vs + (j % kStages) * kBK * LD;
+
+    // 8-key column tiles [0, jlive) hold a live key for some row of this
+    // warp; the rest are skipped (and masked)
+    int jlive = min(NB, (S - k0 + 7) / 8);
+    if (causal) jlive = r0w + 15 < k0 ? 0 : min(jlive, (r0w + 15 - k0) / 8 + 1);
+    if (r0w >= S) jlive = 0;
+    const bool need_mask = k0 + kBK > S || (causal && k0 + kBK - 1 > r0w);
+
+    // scores S = Q K^T and dP = dO V^T for 16 rows x kBK keys
+    float sc[NB][4], dp[NB][4];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[c][e] = dp[c][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t aq[4], ad[4];
+      if constexpr (L::kRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          aq[e] = qa[s][e];
+          ad[e] = da[s][e];
+        }
+      } else {
+        frag_a<LD>(aq, qs, w, s);
+        frag_a<LD>(ad, dos, w, s);
+      }
+#pragma unroll
+      for (int p = 0; p < NB / 2; ++p) {
+        if (2 * p >= jlive) break;
+        mma_rows<LD>(sc[2 * p], sc[2 * p + 1], aq, kt, p, s);
+        mma_rows<LD>(dp[2 * p], dp[2 * p + 1], ad, vt, p, s);
+      }
+    }
+
+    // online softmax of rows g and g + 8 (elements 0-1 and 2-3), as in the
+    // forward; dS = P (dP - delta), rounded to bf16 as the A fragments of
+    // dQ += dS K
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (need_mask) {
+          const int key = k0 + 8 * c + 2 * t + (e & 1);
+          const int row = r0w + g + (e >> 1) * 8;
+          if (key >= S || (causal && key > row)) sc[c][e] = -INFINITY;
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[c][e]);
+      }
+    }
+    float mu[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * scale_log2);
+      // a row with no live key so far keeps p = 0
+      mu[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = fast_exp2(m[r] - mu[r]);
+      m[r] = m_new;
+    }
+    uint32_t dsa[NB / 2][4];
+    float ls[2] = {0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[e] = fast_exp2(fmaf(sc[c][e], scale_log2, -mu[e >> 1]));
+      ls[0] += p[0] + p[1];
+      ls[1] += p[2] + p[3];
+      dsa[c >> 1][(c & 1) * 2] =
+          pack_bf16(p[0] * (dp[c][0] - dl[0]), p[1] * (dp[c][1] - dl[0]));
+      dsa[c >> 1][(c & 1) * 2 + 1] =
+          pack_bf16(p[2] * (dp[c][2] - dl[1]), p[3] * (dp[c][3] - dl[1]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + ls[r];
+#pragma unroll
+    for (int d = 0; d < kDt; ++d) {
+      acc[d][0] *= alpha[0];
+      acc[d][1] *= alpha[0];
+      acc[d][2] *= alpha[1];
+      acc[d][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int s = 0; s < NB / 2; ++s) {
+      if (2 * s >= jlive) break;
+#pragma unroll
+      for (int d = 0; d < kDt / 2; ++d)
+        mma_cols<LD>(acc[2 * d], acc[2 * d + 1], dsa[s], kt, s, c0 + 16 * d);
+    }
+    __syncthreads();  // this slot's reads are done before it is refilled
+  }
+
+  // every live row keeps key 0, so l > 0
+  float f[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    f[r] = scale / l[r];
+  }
+  // the warp's own 16 rows of qs (only it reads them) stage dq
+  store_rows<DH, L::DHP, LD>(qs + w * 16 * LD, acc, f, dq, base, D, r0w, c0,
+                             S);
+  if (blockIdx.z == 0 && t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0w + g + 8 * r;
+      if (row < S) {
+        lse2[(size_t)bh * S + row] = m[r] + log2f(l[r]);
+        delta[(size_t)bh * S + row] = dl[r];
+      }
+    }
+  }
+}
+
+// Pass 2: dk and dv (columns c0.. of block z).  4 warps of 16 keys; Q/dO
+// tiles with their log2-sum-exp and delta stream through a cp.async ring
+// (causal: from the block's first key on).
+template <int DH>
+__global__ void __launch_bounds__(128) flash_bwd_dkdv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, int causal,
+    float scale, float scale_log2) {
+  using L = MmaLayout<DH>;
+  constexpr int LD = L::LD, kBQ = L::kTile, kStages = L::kStages;
+  constexpr int NB = kBQ / 8;      // 8-query column tiles of a score tile
+  constexpr int kSteps = DH / 16;
+  constexpr int kDt = L::DHP / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // later the dk tile
+  bf16* vs = ks + 64 * LD;                       // later the dv tile
+  bf16* qs = vs + 64 * LD;                       // kStages Q tiles
+  bf16* dos = qs + kStages * kBQ * LD;           // kStages dO tiles
+  float* lse_s = reinterpret_cast<float*>(dos + kStages * kBQ * LD);
+  float* del_s = lse_s + kStages * kBQ;
+
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = blockIdx.x;
+  const int j0 = blockIdx.y * 64;
+  const int j0w = j0 + w * 16;  // this warp's first key
+  const int c0 = blockIdx.z * L::DHP;
+  const int D = H * DH;
+  const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * DH;
+  const int it0 = causal ? j0 / kBQ : 0;  // the first query tile
+  const int ntiles = (S + kBQ - 1) / kBQ - it0;
+  const float* lse_bh = lse2 + (size_t)bh * S;
+  const float* del_bh = delta + (size_t)bh * S;
+
+  auto load_q = [&](int j) {
+    if (j < ntiles) {
+      const int slot = j % kStages, i0 = (it0 + j) * kBQ;
+      load_rows<kBQ, DH, LD>(qs + slot * kBQ * LD, q, base, D, i0, S);
+      load_rows<kBQ, DH, LD>(dos + slot * kBQ * LD, dout, base, D, i0, S);
+      for (int i = threadIdx.x; i < kBQ; i += 128) {
+        const bool live = i0 + i < S;
+        cp_async4(lse_s + slot * kBQ + i, lse_bh + (live ? i0 + i : 0), live);
+        cp_async4(del_s + slot * kBQ + i, del_bh + (live ? i0 + i : 0), live);
+      }
+    }
+    qaig::cp_async_commit();
+  };
+  load_rows<64, DH, LD>(ks, k, base, D, j0, S);
+  load_rows<64, DH, LD>(vs, v, base, D, j0, S);
+#pragma unroll
+  for (int j = 0; j < kStages - 1; ++j) load_q(j);
+
+  uint32_t ka[L::kRegs ? kSteps : 1][4], va[L::kRegs ? kSteps : 1][4];
+  float dka[kDt][4], dva[kDt][4];
+#pragma unroll
+  for (int d = 0; d < kDt; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+
+  for (int j = 0; j < ntiles; ++j) {
+    load_q(j + kStages - 1);
+    qaig::cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if constexpr (L::kRegs) {
+      if (j == 0) {
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s) {
+          frag_a<LD>(ka[s], ks, w, s);
+          frag_a<LD>(va[s], vs, w, s);
+        }
+      }
+    }
+    const int slot = j % kStages, i0 = (it0 + j) * kBQ;
+    const bf16* qt = qs + slot * kBQ * LD;
+    const bf16* dot = dos + slot * kBQ * LD;
+
+    // 8-query column tiles [clo, chi) hold a live query for some key of
+    // this warp: causal ones before the warp's first key and ones past S
+    // are skipped (and masked)
+    const int clo = causal && j0w > i0 ? min(NB, (j0w - i0) / 8) : 0;
+    int chi = min(NB, (S - i0 + 7) / 8);
+    if (j0w >= S) chi = 0;
+    const bool need_mask = i0 + kBQ > S || (causal && i0 < j0w + 15);
+
+    // S^T = K Q^T and dP^T = V dO^T for 16 keys x kBQ queries
+    float st[NB][4], dpt[NB][4];
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[c][e] = dpt[c][e] = 0.f;
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      uint32_t ak[4], av[4];
+      if constexpr (L::kRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          ak[e] = ka[s][e];
+          av[e] = va[s][e];
+        }
+      } else {
+        frag_a<LD>(ak, ks, w, s);
+        frag_a<LD>(av, vs, w, s);
+      }
+#pragma unroll
+      for (int p = 0; p < NB / 2; ++p) {
+        if (2 * p + 1 < clo || 2 * p >= chi) continue;
+        mma_rows<LD>(st[2 * p], st[2 * p + 1], ak, qt, p, s);
+        mma_rows<LD>(dpt[2 * p], dpt[2 * p + 1], av, dot, p, s);
+      }
+    }
+
+    // P^T = exp2(s scale_log2 - lse2[query]) and dS^T = P^T (dP^T -
+    // delta[query]), rounded to bf16 as the A fragments of dV += P^T dO and
+    // dK += dS^T Q
+    uint32_t pa[NB / 2][4], dsa[NB / 2][4];
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+      const float2 ls = *reinterpret_cast<const float2*>(
+          lse_s + slot * kBQ + 8 * c + 2 * t);
+      const float2 ds2 = *reinterpret_cast<const float2*>(
+          del_s + slot * kBQ + 8 * c + 2 * t);
+      float p[4], ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int query = i0 + 8 * c + 2 * t + (e & 1);
+        const int key = j0w + g + 8 * (e >> 1);
+        const bool live =
+            !need_mask || (query < S && (!causal || query >= key));
+        const float lq = (e & 1) ? ls.y : ls.x, dq_ = (e & 1) ? ds2.y : ds2.x;
+        p[e] = live ? fast_exp2(fmaf(st[c][e], scale_log2, -lq)) : 0.f;
+        ds[e] = p[e] * (dpt[c][e] - dq_);
+      }
+      pa[c >> 1][(c & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[c >> 1][(c & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+      dsa[c >> 1][(c & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      dsa[c >> 1][(c & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+#pragma unroll
+    for (int s = 0; s < NB / 2; ++s) {
+      if (2 * s + 1 < clo || 2 * s >= chi) continue;
+#pragma unroll
+      for (int d = 0; d < kDt / 2; ++d) {
+        mma_cols<LD>(dva[2 * d], dva[2 * d + 1], pa[s], dot, s, c0 + 16 * d);
+        mma_cols<LD>(dka[2 * d], dka[2 * d + 1], dsa[s], qt, s, c0 + 16 * d);
+      }
+    }
+    __syncthreads();  // this slot's reads are done before it is refilled
+  }
+
+  // the warp's own 16 rows of ks / vs (only it reads them) stage dk / dv
+  const float fk[2] = {scale, scale}, fv[2] = {1.f, 1.f};
+  store_rows<DH, L::DHP, LD>(ks + w * 16 * LD, dka, fk, dk, base, D, j0w, c0,
+                             S);
+  store_rows<DH, L::DHP, LD>(vs + w * 16 * LD, dva, fv, dv, base, D, j0w, c0,
+                             S);
+}
+
+template <int DH>
+cudaError_t launch_mma(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, void* dq, void* dk,
+                       void* dv, float* lse2, float* delta, int N, int S,
+                       int H, int causal, cudaStream_t stream) {
+  using L = MmaLayout<DH>;
+  auto pass1 = flash_bwd_dq_mma_kernel<DH>;
+  auto pass2 = flash_bwd_dkdv_mma_kernel<DH>;
+  static bool attributes_set = false;  // once per head dim
+  if (!attributes_set && L::bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          pass2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+    if (err != cudaSuccess) return err;
+  }
+  attributes_set = true;
+  // (n, h) on x, 64-row tiles on y, head-dim halves on z
+  const dim3 grid(N * H, (S + 63) / 64, L::kSplit);
+  const float scale = 1.0f / sqrtf((float)DH);
+  const float scale_log2 = scale * kLog2e;
+  pass1<<<grid, 128, L::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(out),
+      static_cast<const bf16*>(dout), static_cast<bf16*>(dq), lse2, delta, S,
+      H, causal, scale, scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  pass2<<<grid, 128, L::bytes, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse2,
+      delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, causal,
+      scale, scale_log2);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_tc(const void* q, const void* k, const void* v,
                       const void* out, const void* dout, void* dq, void* dk,
                       void* dv, float* lse2, float* delta, int N, int S,
@@ -639,6 +1123,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == 8) {
     return launch_tc(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S, H,
                      causal, stream);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return launch_mma<DH>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
+                          H, causal, stream);
   } else {
     constexpr int kRows = kThreads / (DH / lane_dims<DH>());
     const dim3 grid(N * H, (S + kRows - 1) / kRows);

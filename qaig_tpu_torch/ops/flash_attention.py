@@ -26,7 +26,8 @@ the log-sum-exp is recomputed from the saved (q, k, v, out) and dq, dk, dv
 are formed in float32.  On CUDA tensors it launches
 :func:`fused_flash_attention_backward`, the hand-written kernel pair of
 ``qaig_tpu_torch/csrc/flash_attention_bwd.cu`` (no (S, S) tensor in device
-memory); on CPU tensors it runs :func:`flash_attention_backward`, the plain
+memory; bf16 on ``mma.sync`` at every head dim, float32 on exact FMAs);
+on CPU tensors it runs :func:`flash_attention_backward`, the plain
 tensor products that XLA's einsums form there.
 """
 

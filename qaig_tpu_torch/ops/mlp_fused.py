@@ -12,13 +12,17 @@ are ``_mlp2_kernel``'s: float32 sums and biases, the hidden rounded to x's
 dtype before the second product, the output rounded last.
 
 On a CUDA tensor, :func:`mlp2_fused` launches the hand-written Hopper
-kernel of ``qaig_tpu_torch/csrc/mlp2_fused.cu``; it takes bf16 only (the
+kernel of ``qaig_tpu_torch/csrc/mlp2_fused.cu`` (``wgmma`` products on
+TMA-loaded tiles, weight tiles multicast to a cluster of row tiles; its
+grid, clusters and shared memory are :func:`launch_geometry` and
+:func:`smem_bytes`, pure Python); it takes bf16 only (the
 TPU kernel's type; a float32 CUDA input raises ``ValueError``) and any
 number of rows (the Pallas kernel's ``tile`` block size has no counterpart:
 the ragged edge is masked).  On a CPU tensor it runs
 :func:`mlp2_fused_reference`, the plain version, in any float dtype.
 """
 
+import collections
 import ctypes
 
 import torch
@@ -30,7 +34,13 @@ ROWS_PER_BLOCK = 64
 HIDDEN_CHUNK = 64
 OUT_DIMS = (64, 128, 256, 512)
 MAX_SMEM = 232_448   # bytes of shared memory one block may use on an H100
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+MAX_CLUSTER = 4      # row tiles that share each weight tile (TMA multicast)
+_W0_STAGES = 6
+_TILE = 64 * 64 * 2  # a 64 x 64 bf16 tile
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+Geometry = collections.namedtuple(
+    "Geometry", "row_tiles grid_x cluster splits parts chunks_per_part")
 
 
 def mlp2_fused_reference(x, w0, b0, w1, b1, act_last=False):
@@ -48,48 +58,104 @@ def mlp2_fused_reference(x, w0, b0, w1, b1, act_last=False):
 
 def smem_bytes(d, d2):
     """Shared memory of one block (``csrc/mlp2_fused.cu::smem_bytes``):
-    the x tile, the w0 chunk (which also holds the float32 hidden chunk),
-    the w1 chunk and the bf16 hidden chunk."""
-    ldh = HIDDEN_CHUNK + 8
-    w0 = max(HIDDEN_CHUNK * (d + 8) * 2,
-             ROWS_PER_BLOCK * (HIDDEN_CHUNK + 4) * 4)
-    return (ROWS_PER_BLOCK * (d + 8) * 2 + w0 + d2 * ldh * 2
-            + ROWS_PER_BLOCK * ldh * 2)
+    1024 bytes of alignment slack, the resident x tile in 64-wide
+    K-blocks, two bf16 hidden chunks, the ring of w0 K-blocks, the ring of
+    w1 half-chunks (D2 / 2 x 64) and the mbarriers."""
+    k_blocks, nf = -(-d // 64), d2 // 64
+    w1_stages = 3 if nf == 8 else 4
+    barriers = 5 + 2 * _W0_STAGES + 2 * w1_stages
+    return (1024 + k_blocks * _TILE + 2 * _TILE + _W0_STAGES * _TILE
+            + w1_stages * nf * 4096 + 8 * barriers)
 
 
-def launch_geometry(n, splits, hidden, sm_count):
-    """(row tiles, splits, parts, chunks per part): the kernel's grid.
-    When row tiles x splits leave more than half the SMs idle, each
-    split's hidden chunks are shared out over ``parts`` blocks (a float32
-    partial sum each, added by a second launch) so the grid fills one
-    wave at most."""
+def launch_geometry(n, splits, hidden, resident, cluster=None):
+    """The kernel's grid (``grid_x`` row tiles, ``splits``, ``parts``),
+    its clusters of ``cluster`` consecutive row tiles that share every
+    weight tile, and the hidden chunks each part takes.
+
+    ``resident``: the blocks the card holds at once in clusters of each
+    size, ``{cluster: blocks}`` (:func:`resident_blocks`; an H100 holds
+    132 blocks of this kernel alone or in pairs, 120 in clusters of 4), or
+    an SM count, one block on every SM.  The row tiles are padded up to a
+    whole number of clusters (the padding blocks read zeros and store
+    nothing).  When the grid leaves more than half the resident blocks
+    idle, each split's hidden chunks are shared out over ``parts`` blocks
+    (a float32 partial sum each, added in order by a second launch) so the
+    grid fills one wave at most.  Of the cluster sizes, the one whose waves
+    x chunks per block is least wins, the largest on a tie (fewest weight
+    reads); ``cluster`` (1, 2 or 4) takes that size alone, where the row
+    tiles allow it."""
+    if isinstance(resident, int):
+        resident = {c: resident // c * c for c in (1, 2, MAX_CLUSTER)}
     row_tiles = -(-n // ROWS_PER_BLOCK)
     chunks = hidden // HIDDEN_CHUNK
-    parts = min(chunks, max(1, sm_count // (row_tiles * splits)))
-    per_part = -(-chunks // parts)
-    return row_tiles, splits, -(-chunks // per_part), per_part
+    best = None
+    for size in (MAX_CLUSTER, 2, 1):
+        capacity = resident[size]
+        if size > row_tiles or capacity < size or cluster not in (None, size):
+            continue
+        grid_x = -(-row_tiles // size) * size
+        parts = min(chunks, max(1, capacity // (grid_x * splits)))
+        per_part = -(-chunks // parts)
+        parts = -(-chunks // per_part)
+        waves = -(-grid_x * splits * parts // capacity)
+        if best is None or waves * per_part < best[0]:
+            best = (waves * per_part, Geometry(row_tiles, grid_x, size,
+                                               splits, parts, per_part))
+    if best is None:
+        raise ValueError(f"mlp2_fused: no cluster of {cluster} fits {n} rows")
+    return best[1]
 
 
-def mlp2_fused(x, w0, b0, w1, b1, act_last=False):
+def weight_l2_bytes(n, d, splits, hidden, d2, resident, cluster=None):
+    """Bytes of w0 and w1 one call reads from L2: each cluster reads each
+    weight tile of its split (and hidden part) once, for all its blocks."""
+    g = launch_geometry(n, splits, hidden, resident, cluster)
+    return g.grid_x // g.cluster * splits * hidden * (d + d2) * 2
+
+
+_resident = {}
+
+
+def resident_blocks(d, d2, device):
+    """``{cluster: blocks}`` the card holds at once for this D and D2
+    (``cudaOccupancyMaxActiveClusters``, asked once per shape)."""
+    key = (device.index, d, d2)
+    if key not in _resident:
+        fn = cuda_build.function("mlp2_fused",
+                                 "qaig_mlp2_fused_resident_blocks",
+                                 [ctypes.c_int] * 3)
+        with torch.cuda.device(device):
+            counts = {c: fn(d, d2, c) for c in (1, 2, MAX_CLUSTER)}
+        if min(counts.values()) < 0:
+            raise RuntimeError(f"mlp2_fused: the occupancy query failed "
+                               f"({counts})")
+        _resident[key] = counts
+    return _resident[key]
+
+
+def mlp2_fused(x, w0, b0, w1, b1, act_last=False, cluster=None):
     """The fused MLP: the kernel on CUDA tensors, the plain version on CPU
-    tensors.  (N, D) -> (S, N, D2)."""
+    tensors.  (N, D) -> (S, N, D2).  ``cluster`` fixes the kernel's
+    cluster size (see :func:`launch_geometry`)."""
     if x.device.type == "cpu":
         return mlp2_fused_reference(x, w0, b0, w1, b1, act_last)
     _check_kernel_inputs(x, w0, b0, w1, b1)
     n, d = x.shape
     s, d2, hid = w1.shape
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    row_tiles, _, parts, per_part = launch_geometry(n, s, hid, sm_count)
+    g = launch_geometry(n, s, hid, resident_blocks(d, d2, x.device),
+                        cluster)
     out = torch.empty(s, n, d2, dtype=x.dtype, device=x.device)
     part = None
-    if parts > 1:
-        part = torch.empty(parts, s, row_tiles * ROWS_PER_BLOCK, d2,
+    if g.parts > 1:
+        part = torch.empty(g.parts, s, g.grid_x * ROWS_PER_BLOCK, d2,
                            dtype=torch.float32, device=x.device)
     fn = cuda_build.function("mlp2_fused", "qaig_mlp2_fused", _ARGTYPES)
     err = fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
              b1.data_ptr(), out.data_ptr(),
              None if part is None else part.data_ptr(), n, d, s, hid, d2,
-             int(act_last), parts, per_part, cuda_build.stream_handle(x))
+             int(act_last), g.grid_x, g.cluster, g.parts, g.chunks_per_part,
+             cuda_build.stream_handle(x))
     cuda_build.check("mlp2_fused", err)
     mlp2_fused.launches += 1
     return out

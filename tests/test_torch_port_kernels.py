@@ -425,12 +425,17 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     (8192, 3, False, 512, 2048, 512), (8192, 1, True, 512, 2048, 512),
     (1024, 3, False, 512, 2048, 512), (1024, 1, True, 512, 2048, 512),
     (1000, 3, False, 512, 2048, 512), (1, 1, True, 512, 2048, 512),
-    (77, 2, True, 128, 192, 64), (130, 1, False, 256, 64, 256)])
+    (77, 2, True, 128, 192, 64), (130, 1, False, 256, 64, 256),
+    (200, 2, False, 512, 2048, 512), (300, 2, True, 256, 128, 128),
+    (65, 2, False, 128, 64, 64)])
 def test_mlp2_fused_kernel_matches_plain(cuda, n, splits, act_last, dim,
                                          hidden, d2):
     """The probe's shapes (packed QKV and FFN at 8192 and 1024 rows), a
     ragged N, one row, and narrower widths (one hidden chunk; the split
-    of hidden chunks over blocks at small N)."""
+    of hidden chunks over blocks at small N); and the clusters' edges at S
+    2: 4 row tiles with a ragged last one (N 200), 5 row tiles padded to 2
+    clusters of 4 (N 300), 2 tiles in a pair with one row in the second
+    (N 65); N 1000 runs clusters of 4 with a ragged last tile."""
     from qaig_tpu_torch.ops import mlp_fused as mf
 
     gen = torch.Generator(device=cuda).manual_seed(n + splits + dim)
@@ -468,7 +473,7 @@ def test_mlp2_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
              "D2 in"),
             ((z(8, 64), z(128, 32), z(128), z(1, 64, 128), z(1, 64)),
              "do not fit"),
-            ((z(8, 1024), z(128, 1024), z(128), z(1, 64, 128), z(1, 64)),
+            ((z(8, 1536), z(128, 1536), z(128), z(1, 64, 128), z(1, 64)),
              "shared memory")):
         with pytest.raises(ValueError, match=match):
             mf.mlp2_fused(*args)

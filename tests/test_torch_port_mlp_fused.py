@@ -108,20 +108,88 @@ def test_launch_geometry_fills_at_most_one_wave(n, splits, hidden, parts):
     chunk once."""
     from qaig_tpu_torch.ops.mlp_fused import launch_geometry
 
-    row_tiles, s, got_parts, per_part = launch_geometry(n, splits, hidden,
-                                                        132)
-    assert (row_tiles, s, got_parts) == (-(-n // 64), splits, parts)
+    g = launch_geometry(n, splits, hidden, 132)
+    assert (g.row_tiles, g.splits, g.parts) == (-(-n // 64), splits, parts)
     chunks = hidden // 64
-    assert (got_parts - 1) * per_part < chunks <= got_parts * per_part
-    if got_parts > 1:
-        assert row_tiles * s * got_parts <= 132
+    assert (g.parts - 1) * g.chunks_per_part < chunks <= (
+        g.parts * g.chunks_per_part)
+    if g.parts > 1:
+        assert g.grid_x * splits * g.parts <= 132
 
 
-def test_shared_memory_of_the_probe_shapes_fits_one_block():
+@pytest.mark.parametrize("n", [1, 77, 1000, 1024, 8192, 130, 200, 300])
+def test_clusters_cover_every_row_once(n):
+    """Row tiles of 64 in clusters of 1, 2 or 4: the grid holds whole
+    clusters, every row lies in exactly one block's tile, and the padding
+    is less than one cluster (padding blocks hold no row)."""
+    from qaig_tpu_torch.ops.mlp_fused import launch_geometry
+
+    g = launch_geometry(n, 3, 2048, 132)
+    assert g.cluster in (1, 2, 4) and g.cluster <= g.row_tiles
+    assert g.grid_x % g.cluster == 0
+    assert 0 <= g.grid_x - g.row_tiles < g.cluster
+    owners = np.zeros(n, np.int64)
+    for block in range(g.grid_x):
+        owners[block * 64:(block + 1) * 64] += 1
+    assert (owners == 1).all()
+    assert g.row_tiles * 64 - 64 < n <= g.row_tiles * 64
+
+
+@pytest.mark.parametrize("dim,d2", [(512, 512), (128, 64), (256, 256),
+                                    (16, 64), (512, 128), (64, 512)])
+def test_shared_memory_of_the_probe_shapes_fits_one_block(dim, d2):
+    """Every shape the card tests and the probe launch fits in one block's
+    227 KB; D 1536 (a resident x tile of 192 KB) does not."""
     from qaig_tpu_torch.ops.mlp_fused import MAX_SMEM, smem_bytes
 
-    assert smem_bytes(512, 512) == 216_064 <= MAX_SMEM
-    assert smem_bytes(1024, 512) > MAX_SMEM
+    assert smem_bytes(dim, d2) <= MAX_SMEM
+    assert smem_bytes(512, 512) == 230_584
+    assert smem_bytes(1536, d2) > MAX_SMEM
+
+
+H100_RESIDENT = {1: 132, 2: 132, 4: 120}   # cudaOccupancyMaxActiveClusters
+
+
+@pytest.mark.parametrize("n,splits,cluster,parts", [
+    (8192, 3, 2, 1), (8192, 1, 2, 1), (1024, 3, 4, 2), (1024, 1, 2, 8),
+    (1000, 3, 4, 2), (200, 2, 2, 16), (1, 1, 1, 32)])
+def test_cluster_size_follows_the_resident_blocks(n, splits, cluster, parts):
+    """With the H100's resident blocks of this kernel (132 alone or in
+    pairs, 120 in clusters of 4), clusters of 4 are taken where they add
+    no wave: not at 8192 rows (384 blocks: 4 waves of 120 against 3 of
+    132; 128 blocks: 2 against 1), but at 1024 rows of packed QKV."""
+    from qaig_tpu_torch.ops.mlp_fused import launch_geometry
+
+    g = launch_geometry(n, splits, 2048, H100_RESIDENT)
+    assert (g.cluster, g.parts) == (cluster, parts)
+    if g.parts > 1:
+        assert g.grid_x * splits * g.parts <= H100_RESIDENT[g.cluster]
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4])
+def test_a_fixed_cluster_size_is_taken_where_the_rows_allow_it(cluster):
+    """``cluster`` fixes the size (phase 3 times each at 8192 rows); a
+    cluster larger than the row tiles is refused."""
+    from qaig_tpu_torch.ops.mlp_fused import launch_geometry
+
+    g = launch_geometry(8192, 3, 2048, H100_RESIDENT, cluster)
+    assert (g.cluster, g.grid_x, g.parts) == (cluster, 128, 1)
+    if cluster > 1:
+        with pytest.raises(ValueError, match="no cluster"):
+            launch_geometry(64, 1, 2048, H100_RESIDENT, cluster)
+
+
+@pytest.mark.parametrize("resident,cluster", [(132, 4), (H100_RESIDENT, 2)])
+def test_clusters_cut_the_weight_reads_of_packed_qkv(resident, cluster):
+    """At the probe's packed QKV and 8192 rows the weights come from L2
+    once per cluster: 0.40 GB a call in clusters of 4, 0.81 GB in pairs,
+    where 64-row blocks alone would read 1.61 GB."""
+    from qaig_tpu_torch.ops.mlp_fused import launch_geometry, weight_l2_bytes
+
+    per_tile = 128 * 3 * 2048 * (512 + 512) * 2
+    assert launch_geometry(8192, 3, 2048, resident).cluster == cluster
+    got = weight_l2_bytes(8192, 512, 3, 2048, 512, resident)
+    assert got * cluster == per_tile
 
 
 def test_probe_weights_are_the_jax_probes_transposed(jax_probe):
