@@ -11,17 +11,22 @@ Phases (any failure exits non-zero and prints no result line):
    TF32 off for matmuls and cuDNN through the package's own setting
    (``train/common.py::full_float32``, which every entry point calls);
 2. build -- compile every CUDA kernel of the port from
-   ``qaig_tpu_torch/csrc`` (one nvcc per source, in parallel);
+   ``qaig_tpu_torch/csrc`` (one nvcc per source, in parallel) and print
+   each kernel's registers and spill bytes (``ptxas -v``);
 3. kernels -- hold each kernel against its plain PyTorch version on the
    card and time kernel, plain version, bound and a PyTorch yardstick:
-   the decode kernels and full-sequence attention in bf16 at the
-   generation path's shapes, full-sequence attention there in bf16 and
+   the decode kernels in bf16 and float32 (atol 2e-2 / 1e-5) at the
+   generation path's shapes (kernel B with its launch plan, its bits
+   equal over two calls, and timed in the split of 1 or 2 CTAs its plan
+   did not take), full-sequence attention there in bf16 and
    float32 (atol 2e-2 / 1e-5; ``scaled_dot_product_attention`` as the
    yardstick); full-sequence attention at the training path's 64
    heads of dim 8 (and at in_dim 512 in heads of 64, 16, 32 and 128),
    forward and gradient, bf16 and float32, with the backward kernel
    against the plain backward
-   products (atol 5e-2 bf16, 1e-4 float32) and SDPA's backward; both at
+   products (atol 5e-2 bf16, 1e-4 float32) and SDPA's backward (the
+   float32 register-blocked form also in the cluster size of 1 or 2 its
+   plan did not take); both at
    N * H = 65536 (1024 rows of 64 heads, S 64) and at head dims 256 and
    192 through ``dot_product_attention``, which must launch both kernels
    once; head dim 24 through it, which must not launch kernel A; the
@@ -56,7 +61,8 @@ Phases (any failure exits non-zero and prints no result line):
    ``examples/configs/transformer_cascade.json`` (full width, 64 heads)
    over seeded random latents and phase 5's stage-2 codebooks and
    decoder: 6 bf16 steps at batch 8, checkpoints and previews at steps 0
-   and 3;
+   and 3; then the same 6 steps in float32 (the trainer's default), which
+   run the backward kernel's float32 form;
 7. serving -- ``CascadePipeline`` on phase 5's checkpoints: float32
    composition invariance of row-keyed sampling (asserted) and the bf16
    share of equal tokens (reported); then ``python -m
@@ -99,8 +105,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 ATOL = 2e-2                        # bf16 kernel vs plain version
 H, DH = 8, 64
-DECODE_SHAPES = [  # (N, B, bw, S): stage-0, stage-1/2 and crossing widths
-    (16, 32, 16, 32), (16, 4, 8, 96), (16, 4, 8, 256), (16, 4, 7, 256)]
+DECODE_SHAPES = [  # (N, B, bw, S, (index0, block_index) pairs): stage-0,
+    # stage-1/2 and crossing widths at 16 images, each at index0 1, S / 2
+    # and S; then the generation path's 8 images (8 heads: 64 (image, head)
+    # clusters) at stage 1/2's index0 64 and 256 and at stage 0's S 32
+    (16, 32, 16, 32, None), (16, 4, 8, 96, None), (16, 4, 8, 256, None),
+    (16, 4, 7, 256, None), (8, 4, 8, 256, ((64, 3), (256, 7))),
+    (8, 32, 16, 32, ((32, 15),))]
 FLASH_N = 8
 FLASH_S = (1, 16, 64, 255, 256)
 TRAIN_H, TRAIN_DH = 64, 8          # transformer_cascade.json: 512 / 64
@@ -175,11 +186,45 @@ def phase_build():
     log(f"[build] {', '.join(cuda_build.SOURCES)} built in {seconds:.1f} s "
         f"into {cuda_build.BUILD_DIR}")
     for name in cuda_build.SOURCES:
-        report = cuda_build.BUILD_DIR / f"{name}.log"
-        if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    log(f"[build] {name}: {line.strip()}")
+        if (cuda_build.BUILD_DIR / f"{name}.log").exists():
+            for k in ptxas_report(name):
+                log(f"[build] {name} {kernel_name(k['function'])}: "
+                    f"{k.get('registers')} registers, "
+                    f"{k.get('spill_store_bytes')} / "
+                    f"{k.get('spill_load_bytes')} bytes spilled (stores / "
+                    f"loads)")
+
+
+def kernel_name(mangled):
+    """A kernel's name and template arguments from its mangled symbol
+    (``flash_bwd_dq_f32_kernel<128>``), or the symbol where the pattern
+    does not fit."""
+    import re
+    m = re.match(r"_ZN?", mangled)
+    at, name = (m.end() if m else 0), None
+    while at < len(mangled) and mangled[at].isdigit():
+        size = re.match(r"\d+", mangled[at:]).group()
+        at += len(size)
+        name, at = mangled[at:at + int(size)], at + int(size)
+    if name is None:
+        return mangled
+    rest, args = mangled[at:], []
+    if not rest.startswith("I"):
+        return name
+    rest = rest[1:]
+    types = {"f": "float", "a": "int8", "i": "int", "13__nv_bfloat16": "bf16"}
+    while rest and not rest.startswith("E"):
+        lit = re.match(r"L[a-z](\d+)E", rest)
+        typ = next((t for t in types if rest.startswith(t)), None)
+        if lit:
+            args.append(lit.group(1))
+            rest = rest[lit.end():]
+        elif typ:
+            args.append(types[typ])
+            rest = rest[len(typ):]
+        else:
+            return mangled
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_report(name):
@@ -219,6 +264,10 @@ class Timer:
         self.torch = torch
         self.flush_buf = torch.empty(64 * 1024 * 1024, dtype=torch.uint8,
                                      device="cuda")
+        # ~0.5 s of load and a few timed rounds first, so the first kernel
+        # timed meets neither an idle clock nor a cold flush
+        torch.cuda._sleep(1_000_000_000)
+        self(lambda: self.flush_buf[:16].zero_(), iters=10)
 
     def __call__(self, fn, iters=20, warmup=3):
         torch = self.torch
@@ -245,66 +294,126 @@ def bound(nbytes, flops, kind="bf16"):
 
 
 def check_decode(torch, timer, records):
+    """Kernels B and C against their plain version at ``DECODE_SHAPES``,
+    bf16 (atol 2e-2) and float32 (atol 1e-5; serving's phase 7 (a) runs B
+    in float32).  Kernel B with its launch plan, its bits equal over two
+    calls, and timed in the split its plan did not take (1 or 2 CTAs a
+    cluster).  A checkout from before kernel B's split (PR 7) has no
+    ``launch_plan``: its records carry none, so this check times the old
+    kernel there."""
+    from qaig_tpu_torch.ops import cuda_build
     from qaig_tpu_torch.ops import decode_attention as da
     from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
     gen = torch.Generator(device="cuda").manual_seed(0)
-    bf16 = torch.bfloat16
+    split = hasattr(da, "launch_plan")
 
-    def rnd(*shape):
-        return (torch.randn(*shape, generator=gen, device="cuda") * 0.5).to(
-            bf16)
+    for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        size = 2 if kind == "bf16" else 4
 
-    for n, b, bw, s in DECODE_SHAPES:
-        q = rnd(n * b, 1, H * DH)
-        kt, vt = rnd(n, H, DH, s), rnd(n, H, DH, s)
-        kb, vb = rnd(n * b, H, bw, DH), rnd(n * b, H, bw, DH)
-        k8, ks = quantize_kv_t(kt)
-        v8, vs = quantize_kv_t(vt)
-        for index0, block_index in ((1, 0), (s // 2, bw // 2), (s, bw - 1)):
-            for kernel in ("shared_prefix_attention_fused_t",
-                           "shared_prefix_attention_fused_int8"):
-                if kernel.endswith("int8"):
-                    args = (q, k8, ks, v8, vs, kb, vb, index0, block_index)
-                    plain_args = (q, k8, v8, kb, vb, index0, block_index)
-                    plain_kw = {"k_scale": ks, "v_scale": vs}
-                    prefix_bytes = 2 * n * H * index0 * (DH + 2)
-                else:
-                    args = (q, kt, vt, kb, vb, index0, block_index)
-                    plain_args = args
-                    plain_kw = {}
-                    prefix_bytes = 2 * n * H * index0 * DH * 2
-                fn = getattr(da, kernel)
+        def rnd(*shape):
+            return (torch.randn(*shape, generator=gen, device="cuda")
+                    * 0.5).to(dtype)
 
-                def run_kernel():
-                    return fn(*args)
+        for n, b, bw, s, steps in DECODE_SHAPES:
+            q = rnd(n * b, 1, H * DH)
+            kt, vt = rnd(n, H, DH, s), rnd(n, H, DH, s)
+            kb, vb = rnd(n * b, H, bw, DH), rnd(n * b, H, bw, DH)
+            k8, ks = quantize_kv_t(kt)
+            v8, vs = quantize_kv_t(vt)
+            for index0, block_index in steps or ((1, 0), (s // 2, bw // 2),
+                                                  (s, bw - 1)):
+                for kernel in ("shared_prefix_attention_fused_t",
+                               "shared_prefix_attention_fused_int8"):
+                    check_decode_call(
+                        torch, timer, records, da, cuda_build, kernel, kind,
+                        (q, kt, vt, kb, vb, k8, ks, v8, vs), bw, s, index0,
+                        block_index, size, split)
 
-                def run_plain():
-                    return da.shared_prefix_attention_reference(
-                        *plain_args, **plain_kw)
 
-                got = run_kernel()
-                want = run_plain()
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                nbytes = (prefix_bytes + 2 * q.numel() * 2
-                          + 2 * n * b * H * (block_index + 1) * DH * 2)
-                flops = 4 * n * b * H * DH * (index0 + block_index + 1)
-                bound_ms, bound_by = bound(nbytes, flops)
-                rec = {"name": kernel, "shape": {
-                    "N": n, "B": b, "bw": bw, "S": s, "index0": index0,
-                    "block_index": block_index}, "max_abs_err": err,
-                    "ms": timer(run_kernel), "plain_ms": timer(run_plain),
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": None}
-                records.append(rec)
-                log(f"[kernels] {kernel} N={n} B={b} bw={bw} S={s} "
-                    f"index0={index0} block_index={block_index}: "
-                    f"max_abs_err={err:.3e} ms={rec['ms']:.4f} "
-                    f"plain_ms={rec['plain_ms']:.4f} "
-                    f"bound_ms={bound_ms:.5f} ({bound_by})")
-                if not err <= ATOL:
-                    raise SystemExit(f"{kernel} disagrees with its plain "
-                                     f"version: {err} > {ATOL}")
+def check_decode_call(torch, timer, records, da, cuda_build, kernel, kind,
+                      tensors, bw, s, index0, block_index, size, split):
+    """One decode kernel at one step: held to its plain version, timed
+    beside it and its bound; kernel B also in its other split."""
+    q, kt, vt, kb, vb, k8, ks, v8, vs = tensors
+    n = kt.shape[0]
+    b = q.shape[0] // n
+    atol = FWD_ATOL[kind]
+    if kernel.endswith("int8"):
+        args = (q, k8, ks, v8, vs, kb, vb, index0, block_index)
+        plain_args = (q, k8, v8, kb, vb, index0, block_index)
+        plain_kw = {"k_scale": ks, "v_scale": vs}
+        prefix_bytes = 2 * n * H * index0 * (DH + 2)
+    else:
+        args = (q, kt, vt, kb, vb, index0, block_index)
+        plain_args = args
+        plain_kw = {}
+        prefix_bytes = 2 * n * H * index0 * DH * size
+    fn = getattr(da, kernel)
+
+    def run_kernel():
+        return fn(*args)
+
+    def run_plain():
+        return da.shared_prefix_attention_reference(*plain_args, **plain_kw)
+
+    got = run_kernel()
+    want = run_plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    plan = None
+    if kernel.endswith("_t"):
+        # kernel B combines its CTAs in rank order: same bits
+        if not torch.equal(got, run_kernel()):
+            raise SystemExit(f"{kernel} {kind} N={n} B={b} index0={index0}: "
+                             f"two calls differ")
+        if split:
+            plan = da.launch_plan(n, b, H, DH, index0,
+                                  cuda_build.sm_count(q.device), size,
+                                  block_index)
+    nbytes = (prefix_bytes + 2 * q.numel() * size
+              + 2 * n * b * H * (block_index + 1) * DH * size)
+    flops = 4 * n * b * H * DH * (index0 + block_index + 1)
+    bound_ms, bound_by = bound(nbytes, flops, kind)
+    rec = {"name": kernel, "shape": {
+        "N": n, "B": b, "bw": bw, "S": s, "index0": index0,
+        "block_index": block_index, "dtype": kind}, "max_abs_err": err,
+        "ms": timer(run_kernel), "plain_ms": timer(run_plain),
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    note = ""
+    if plan is not None:
+        rec["launch_plan"] = plan
+        rec["alternatives"] = []
+        other = 3 - plan["splits"]
+        try:
+            alt = da._plan(n, b, H, DH, index0, cuda_build.sm_count(q.device),
+                           size, block_index, other)
+        except ValueError:   # no split of index0 in two non-empty ranges
+            alt = None
+        if alt is not None:
+            e = (da._launch_split(*args, alt).float()
+                 - want.float()).abs().max().item()
+            if not e <= atol:
+                raise SystemExit(f"{kernel} {kind} in {other} CTAs "
+                                 f"disagrees: {e}")
+            rec["alternatives"].append({
+                "label": f"splits {other}", "launch_plan": alt,
+                "max_abs_err": e,
+                "ms": timer(lambda: da._launch_split(*args, alt))})
+        note = (f" splits={plan['splits']} chunk={plan['chunk']} "
+                f"stages={plan['stages']}"
+                + "".join(f" ({a['label']}: ms={a['ms']:.4f})"
+                          for a in rec["alternatives"]))
+    if kernel.endswith("_t"):
+        note += " (equal bits over two calls)"
+    records.append(rec)
+    log(f"[kernels] {kernel} {kind} N={n} B={b} bw={bw} S={s} "
+        f"index0={index0} block_index={block_index}: "
+        f"max_abs_err={err:.3e} ms={rec['ms']:.4f} "
+        f"plain_ms={rec['plain_ms']:.4f} "
+        f"bound_ms={bound_ms:.5f} ({bound_by}){note}")
+    if not err <= atol:
+        raise SystemExit(f"{kernel} ({kind}) disagrees with its plain "
+                         f"version: {err} > {atol}")
 
 
 FLAT_SHAPES = [  # (N, B, bw, S, index0, block_index): stage-1/2 widths at
@@ -436,7 +545,7 @@ def check_flash_wide(torch, timer, records):
     kernel A (the routing of ``qaig_tpu/ops/flash_attention.py::supported``,
     which sends it to XLA einsums)."""
     import torch.nn.functional as F
-    from qaig_tpu_torch.ops import attention
+    from qaig_tpu_torch.ops import attention, cuda_build
     from qaig_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(7)
     cases = [(FLASH_WIDE, False, 5)] + [(c, True, 20) for c in FLASH_WIDE_DH]
@@ -508,6 +617,13 @@ def check_flash_wide(torch, timer, records):
             pairs = s * (s + 1) // 2
             shape = {"N": n, "S": s, "H": h, "dh": dh, "causal": True,
                      "dtype": kind}
+            plan = fa.backward_launch_plan(dtype, dh, s, h, n,
+                                           cuda_build.sm_count(q.device))
+            alternatives = backward_alternatives(
+                torch, timer, fa, (q, k, v, out, dout, h, True), plan,
+                run_plain_backward)
+            bwd_err = max([bwd_err] + [a["max_abs_err"]
+                                       for a in alternatives])
             for name, e, fn, plain, library, nbytes, flops in (
                     ("flash_attention", err, run_kernel, run_plain,
                      run_library, 4 * n * s * h * dh * size,
@@ -521,12 +637,17 @@ def check_flash_wide(torch, timer, records):
                        "plain_ms": timer(plain, iters=iters),
                        "bound_ms": bound_ms, "bound_by": bound_by,
                        "library_ms": timer(library, iters=iters)}
+                other = ""
+                if name == "flash_attention_backward":
+                    rec.update(launch_plan=plan, alternatives=alternatives)
+                    other = "".join(f" ({a['label']}: ms={a['ms']:.4f})"
+                                    for a in alternatives)
                 records.append(rec)
                 log(f"[kernels] {name} N={n} H={h} (N*H={n * h}) dh={dh} "
                     f"S={s} causal=True {kind}: max_abs_err={e:.3e} "
                     f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
                     f"sdpa_ms={rec['library_ms']:.4f} "
-                    f"bound_ms={bound_ms:.5f} ({bound_by})")
+                    f"bound_ms={bound_ms:.5f} ({bound_by}){other}")
             if not err <= FWD_ATOL[kind]:
                 raise SystemExit(f"flash_attention at N*H {n * h} dh {dh} "
                                  f"({kind}) disagrees with its plain "
@@ -571,6 +692,7 @@ def check_flash_train(torch, timer, records):
     ``_flash_bwd`` products on the same (q, k, v, out, dout) and timed
     beside them, SDPA's backward and its bound."""
     import torch.nn.functional as F
+    from qaig_tpu_torch.ops import cuda_build
     from qaig_tpu_torch.ops import flash_attention as fa
     gen = torch.Generator(device="cuda").manual_seed(2)
     n = FLASH_N
@@ -641,11 +763,19 @@ def check_flash_train(torch, timer, records):
                                                10 * n * h * pairs * dh, kind)
             shape = {"N": n, "S": s, "H": h, "dh": dh, "causal": causal,
                      "dtype": kind}
+            plan = fa.backward_launch_plan(dtype, dh, s, h, n,
+                                           cuda_build.sm_count(q.device))
             bwd = {"name": "flash_attention_backward", "shape": shape,
                    "max_abs_err": bwd_err, "ms": timer(run_backward),
                    "plain_ms": timer(run_plain_backward),
                    "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by,
-                   "library_ms": timer(run_library_backward)}
+                   "library_ms": timer(run_library_backward),
+                   "launch_plan": plan}
+            bwd["alternatives"] = backward_alternatives(
+                torch, timer, fa, (q, k, v, out, dout, h, causal), plan,
+                run_plain_backward)
+            bwd_err = max([bwd_err] + [a["max_abs_err"]
+                                       for a in bwd["alternatives"]])
             rec = {"name": "flash_attention", "shape": shape,
                    "max_abs_err": err, "grad_max_abs_err": grad_err,
                    "ms": timer(run_kernel), "plain_ms": timer(run_plain),
@@ -663,11 +793,16 @@ def check_flash_train(torch, timer, records):
                 f"plain_ms={rec['plain_ms']:.4f} "
                 f"sdpa_ms={rec['library_ms']:.4f} "
                 f"bound_ms={bound_ms:.5f} ({bound_by})")
+            other = "".join(
+                f" ({a['label']}: ms={a['ms']:.4f})"
+                for a in bwd["alternatives"])
             log(f"[kernels] flash_attention_backward H={h} dh={dh} N={n} "
-                f"S={s} causal={causal} {kind}: max_abs_err={bwd_err:.3e} "
-                f"ms={bwd['ms']:.4f} plain_ms={bwd['plain_ms']:.4f} "
+                f"S={s} causal={causal} {kind} {plan['form']} cluster "
+                f"{plan['cluster']}: max_abs_err="
+                f"{bwd_err:.3e} ms={bwd['ms']:.4f} "
+                f"plain_ms={bwd['plain_ms']:.4f} "
                 f"sdpa_backward_ms={bwd['library_ms']:.4f} "
-                f"bound_ms={bwd_bound_ms:.5f} ({bwd_bound_by})")
+                f"bound_ms={bwd_bound_ms:.5f} ({bwd_bound_by}){other}")
             if not err <= FWD_ATOL[kind]:
                 raise SystemExit(f"flash_attention (dh {dh}, {kind}) "
                                  f"disagrees with its plain version: {err}")
@@ -679,6 +814,29 @@ def check_flash_train(torch, timer, records):
                 raise SystemExit(f"flash_attention_backward (dh {dh}, "
                                  f"{kind}) disagrees with the plain "
                                  f"products: {bwd_err}")
+
+
+def backward_alternatives(torch, timer, fa, args, plan, run_plain):
+    """The float32 register-blocked backward in the cluster size its plan
+    did not take (1 or 2 CTAs sharing a block's streamed rows), held to
+    the plain products and timed beside the plan's: the measurement
+    behind the plan's rule."""
+    from qaig_tpu_torch.ops import cuda_build
+    if plan["form"] != "f32_fma":
+        return []
+    q, k, v, out, dout, h, causal = args
+    n, s, d = q.shape
+    cluster = 3 - plan["cluster"]
+    other = fa._backward_plan(torch.float32, d // h, s, h, n,
+                              cuda_build.sm_count(q.device), cluster)
+
+    def run_other():
+        return fa._backward(*args, plan=other)
+
+    err = max((a - b).abs().max().item()
+              for a, b in zip(run_other(), run_plain()))
+    return [{"label": f"cluster {cluster}", "launch_plan": other,
+             "ms": timer(run_other), "max_abs_err": err}]
 
 
 def check_bmu(torch, timer, records):
@@ -1646,11 +1804,13 @@ TRAIN = dict(latents=64, batch=8, steps=6, checkpoint_step=3, previews=4,
              config="examples/configs/transformer_cascade.json")
 
 
-def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
+def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
+                   bf16=True):
     """``train.transformer.run`` on the cascade example config over seeded
     random 4x32x32 latents, with phase 5's stage-2 codebooks (LR patch 4,
-    HR patch 2) and FC decoder: bf16, batch 8, 6 steps, checkpoints and
-    previews at steps 0 and 3.  Returns (launches, timings)."""
+    HR patch 2) and FC decoder: bf16 (or, with ``bf16=False``, float32,
+    the trainer's default), batch 8, 6 steps, checkpoints and previews at
+    steps 0 and 3.  Returns (launches, timings)."""
     import numpy as np
     from qaig_tpu_torch.data.manifest import write_manifest
     from qaig_tpu_torch.infer.generate import transformer_from_checkpoint
@@ -1658,7 +1818,8 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
     from qaig_tpu_torch.utils.checkpoint import load_model
 
     t = TRAIN
-    root = Path(workdir) / "train"
+    kind = "bf16" if bf16 else "float32"
+    root = Path(workdir) / ("train" if bf16 else "train_f32")
     (root / "fmaps").mkdir(parents=True)
     rng = np.random.default_rng(seed)
     rows = []
@@ -1706,7 +1867,7 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
             "lr_codebook_path": str(ckpt / "codebook_2.pt"),
             "hr_codebook_path": str(ckpt / "codebook_3.pt"),
             "config_path": str(config), "out_dir": str(out_dir),
-            "bf16": True, "batch_size": t["batch"],
+            "bf16": bf16, "batch_size": t["batch"],
             "max_steps": t["steps"], "checkpoint_step": t["checkpoint_step"],
             "test_num_sample": t["previews"], "seed": seed})
         synchronize(torch, device)
@@ -1714,8 +1875,8 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
         launches = read_launches()
     finally:
         train.make_train_step = make_train_step
-    log(f"[train] train.run: {t['steps']} bf16 steps at batch {t['batch']} "
-        f"in {run_s:.3f} s; launches {launches}")
+    log(f"[train] train.run: {t['steps']} {kind} steps at batch "
+        f"{t['batch']} in {run_s:.3f} s; launches {launches}")
 
     losses = [json.loads(line)["ce_loss"] for line in
               (out_dir / "metrics.jsonl").read_text().splitlines()]
@@ -1757,8 +1918,9 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False):
             raise SystemExit(f"the training path launched {name} "
                              f"{launches[name]} times, expected {n}")
     per_step = sum(step_s[1:]) / len(step_s[1:])
-    log(f"[train] seconds per step (step 0 left out): {per_step:.4f} "
-        f"(steps {[round(x, 4) for x in step_s]})")
+    log(f"[train] {kind}: seconds per step (step 0 left out): "
+        f"{per_step:.4f} (steps {[round(x, 4) for x in step_s]}); backward "
+        f"kernel launches {launches['flash_attention_backward']}")
     timings = {"run_s": run_s, "step_s": step_s, "step_mean_s": per_step,
                "losses": losses}
     if profile:
@@ -2211,11 +2373,13 @@ KERNELS = {
     "shared_prefix_attention_fused_t": {
         "source": "qaig_tpu_torch/csrc/decode_attention.cu",
         "replaces": "qaig_tpu/ops/decode_attention.py:155",
-        "summary": {"S": 256, "bw": 8, "index0": 256}},
+        "summary": {"N": 16, "S": 256, "bw": 8, "index0": 256,
+                    "dtype": "bf16"}},
     "shared_prefix_attention_fused_int8": {
         "source": "qaig_tpu_torch/csrc/decode_attention.cu",
         "replaces": "qaig_tpu/ops/decode_attention.py:414",
-        "summary": {"S": 256, "bw": 8, "index0": 256}},
+        "summary": {"N": 16, "S": 256, "bw": 8, "index0": 256,
+                    "dtype": "bf16"}},
     "shared_prefix_attention_fused_flat": {
         "source": "qaig_tpu_torch/csrc/decode_attention_flat.cu",
         "replaces": "qaig_tpu/ops/decode_attention.py:326",
@@ -2238,6 +2402,11 @@ KERNELS = {
         "replaces": "scripts/probe_mlp_fused.py:58",
         "summary": {"N": 8192, "S": 3}},
 }
+
+
+CHECKS = {"decode": check_decode, "flash": check_flash,
+          "flash_train": check_flash_train, "flash_wide": check_flash_wide,
+          "bmu": check_bmu, "flat": check_flat, "mlp": check_mlp}
 
 
 def repeat_paths(torch, runs):
@@ -2295,6 +2464,12 @@ def main():
                         help="also profile a stage-2 window and train "
                              "steps 2-5 with torch.profiler (device busy "
                              "share)")
+    parser.add_argument("--kernels-only", nargs="?", const=",".join(CHECKS),
+                        default=None, metavar="CHECKS",
+                        help="phases 1-3 only (comma-separated checks of "
+                             f"{', '.join(CHECKS)}; all by default): print "
+                             "each record as a JSON line, no main paths and "
+                             "no result line")
     parser.add_argument("--repeat-paths", type=int, default=0, metavar="N",
                         help="time only the generation and training main "
                              "paths, N runs of each in turns, and print "
@@ -2311,13 +2486,14 @@ def main():
     phase_build()
     timer = Timer(torch)
     records = []
-    check_decode(torch, timer, records)
-    check_flash(torch, timer, records)
-    check_flash_train(torch, timer, records)
-    check_flash_wide(torch, timer, records)
-    check_bmu(torch, timer, records)
-    check_flat(torch, timer, records)
-    check_mlp(torch, timer, records)
+    if args.kernels_only is not None:
+        for check in args.kernels_only.split(","):
+            CHECKS[check](torch, timer, records)
+        for rec in records:
+            print(json.dumps({"record": rec}), flush=True)
+        return 0
+    for check in CHECKS.values():
+        check(torch, timer, records)
     del timer
     check_reference(torch)
     check_flat_reference(torch)
@@ -2335,6 +2511,8 @@ def main():
             torch, paths)
         launches["train"], timings["train"] = run_train_path(
             torch, workdir, profile=args.profile)
+        launches["train_f32"], timings["train_f32"] = run_train_path(
+            torch, workdir, bf16=False)
         launches["pipeline"], timings["serve"] = run_serve_path(torch,
                                                                 paths)
         launches["probe"], timings["probe"] = run_probe_path(torch)

@@ -30,7 +30,7 @@
 //   pass 2, over key tiles: stream Q, dout, lse and delta (causal: only the
 //     queries at or after the block's first key), recompute each (query,
 //     key) pair's p and ds, and accumulate dk and dv.
-// Three forms of the two passes:
+// Four forms of the two passes:
 //   bf16 at dh 16-256: tensor cores, mma.sync m16n8k16 (bf16 in, float32
 //     accumulate), the forward's building blocks.  A block is 4 warps of 16
 //     fixed rows (queries in pass 1, keys in pass 2); the streamed tiles
@@ -53,18 +53,38 @@
 //     mma.sync m16n8k8 without padding dh; a block of 8 warps takes row
 //     groups 4b..4b+3 from the front of the sequence and their mirror
 //     images from the back, so causal blocks carry equal work.
-//   float32: exact float32 FMAs (no TF32, no tensor cores), as the port's
-//     float32 numerics require: each row's dh in registers across dh / 8
-//     lanes (past dh 128, 32 lanes of dh / 32); K and V (pass 1) or Q and
-//     dout (pass 2) stream through shared memory as float32 tiles, and one
-//     key read from shared memory serves 32 pairs of a warp.  The error
-//     against the plain version is the summation order.  A warp's loop over
-//     a tile stops at its own last live pair.
+//   float32 at dh 32-256: exact float32 FMAs (no TF32, no tensor cores),
+//     as the port's float32 numerics require, register-blocked as the
+//     forward's float32 form: 256 threads as 16 x 16 over 64 fixed rows
+//     (queries in pass 1, keys in pass 2), a thread owning 4 fixed rows x 4
+//     streamed rows (2 at dh 192 and 256, whose streamed tiles are 32 rows)
+//     of the score and dP tiles, both accumulated over dh from float4 rows
+//     in shared memory.  Row statistics move once per tile by 16-lane
+//     shuffles (pass 1 keeps the online max and sum and rescales dq once a
+//     tile).  p and ds go through a per-row strip of shared memory that
+//     only the 16 lanes of those rows touch, and the gradients are
+//     register-blocked products, 4 rows x dh / 16 columns a thread (dq in
+//     pass 1; dv, then dk through the same strip, in pass 2).  The streamed
+//     tiles (K/V, or Q/dout with their log2-sum-exp and delta) go through a
+//     ring of one or two cp.async slots.  Where a pass has fewer blocks than
+//     the card has SMs (8 rows of 4 heads of 128, 2 of 256), a cluster of 2
+//     CTAs shares each block's streamed tiles, rank r taking tiles r, r + 2,
+//     .., and rank 0 folds rank 1's running max, sum and partial gradients
+//     in through distributed shared memory, in rank order (deterministic);
+//     the plan chooses (flash_attention.backward_launch_plan).
+//   float32 at dh 8 and 16: a row in the registers of dh / 8 lanes, every
+//     key (query) read from shared memory feeding the 32 rows of a warp; at
+//     these head dims it beats the register-blocked tiles (one or no
+//     shuffle a pair, 24 FMAs a lane for each broadcast read).
+//   In float32 the error against the plain version is the summation order.
 // Head dims 8, 16, 32, 64, 128, 192 and 256, as the forward.
 
 #include "common.cuh"
 
+#include <cooperative_groups.h>
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -73,22 +93,23 @@ using qaig::mma_16x8x8;
 using qaig::pack_bf16;
 using qaig::unpack_bf16;
 
-constexpr int kThreads = 128;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// head-dim elements a lane holds: 8 (one 16-byte bf16 load) up to dh 128,
-// then dh / 32 so that a row's lanes stay within one warp
-template <int DH>
-__host__ __device__ constexpr int lane_dims() {
-  return DH <= 128 ? 8 : DH / 32;
-}
 
-// keys (pass 1) or queries (pass 2) per shared-memory tile: two float32
-// tiles of at most 16 KB each
-template <int DH>
-__host__ __device__ constexpr int tile_rows() {
-  return 4096 / DH < 128 ? 4096 / DH : 128;
-}
+// ---- float32 at dh 8 and 16: a row in registers ---------------------------
+//
+// Each query (pass 1) or key (pass 2) row lives in the registers of dh / 8
+// lanes; the streamed tiles go through shared memory and every key (query)
+// read there serves the 32 rows of a warp.  At dh 8 and 16 this beat the
+// register-blocked tiles below on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md: 0.1349 against 0.1833 ms at dh 8, 0.1269 against 0.1544 at
+// dh 16, N8 S256 causal): a whole row's products take no shuffle at dh
+// 8 and one at dh 16, and a broadcast key feeds 24 FMAs of each of 32
+// lanes, where the tiles read both operands from shared memory.
+
+constexpr int kRowThreads = 128;
+constexpr int kRowLane = 8;     // head-dim elements a lane holds
+constexpr int kRowTile = 128;   // keys (pass 1) or queries (pass 2) a tile
 
 // E consecutive elements, E a multiple of 2: 16-byte accesses where E and
 // the alignment allow (E a multiple of 8 elements), else 8-byte (float32) or
@@ -124,8 +145,8 @@ __device__ __forceinline__ void store_e(float* p, const float (&x)[E]) {
   }
 }
 
-template <typename T, int E>
-__device__ __forceinline__ void load_e_or_zero(const T* p, bool live,
+template <int E>
+__device__ __forceinline__ void load_e_or_zero(const float* p, bool live,
                                                float (&x)[E]) {
   if (live) {
     load_e(p, x);
@@ -147,12 +168,12 @@ __device__ __forceinline__ float group_sum(float x) {
 
 // Stage rows [r0, r0 + rows) of one head of an (N, S, H*DH) tensor as
 // float32 into dst (rows x DH).
-template <typename T, int DH>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+template <int DH>
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       size_t base, int D, int r0, int rows) {
-  constexpr int E = lane_dims<DH>();
+  constexpr int E = kRowLane;
   constexpr int G = DH / E;
-  for (int i = threadIdx.x; i < rows * G; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * G; i += kRowThreads) {
     const int r = i / G, c = (i % G) * E;
     float x[E];
     load_e(src + base + (size_t)(r0 + r) * D + c, x);
@@ -161,16 +182,16 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
 }
 
 // Pass 1: dq, and the rows' log2-sum-exp and delta.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ out, const T* __restrict__ dout,
-    T* __restrict__ dq, float* __restrict__ lse2, float* __restrict__ delta,
+template <int DH>
+__global__ void __launch_bounds__(kRowThreads) flash_bwd_dq_rows_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ out,
+    const float* __restrict__ dout, float* __restrict__ dq, float* __restrict__ lse2, float* __restrict__ delta,
     int S, int H, int causal, float scale, float scale_log2) {
-  constexpr int E = lane_dims<DH>();
+  constexpr int E = kRowLane;
   constexpr int G = DH / E;  // lanes per query row
-  constexpr int kRows = kThreads / G;
-  constexpr int kTile = tile_rows<DH>();
+  constexpr int kRows = kRowThreads / G;
+  constexpr int kTile = kRowTile;
   __shared__ __align__(16) float ks[kTile * DH];
   __shared__ __align__(16) float vs[kTile * DH];
 
@@ -207,8 +228,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
   for (int k0 = 0; k0 < kend; k0 += kTile) {
     const int nk = min(kTile, kend - k0);
     __syncthreads();  // the previous tile's reads are done
-    stage<T, DH>(ks, k, base, D, k0, nk);
-    stage<T, DH>(vs, v, base, D, k0, nk);
+    stage<DH>(ks, k, base, D, k0, nk);
+    stage<DH>(vs, v, base, D, k0, nk);
     __syncthreads();
     int wk = causal ? min(nk, warp_last + 1 - k0) : nk;
     if (warp_first >= S) wk = 0;
@@ -256,16 +277,17 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(
 }
 
 // Pass 2: dk and dv.
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ dout, const float* __restrict__ lse2,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+template <int DH>
+__global__ void __launch_bounds__(kRowThreads) flash_bwd_dkdv_rows_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv,
     int S, int H, int causal, float scale, float scale_log2) {
-  constexpr int E = lane_dims<DH>();
+  constexpr int E = kRowLane;
   constexpr int G = DH / E;  // lanes per key row
-  constexpr int kRows = kThreads / G;
-  constexpr int kTile = tile_rows<DH>();
+  constexpr int kRows = kRowThreads / G;
+  constexpr int kTile = kRowTile;
   __shared__ __align__(16) float qs[kTile * DH];
   __shared__ __align__(16) float dos[kTile * DH];
   __shared__ float2 stats[kTile];  // (log2-sum-exp, delta) per query
@@ -291,9 +313,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
   for (int i0 = causal ? j0 : 0; i0 < S; i0 += kTile) {
     const int nq = min(kTile, S - i0);
     __syncthreads();
-    stage<T, DH>(qs, q, base, D, i0, nq);
-    stage<T, DH>(dos, dout, base, D, i0, nq);
-    for (int i = tid; i < nq; i += kThreads)
+    stage<DH>(qs, q, base, D, i0, nq);
+    stage<DH>(dos, dout, base, D, i0, nq);
+    for (int i = tid; i < nq; i += kRowThreads)
       stats[i] = make_float2(lse2[(size_t)bh * S + i0 + i],
                              delta[(size_t)bh * S + i0 + i]);
     __syncthreads();
@@ -330,6 +352,506 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(
     for (int i = 0; i < E; ++i) dka[i] *= scale;
     store_e(dk + at, dka);
     store_e(dv + at, dva);
+  }
+}
+
+
+// ---- float32 at dh 32-256: register-blocked FMAs --------------------------
+
+constexpr int kF32Threads = 256;  // 16 x 16
+constexpr int kF32Rows = 64;      // fixed rows a block: queries, then keys
+
+template <int DH>
+struct F32Layout {
+  static constexpr int LD = DH + 4;  // float pitch: rows tx + 16c conflict-free
+  // streamed rows (keys in pass 1, queries in pass 2) per tile: 32 past
+  // dh 128, where two 64-row tiles would not fit beside the fixed rows
+  static constexpr int kTile = DH >= 192 ? 32 : 64;
+  // tiles in flight: two where they fit beside the fixed rows, one at dh
+  // 256; one at dh 32 too, which ran faster there (PERF.md)
+  static constexpr int kStages = DH == 32 || DH == 256 ? 1 : 2;
+  static constexpr int kCols = kTile / 16;  // streamed rows of a thread
+  static constexpr int kLdP = kTile + 4;    // pitch of the p / ds strip
+  static constexpr size_t fixed_floats = 2 * kF32Rows * LD + kF32Rows * kLdP;
+  // pass 1: Q and dout fixed, kStages K/V tiles; pass 2: K and V fixed,
+  // kStages Q/dout tiles with their log2-sum-exp and delta
+  static constexpr size_t bytes1 =
+      (fixed_floats + (size_t)2 * kStages * kTile * LD) * 4;
+  static constexpr size_t bytes2 =
+      (fixed_floats + (size_t)2 * kStages * kTile * (LD + 1)) * 4;
+};
+
+// Copy `rows` rows from r0 of one head of an (N, S, H*DH) float32 tensor
+// into dst (pitch LD) with 16-byte cp.async; rows at or past S are zeroed.
+template <int DH, int LD>
+__device__ __forceinline__ void load_rows_f32(float* dst,
+                                              const float* __restrict__ src,
+                                              size_t base, int D, int r0,
+                                              int rows, int S) {
+  constexpr int kChunks = DH / 4;
+  for (int i = threadIdx.x; i < rows * kChunks; i += kF32Threads) {
+    const int r = i / kChunks, c = (i % kChunks) * 4;
+    const bool live = r0 + r < S;
+    qaig::cp_async16(dst + r * LD + c,
+                     src + base + (size_t)(live ? r0 + r : 0) * D + c, live);
+  }
+}
+
+// 4-byte cp.async (zero-filled when not live)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   qaig::smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// Columns of a lane's OC-wide share of a row (16 lanes cover 16 * OC
+// columns): float4 groups 64 apart when OC is a multiple of 4, else float2
+// groups 32 apart; neighbouring lanes on neighbouring addresses.
+template <int OC>
+__device__ __forceinline__ void load_cols(const float* row, int tx,
+                                          float (&x)[OC]) {
+  if constexpr (OC % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < OC / 4; ++h) {
+      const float4 a = *reinterpret_cast<const float4*>(row + 64 * h + 4 * tx);
+      x[4 * h] = a.x; x[4 * h + 1] = a.y; x[4 * h + 2] = a.z; x[4 * h + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < OC / 2; ++h) {
+      const float2 a = *reinterpret_cast<const float2*>(row + 32 * h + 2 * tx);
+      x[2 * h] = a.x; x[2 * h + 1] = a.y;
+    }
+  }
+}
+
+template <int OC>
+__device__ __forceinline__ void store_cols(float* row, int tx,
+                                           const float (&x)[OC], float f) {
+  if constexpr (OC % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < OC / 4; ++h)
+      *reinterpret_cast<float4*>(row + 64 * h + 4 * tx) =
+          make_float4(x[4 * h] * f, x[4 * h + 1] * f, x[4 * h + 2] * f,
+                      x[4 * h + 3] * f);
+  } else {
+#pragma unroll
+    for (int h = 0; h < OC / 2; ++h)
+      *reinterpret_cast<float2*>(row + 32 * h + 2 * tx) =
+          make_float2(x[2 * h] * f, x[2 * h + 1] * f);
+  }
+}
+
+// sum over the 16 lanes of a row (one half of the warp)
+__device__ __forceinline__ float row_sum16(float x) {
+#pragma unroll
+  for (int offset = 8; offset > 0; offset >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, offset);
+  return x;
+}
+
+// s[i][c] = fixed row (4ty + i) . streamed row (tx + 16c) over DH, both
+// read as float4 from shared memory
+template <int DH, int LD, int KC>
+__device__ __forceinline__ void dot_tile(float (&s)[4][KC], const float* fr,
+                                         const float* sr, int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < KC; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; d += 4) {
+    float4 a[4], b[KC];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(fr + (4 * ty + i) * LD + d);
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      b[c] = *reinterpret_cast<const float4*>(sr + (tx + 16 * c) * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        s[i][c] = fmaf(a[i].x, b[c].x, s[i][c]);
+        s[i][c] = fmaf(a[i].y, b[c].y, s[i][c]);
+        s[i][c] = fmaf(a[i].z, b[c].z, s[i][c]);
+        s[i][c] = fmaf(a[i].w, b[c].w, s[i][c]);
+      }
+  }
+}
+
+// acc[i][.] += sum over the tile's streamed rows j of strip[4ty + i][j] *
+// x[j][this lane's columns] (x a streamed tile); only the 16 lanes of
+// these rows write and read these strip rows
+template <int LD, int KT, int OC>
+__device__ __forceinline__ void strip_product(float (&acc)[4][OC],
+                                              const float* strip,
+                                              const float* x, int tx, int ty) {
+  constexpr int kLdP = KT + 4;
+#pragma unroll 2
+  for (int j = 0; j < KT; j += 4) {
+    float4 pv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      pv[i] = *reinterpret_cast<const float4*>(strip + (4 * ty + i) * kLdP + j);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float xv[OC];
+      load_cols<OC>(x + (j + u) * LD, tx, xv);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                      : u == 2 ? pv[i].z : pv[i].w;
+#pragma unroll
+        for (int c = 0; c < OC; ++c) acc[i][c] = fmaf(p, xv[c], acc[i][c]);
+      }
+    }
+  }
+}
+
+// this half-warp's 4 rows of the strip <- v (4 x KC, streamed rows tx + 16c)
+template <int KT, int KC>
+__device__ __forceinline__ void write_strip(float* strip, const float (&v)[4][KC],
+                                            int tx, int ty) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < KC; ++c)
+      strip[(4 * ty + i) * (KT + 4) + tx + 16 * c] = v[i][c];
+}
+
+// Pass 1: dq, and the rows' log2-sum-exp and delta.  A cluster of `cs`
+// CTAs owns 64 query rows (the last query tiles first); rank r takes key
+// tiles r, r + cs, ..., and rank 0 combines the ranks' running max, sum
+// and dq through distributed shared memory, in rank order.  Thread (ty,
+// tx) holds rows 4ty..4ty+3 and keys tx + 16c of each K/V tile.
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dq_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ out,
+    const float* __restrict__ dout, float* __restrict__ dq,
+    float* __restrict__ lse2, float* __restrict__ delta, int S, int H,
+    int causal, float scale, float scale_log2) {
+  using L = F32Layout<DH>;
+  constexpr int LD = L::LD, KT = L::kTile, KC = L::kCols;
+  constexpr int STAGES = L::kStages;
+  constexpr int OC = DH / 16;  // dq columns of a thread
+  extern __shared__ float4 smem4[];
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* dos = qs + kF32Rows * LD;
+  float* ps = dos + kF32Rows * LD;  // ds strip
+  float* ks = ps + kF32Rows * L::kLdP;
+  float* vs = ks + STAGES * KT * LD;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x / cs;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kF32Rows;
+  const int row0 = q0 + 4 * ty;
+  const int D = H * DH;
+  const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * DH;
+  const int kend = causal ? min(S, q0 + kF32Rows) : S;
+  const int ntiles = ((kend + KT - 1) / KT - rank + cs - 1) / cs;
+
+  auto load_kv = [&](int j) {  // this rank's j-th tile
+    if (j < ntiles) {
+      const int slot = (j % STAGES) * KT * LD;
+      const int r0 = (rank + j * cs) * KT;
+      load_rows_f32<DH, LD>(ks + slot, k, base, D, r0, KT, S);
+      load_rows_f32<DH, LD>(vs + slot, v, base, D, r0, KT, S);
+    }
+    qaig::cp_async_commit();
+  };
+  load_rows_f32<DH, LD>(qs, q, base, D, q0, kF32Rows, S);
+  load_rows_f32<DH, LD>(dos, dout, base, D, q0, kF32Rows, S);
+  qaig::cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) load_kv(j);
+
+  // delta = rowsum(dout * out), straight from device memory
+  float dl[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float x = 0.f;
+    if (row0 + i < S) {
+      const size_t at = base + (size_t)(row0 + i) * D;
+      for (int c = tx; c < DH; c += 16) x = fmaf(dout[at + c], out[at + c], x);
+    }
+    dl[i] = row_sum16(x);
+  }
+
+  float acc[4][OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) acc[i][c] = 0.f;
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = (rank + it * cs) * KT;
+    load_kv(it + STAGES - 1);  // into the slot that tile it - 1 freed
+    qaig::cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const float* kt = ks + (it % STAGES) * KT * LD;
+    const float* vt = vs + (it % STAGES) * KT * LD;
+
+    float s[4][KC], dp[4][KC];
+    dot_tile<DH, LD, KC>(s, qs, kt, tx, ty);
+    dot_tile<DH, LD, KC>(dp, dos, vt, tx, ty);
+
+    const bool need_mask = k0 + KT > S || (causal && k0 + KT - 1 > row0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        float x = s[i][c] * scale_log2;
+        if (need_mask) {
+          const int key = k0 + tx + 16 * c;
+          if (key >= S || (causal && key > row0 + i)) x = -INFINITY;
+        }
+        s[i][c] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int offset = 8; offset > 0; offset >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, offset));
+      const float m_new = fmaxf(m[i], mx);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = fast_exp2(m[i] - mu);
+      m[i] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int c = 0; c < KC; ++c) {
+        const float e = fast_exp2(s[i][c] - mu);
+        sum += e;
+        s[i][c] = e * (dp[i][c] - dl[i]);  // ds, unnormalised
+      }
+      l[i] = l[i] * alpha + sum;  // this thread's keys; summed at the end
+#pragma unroll
+      for (int c = 0; c < OC; ++c) acc[i][c] *= alpha;
+    }
+
+    // this half-warp's 4 rows of ds, then dq (4 x DH/16) += ds K
+    write_strip<KT, KC>(ps, s, tx, ty);
+    __syncwarp();
+    strip_product<LD, KT, OC>(acc, ps, kt, tx, ty);
+    __syncwarp();
+    __syncthreads();  // this slot's reads are done before it is refilled
+  }
+
+  if (cs > 1) {
+    // ranks > 0 leave (m, l, dq) in their shared memory, [value][thread];
+    // rank 0 folds them in, in rank order
+    qaig::cp_async_wait<0>();
+    __syncthreads();  // every thread's copies have landed (a rank may have
+                      // had no tile to wait on)
+    float* xs = reinterpret_cast<float*>(smem4);
+    if (rank > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        xs[i * kF32Threads + tid] = m[i];
+        xs[(4 + i) * kF32Threads + tid] = l[i];
+#pragma unroll
+        for (int c = 0; c < OC; ++c)
+          xs[(8 + i * OC + c) * kF32Threads + tid] = acc[i][c];
+      }
+    }
+    cluster.sync();
+    if (rank == 0) {
+      for (int r = 1; r < cs; ++r) {
+        const float* rs = cluster.map_shared_rank(xs, r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float mr = rs[i * kF32Threads + tid];
+          const float mx = fmaxf(m[i], mr);
+          const float mu = mx == -INFINITY ? 0.f : mx;
+          const float a = fast_exp2(m[i] - mu), b = fast_exp2(mr - mu);
+          l[i] = l[i] * a + rs[(4 + i) * kF32Threads + tid] * b;
+#pragma unroll
+          for (int c = 0; c < OC; ++c)
+            acc[i][c] = acc[i][c] * a +
+                        rs[(8 + i * OC + c) * kF32Threads + tid] * b;
+          m[i] = mx;
+        }
+      }
+    }
+    cluster.sync();  // no CTA leaves while rank 0 reads its shared memory
+    if (rank > 0) return;
+  }
+
+  // every row keeps key 0, so l >= 1
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    l[i] = row_sum16(l[i]);
+    if (row0 + i < S)
+      store_cols<OC>(dq + base + (size_t)(row0 + i) * D, tx, acc[i],
+                     scale / l[i]);
+  }
+  if (tx == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (row0 + i < S) {
+        lse2[(size_t)bh * S + row0 + i] = m[i] + log2f(l[i]);
+        delta[(size_t)bh * S + row0 + i] = dl[i];
+      }
+    }
+  }
+}
+
+// Pass 2: dk and dv.  A cluster of `cs` CTAs owns 64 key rows (the first
+// key tiles, the longest causal ones, first); rank r takes streamed query
+// tiles r, r + cs, ... from the first live one, and rank 0 adds the ranks'
+// dk and dv in rank order.  Thread (ty, tx) holds keys 4ty..4ty+3 and queries
+// tx + 16c of each Q/dout tile.
+template <int DH>
+__global__ void __launch_bounds__(kF32Threads) flash_bwd_dkdv_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse2, const float* __restrict__ delta,
+    float* __restrict__ dk, float* __restrict__ dv, int S, int H, int causal,
+    float scale, float scale_log2) {
+  using L = F32Layout<DH>;
+  constexpr int LD = L::LD, KT = L::kTile, KC = L::kCols;
+  constexpr int STAGES = L::kStages;
+  constexpr int OC = DH / 16;  // dk and dv columns of a thread
+  extern __shared__ float4 smem4[];
+  float* ks = reinterpret_cast<float*>(smem4);
+  float* vs = ks + kF32Rows * LD;
+  float* ps = vs + kF32Rows * LD;  // p, then ds, strip
+  float* qs = ps + kF32Rows * L::kLdP;
+  float* dos = qs + STAGES * KT * LD;
+  float* sl = dos + STAGES * KT * LD;  // log2-sum-exp of the streamed rows
+  float* sd = sl + STAGES * KT;        // delta of the streamed rows
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x / cs;
+  const int j0 = blockIdx.y * kF32Rows;
+  const int key0 = j0 + 4 * ty;
+  const int D = H * DH;
+  const size_t base = (size_t)(bh / H) * S * D + (size_t)(bh % H) * DH;
+  const int first = (causal ? j0 / KT : 0) + rank;
+  const int ntiles = ((S + KT - 1) / KT - first + cs - 1) / cs;
+
+  auto load_q = [&](int j) {  // this rank's j-th tile
+    if (j < ntiles) {
+      const int slot = j % STAGES;
+      const int i0 = (first + j * cs) * KT;
+      load_rows_f32<DH, LD>(qs + slot * KT * LD, q, base, D, i0, KT, S);
+      load_rows_f32<DH, LD>(dos + slot * KT * LD, dout, base, D, i0, KT, S);
+      for (int r = threadIdx.x; r < KT; r += kF32Threads) {
+        const bool live = i0 + r < S;
+        const size_t at = (size_t)bh * S + (live ? i0 + r : 0);
+        cp_async4(sl + slot * KT + r, lse2 + at, live);
+        cp_async4(sd + slot * KT + r, delta + at, live);
+      }
+    }
+    qaig::cp_async_commit();
+  };
+  load_rows_f32<DH, LD>(ks, k, base, D, j0, kF32Rows, S);
+  load_rows_f32<DH, LD>(vs, v, base, D, j0, kF32Rows, S);
+  qaig::cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) load_q(j);
+
+  float dka[4][OC], dva[4][OC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < OC; ++c) dka[i][c] = dva[i][c] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int i0 = (first + it * cs) * KT;
+    load_q(it + STAGES - 1);
+    qaig::cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const int slot = it % STAGES;
+    const float* qt = qs + slot * KT * LD;
+    const float* dot = dos + slot * KT * LD;
+
+    float s[4][KC], dp[4][KC];
+    dot_tile<DH, LD, KC>(s, ks, qt, tx, ty);
+    dot_tile<DH, LD, KC>(dp, vs, dot, tx, ty);
+    const bool need_mask = i0 + KT > S || (causal && i0 < key0 + 3);
+#pragma unroll
+    for (int c = 0; c < KC; ++c) {
+      const int r = tx + 16 * c;
+      const float lr = sl[slot * KT + r], dr = sd[slot * KT + r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float p = fast_exp2(fmaf(s[i][c], scale_log2, -lr));
+        if (need_mask && (i0 + r >= S || (causal && i0 + r < key0 + i)))
+          p = 0.f;
+        s[i][c] = p;
+        dp[i][c] = p * (dp[i][c] - dr);  // ds
+      }
+    }
+
+    // this half-warp's 4 key rows of p, dv += p dout; then of ds,
+    // dk += ds q
+    write_strip<KT, KC>(ps, s, tx, ty);
+    __syncwarp();
+    strip_product<LD, KT, OC>(dva, ps, dot, tx, ty);
+    __syncwarp();
+    write_strip<KT, KC>(ps, dp, tx, ty);
+    __syncwarp();
+    strip_product<LD, KT, OC>(dka, ps, qt, tx, ty);
+    __syncwarp();
+    __syncthreads();  // this slot's reads are done before it is refilled
+  }
+
+  if (cs > 1) {
+    // ranks > 0 leave (dk, dv) in their shared memory, [value][thread];
+    // rank 0 adds them, in rank order
+    qaig::cp_async_wait<0>();
+    __syncthreads();  // every thread's copies have landed (a rank may have
+                      // had no tile to wait on)
+    float* xs = reinterpret_cast<float*>(smem4);
+    if (rank > 0) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < OC; ++c) {
+          xs[(i * OC + c) * kF32Threads + tid] = dka[i][c];
+          xs[((4 + i) * OC + c) * kF32Threads + tid] = dva[i][c];
+        }
+    }
+    cluster.sync();
+    if (rank == 0) {
+      for (int r = 1; r < cs; ++r) {
+        const float* rs = cluster.map_shared_rank(xs, r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < OC; ++c) {
+            dka[i][c] += rs[(i * OC + c) * kF32Threads + tid];
+            dva[i][c] += rs[((4 + i) * OC + c) * kF32Threads + tid];
+          }
+      }
+    }
+    cluster.sync();  // no CTA leaves while rank 0 reads its shared memory
+    if (rank > 0) return;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if (key0 + i < S) {
+      const size_t at = base + (size_t)(key0 + i) * D;
+      store_cols<OC>(dk + at, tx, dka[i], scale);
+      store_cols<OC>(dv + at, tx, dva[i], 1.f);
+    }
   }
 }
 
@@ -1115,35 +1637,133 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The geometry the wrapper's plan (flash_attention.backward_launch_plan)
+// names; a launch whose plan is not the one built is refused.
+struct Plan {
+  int rows, tile, split, stages, cluster;
+};
+
+// float32 at dh 8 and 16: the row form
+template <int DH>
+cudaError_t launch_rows(const void* q, const void* k, const void* v,
+                        const void* out, const void* dout, void* dq, void* dk,
+                        void* dv, float* lse2, float* delta, int N, int S,
+                        int H, int causal, cudaStream_t stream) {
+  constexpr int kRows = kRowThreads / (DH / kRowLane);
+  const dim3 grid(N * H, (S + kRows - 1) / kRows);
+  const float scale = 1.0f / sqrtf((float)DH);
+  const float scale_log2 = scale * kLog2e;
+  flash_bwd_dq_rows_kernel<DH><<<grid, kRowThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<float*>(dq), lse2, delta,
+      S, H, causal, scale, scale_log2);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_rows_kernel<DH><<<grid, kRowThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse2,
+      delta, static_cast<float*>(dk), static_cast<float*>(dv), S, H, causal,
+      scale, scale_log2);
+  return cudaGetLastError();
+}
+
+// a launch in clusters of `cluster` CTAs along grid x
+template <typename... Params, typename... Args>
+cudaError_t launch_clusters(void (*kernel)(Params...), dim3 grid,
+                            size_t smem, int cluster, cudaStream_t stream,
+                            Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kF32Threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// float32 at dh 32-256: the register-blocked tiles
+template <int DH>
+cudaError_t launch_f32(const void* q, const void* k, const void* v,
+                       const void* out, const void* dout, void* dq, void* dk,
+                       void* dv, float* lse2, float* delta, int N, int S,
+                       int H, int causal, Plan plan, cudaStream_t stream) {
+  using L = F32Layout<DH>;
+  auto pass1 = flash_bwd_dq_f32_kernel<DH>;
+  auto pass2 = flash_bwd_dkdv_f32_kernel<DH>;
+  constexpr size_t bytes1 = L::bytes1, bytes2 = L::bytes2;
+  static bool attributes_set = false;  // once per head dim
+  if (!attributes_set) {
+    cudaError_t err = cudaSuccess;
+    if (bytes1 > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes1);
+    if (err == cudaSuccess && bytes2 > 48 * 1024)
+      err = cudaFuncSetAttribute(
+          pass2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes2);
+    if (err != cudaSuccess) return err;
+    attributes_set = true;
+  }
+  const float scale = 1.0f / sqrtf((float)DH);
+  const float scale_log2 = scale * kLog2e;
+  // (n, h) x cluster rank on x, 64-row tiles on y
+  const unsigned tiles = (S + kF32Rows - 1) / kF32Rows;
+  const cudaError_t err = launch_clusters(
+      pass1, dim3(N * H * plan.cluster, tiles), bytes1, plan.cluster,
+      stream, static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(out),
+      static_cast<const float*>(dout), static_cast<float*>(dq), lse2, delta,
+      S, H, causal, scale, scale_log2);
+  if (err != cudaSuccess) return err;
+  return launch_clusters(
+      pass2, dim3(N * H * plan.cluster, tiles), bytes2,
+      plan.cluster, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse2),
+      static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), S, H, causal, scale, scale_log2);
+}
+
 template <typename T, int DH>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* out, const void* dout, void* dq, void* dk,
                    void* dv, float* lse2, float* delta, int N, int S, int H,
-                   int causal, cudaStream_t stream) {
+                   int causal, Plan plan, cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value && DH == 8) {
+    if (plan.rows != 128 || plan.tile != kTcTile || plan.split != 1 ||
+        plan.stages != 1 || plan.cluster != 1)
+      return cudaErrorInvalidValue;
     return launch_tc(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S, H,
                      causal, stream);
   } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    using L = MmaLayout<DH>;
+    if (plan.rows != 64 || plan.tile != L::kTile || plan.split != L::kSplit ||
+        plan.stages != L::kStages || plan.cluster != 1)
+      return cudaErrorInvalidValue;
     return launch_mma<DH>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
                           H, causal, stream);
+  } else if constexpr (DH <= 16) {
+    if (plan.rows != kRowThreads / (DH / kRowLane) ||
+        plan.tile != kRowTile || plan.split != 1 || plan.stages != 1 ||
+        plan.cluster != 1)
+      return cudaErrorInvalidValue;
+    return launch_rows<DH>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
+                           H, causal, stream);
   } else {
-    constexpr int kRows = kThreads / (DH / lane_dims<DH>());
-    const dim3 grid(N * H, (S + kRows - 1) / kRows);
-    const float scale = 1.0f / sqrtf((float)DH);
-    const float scale_log2 = scale * kLog2e;
-    flash_bwd_dq_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(out),
-        static_cast<const T*>(dout), static_cast<T*>(dq), lse2, delta, S, H,
-        causal, scale, scale_log2);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    flash_bwd_dkdv_kernel<T, DH><<<grid, kThreads, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<const T*>(dout), lse2, delta,
-        static_cast<T*>(dk), static_cast<T*>(dv), S, H, causal, scale,
-        scale_log2);
-    return cudaGetLastError();
+    using L = F32Layout<DH>;
+    // clusters of 1 or 2: 4 ran slower than 2 at every head dim timed
+    if (plan.rows != kF32Rows || plan.tile != L::kTile || plan.split != 1 ||
+        plan.stages != L::kStages || plan.cluster < 1 || plan.cluster > 2)
+      return cudaErrorInvalidValue;
+    return launch_f32<DH>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
+                          H, causal, plan, stream);
   }
 }
 
@@ -1151,29 +1771,30 @@ template <typename T>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v,
                         const void* out, const void* dout, void* dq, void* dk,
                         void* dv, float* lse2, float* delta, int N, int S,
-                        int H, int dh, int causal, cudaStream_t stream) {
+                        int H, int dh, int causal, Plan plan,
+                        cudaStream_t stream) {
   switch (dh) {
     case 8:
       return launch<T, 8>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
-                          H, causal, stream);
+                          H, causal, plan, stream);
     case 16:
       return launch<T, 16>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
-                           H, causal, stream);
+                           H, causal, plan, stream);
     case 32:
       return launch<T, 32>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
-                           H, causal, stream);
+                           H, causal, plan, stream);
     case 64:
       return launch<T, 64>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N, S,
-                           H, causal, stream);
+                           H, causal, plan, stream);
     case 128:
       return launch<T, 128>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N,
-                            S, H, causal, stream);
+                            S, H, causal, plan, stream);
     case 192:
       return launch<T, 192>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N,
-                            S, H, causal, stream);
+                            S, H, causal, plan, stream);
     case 256:
       return launch<T, 256>(q, k, v, out, dout, dq, dk, dv, lse2, delta, N,
-                            S, H, causal, stream);
+                            S, H, causal, plan, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1186,24 +1807,27 @@ extern "C" {
 // q, k, v, out, dout, dq, dk, dv: (N, S, H*dh), contiguous, 16-byte
 // aligned.  lse2, delta: float32 (N, H, S) scratch.  dtype: 0 = float32,
 // 1 = bfloat16.  dh in {8, 16, 32, 64, 128, 192, 256}.  N * H runs on grid
-// x (up to 2^31 - 1), the row tiles on grid y (S up to 65535 * 4 at dh 192
-// and 256).
+// x (up to 2^31 - 1, times the cluster size), the row tiles on grid y.
+// rows, tile, split, stages, cluster: the wrapper's
+// launch plan, which must be a geometry built for this dtype and head dim.
 // Launches pass 1 then pass 2 on `stream`; returns the cudaError_t of the
 // launches.
 int qaig_flash_attention_bwd(const void* q, const void* k, const void* v,
                              const void* out, const void* dout, void* dq,
                              void* dk, void* dv, void* lse2, void* delta,
                              int N, int S, int H, int dh, int causal,
-                             int dtype, void* stream) {
+                             int dtype, int rows, int tile, int split,
+                             int stages, int cluster, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse2);
   float* d = static_cast<float*>(delta);
+  const Plan plan{rows, tile, split, stages, cluster};
   if (dtype == 0)
     return dispatch_dh<float>(q, k, v, out, dout, dq, dk, dv, l, d, N, S, H,
-                              dh, causal, st);
+                              dh, causal, plan, st);
   if (dtype == 1)
     return dispatch_dh<__nv_bfloat16>(q, k, v, out, dout, dq, dk, dv, l, d,
-                                      N, S, H, dh, causal, st);
+                                      N, S, H, dh, causal, plan, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -16,6 +16,7 @@ runs at import time: the first CUDA call builds every source at once, one
 """
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -123,3 +124,11 @@ def check(library, err):
 def stream_handle(tensor):
     import torch
     return torch.cuda.current_stream(tensor.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device):
+    """Streaming multiprocessors of a CUDA device (the launch plans size
+    their grids by it)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -12,14 +12,18 @@ softmax over the image's SHARED prefix (slots ``< index0`` of slot-minor
   bf16 scales (N, H, S) folded into the scores (K) and the probabilities
   (V) (kernel C).
 
-Layout.  The caches stay slot-minor, (N, H, dh, S), as in the JAX package:
-the kernel (``qaig_tpu_torch/csrc/decode_attention.cu``) reads that layout
-directly, neighbouring threads on neighbouring slots, one block per
-(image, head) streaming the prefix once for all B rollouts.
+Layout.  The caches stay slot-minor, (N, H, dh, S), as in the JAX package,
+and the kernels (``qaig_tpu_torch/csrc/decode_attention.cu``) read that
+layout directly.  Kernel B cuts each (image, head) prefix into the slot
+ranges of :func:`launch_plan` and runs one cluster of CTAs per (image,
+head), each CTA streaming its range with 16-byte copies and the cluster
+combining the partial softmax states through distributed shared memory
+(deterministic, one launch).  Kernel C keeps one block per (image, head),
+streaming the int8 prefix once for all B rollouts.
 
-On CUDA tensors both functions launch the kernel (one CUDA source,
-instantiated for a working-dtype or an int8 prefix); on CPU tensors they
-run :func:`shared_prefix_attention_reference`, the plain PyTorch version.
+On CUDA tensors both functions launch their kernel (one CUDA source); on
+CPU tensors they run :func:`shared_prefix_attention_reference`, the plain
+PyTorch version.
 A CUDA input the kernel does not take raises.  Any ``bw >= 1`` is taken,
 including crossing segments whose width is not a multiple of 8.
 
@@ -45,7 +49,10 @@ import torch
 from qaig_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_INT8_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                  + [ctypes.c_void_p])
+_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p])
 _MAX_SMEM = 227 * 1024
 
 
@@ -97,8 +104,8 @@ def shared_prefix_attention_fused_t(q, kt_shared, vt_shared, k_block,
     if q.device.type == "cpu":
         return shared_prefix_attention_reference(
             q, kt_shared, vt_shared, k_block, v_block, index0, block_index)
-    out = _launch(q, kt_shared, vt_shared, None, None, k_block, v_block,
-                  index0, block_index)
+    out = _launch_split(q, kt_shared, vt_shared, k_block, v_block, index0,
+                        block_index)
     shared_prefix_attention_fused_t.launches += 1
     return out
 
@@ -116,18 +123,192 @@ def shared_prefix_attention_fused_int8(q, k8t_shared, k_scale, v8t_shared,
         return shared_prefix_attention_reference(
             q, k8t_shared, v8t_shared, k_block, v_block, index0,
             block_index, k_scale=k_scale, v_scale=v_scale)
-    out = _launch(q, k8t_shared, v8t_shared, k_scale, v_scale, k_block,
-                  v_block, index0, block_index)
+    out = _launch_int8(q, k8t_shared, v8t_shared, k_scale, v_scale, k_block,
+                       v_block, index0, block_index)
     shared_prefix_attention_fused_int8.launches += 1
     return out
 
 
 shared_prefix_attention_fused_int8.launches = 0
 
+# kernel B's geometry (decode_attention.cu: kSlots, the ring, split_smem)
+SPLIT_SLOTS = 64        # prefix slots per ring tile
+# CTAs a cluster (decode_attention.cu: kMaxSplits): on the H100 clusters
+# of 4 and 8 ran slower than pairs at every timed shape (PERF.md)
+SPLIT_MAX = 2
+SPLIT_MIN_SLOTS = 32    # fewest prefix slots worth a CTA of their own
+# ring slots (kMaxStages): two were as fast as three or four, or faster, at
+# every shape swept on the H100, and leave room for two CTAs an SM
+SPLIT_MAX_STAGES = 2
+_SM_SMEM = 228 * 1024   # shared memory of an SM (1 KB of it reserved a CTA)
+_SM_CTAS = 2            # CTAs an SM holds by registers (128 a thread)
 
-def _launch(q, k_shared, v_shared, k_scale, v_scale, k_block, v_block,
-            index0, block_index):
-    quant = k_scale is not None
+
+def _split_floats(b, dh):
+    b4 = -(-b // 4) * 4
+    g4, parts = b4 // 4, 1
+    while parts < 8 and 2 * parts * g4 <= 8:
+        parts *= 2
+    f = dh * b4 + b * dh + parts * b4 * SPLIT_SLOTS + 3 * b4
+    return -(-f // 4) * 4
+
+
+def _slot_elems(b, dh, itemsize):
+    vec = 16 // itemsize
+    return -(-max(dh * (SPLIT_SLOTS + vec), b * (dh + vec)) // vec) * vec
+
+
+def segment_chunk(b, dh, itemsize):
+    """Segment slots of all ``b`` rollouts one ring slot holds."""
+    return min(SPLIT_SLOTS, _slot_elems(b, dh, itemsize)
+               // (b * (dh + 16 // itemsize)))
+
+
+def split_smem(b, dh, itemsize, stages):
+    """Shared memory of one kernel-B CTA (``split_smem`` of the source)."""
+    return (_split_floats(b, dh) * 4
+            + stages * 2 * _slot_elems(b, dh, itemsize) * itemsize)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(n, b, heads, dh, index0, sm_count, itemsize, block_index,
+          splits):
+    """:func:`launch_plan`; ``splits`` 1 or 2 forces the split (phase 3 of
+    ``chip_smoke.py`` times the one the plan did not take), 0 chooses."""
+    chunks = -(-(block_index + 1) // segment_chunk(b, dh, itemsize))
+
+    def chunk_of(s):
+        return -(-(-(-index0 // s)) // 8) * 8
+
+    def geometry(splits):
+        chunk = max(chunk_of(splits), 1)
+        ranges = [(r * chunk, min(index0, (r + 1) * chunk))
+                  for r in range(splits)]
+        # the busiest rank's tiles: its prefix tiles and its share of the
+        # segment's chunks (rank r: r, r + splits, ...)
+        tiles = max(-(-(hi - lo) // SPLIT_SLOTS) + -(-(chunks - r) // splits)
+                    for r, (lo, hi) in enumerate(ranges))
+        stages = max(1, min(SPLIT_MAX_STAGES, tiles))
+        while stages > 1 and split_smem(b, dh, itemsize, stages) > _MAX_SMEM:
+            stages -= 1
+        smem = split_smem(b, dh, itemsize, stages)
+        per_sm = max(1, min(_SM_CTAS, _SM_SMEM // (smem + 1024)))
+        return {"splits": splits, "chunk": chunk, "ranges": ranges,
+                "stages": stages, "smem": smem, "ctas": n * heads * splits,
+                "waves": -(-n * heads * splits // (sm_count * per_sm))}
+
+    if splits:
+        if (not 1 <= splits <= SPLIT_MAX
+                or (splits > 1 and (splits - 1) * chunk_of(splits) >= index0)):
+            raise ValueError(f"launch_plan: no split of index0 {index0} in "
+                             f"{splits} non-empty ranges")
+        return geometry(splits)
+    plan = geometry(1)
+    want = -(-sm_count // max(1, n * heads))
+    while plan["splits"] < min(want, SPLIT_MAX) and (
+            index0 >= 2 * plan["splits"] * SPLIT_MIN_SLOTS
+            or (chunks >= 2 * plan["splits"]
+                and index0 >= 2 * plan["splits"] * 8)):
+        wider = geometry(2 * plan["splits"])
+        if (wider["waves"] > 1
+                or -(-index0 // wider["chunk"]) != wider["splits"]):
+            break
+        plan = wider
+    return plan
+
+
+def launch_plan(n, b, heads, dh, index0, sm_count, itemsize=2,
+                block_index=0):
+    """Kernel B's split of each (image, head) prefix, from the shape alone.
+
+    ``splits`` (1 or 2) CTAs form one cluster per (image, head) and
+    rank r streams prefix slots ``ranges[r]``: contiguous, in order,
+    covering [0, index0) exactly once, none empty, each a multiple of 8
+    slots long but the last (so every range starts on a 16-byte chunk).
+    The segment (slots 0 .. ``block_index`` of every rollout) is cut in
+    chunks of :func:`segment_chunk` slots, dealt to the ranks in turn.
+    The split is the fewest CTAs that give each of the card's
+    ``sm_count`` SMs one (at most ``SPLIT_MAX``), where each CTA keeps at
+    least ``SPLIT_MIN_SLOTS`` prefix slots, or 8 and two segment chunks,
+    and every CTA runs in one wave (``waves``: of the CTAs an SM holds by
+    shared memory and registers; a second wave measured slower than no
+    split): a short prefix (index0 1) takes one CTA, whose range may be
+    empty only when index0 is 0.  ``stages`` ring slots (at most
+    ``SPLIT_MAX_STAGES``, at most the busiest rank's tiles, fewer where
+    shared memory would not hold them); ``smem`` is a CTA's shared memory
+    at ``itemsize`` bytes an element.  The returned dict is shared: copy
+    it to change it."""
+    return _plan(int(n), int(b), int(heads), int(dh), int(index0),
+                 int(sm_count), int(itemsize), int(block_index), 0)
+
+
+_checked = set()
+
+
+def _check_plan(q, b, dh, plan):
+    """Once per shape and geometry: the plan's shared memory is the
+    kernel's (``split_smem`` is written in the source and mirrored here),
+    within a block's, and the card holds a cluster of ``splits`` CTAs of
+    it (``cudaOccupancyMaxActiveClusters``)."""
+    name = "shared_prefix_attention_fused_t"
+    key = (q.device.index, b, dh, q.dtype, plan["splits"], plan["stages"])
+    if key in _checked:
+        return
+    smem = cuda_build.function(
+        "decode_attention", "qaig_prefix_split_smem", [ctypes.c_int] * 4,
+        ctypes.c_size_t)(b, dh, q.element_size(), plan["stages"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"{name}: the plan's shared memory {plan['smem']}"
+                           f" is not the kernel's {smem}")
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"{name}: {b} rollouts x dh {dh} need {smem} bytes of shared "
+            f"memory, above the {_MAX_SMEM} a block has")
+    fn = cuda_build.function("decode_attention",
+                             "qaig_prefix_split_max_clusters",
+                             [ctypes.c_int] * 5)
+    with torch.cuda.device(q.device):
+        clusters = fn(b, dh, _DTYPES[q.dtype], plan["splits"],
+                      plan["stages"])
+    if clusters < 1:
+        raise RuntimeError(f"{name}: the card holds no cluster of "
+                           f"{plan['splits']} CTAs at {smem} bytes "
+                           f"(cudaOccupancyMaxActiveClusters: {clusters})")
+    _checked.add(key)
+
+
+def _launch_split(q, k_shared, v_shared, k_block, v_block, index0,
+                  block_index, plan=None):
+    """Kernel B in :func:`launch_plan`'s geometry, or in ``plan`` (a
+    ``_plan`` of another split, for timing); not counted."""
+    _check_kernel_inputs(q, k_shared, v_shared, None, None, k_block,
+                         v_block, index0, block_index)
+    n, heads, dh, s = k_shared.shape
+    b = q.shape[0] // n
+    if plan is None:
+        plan = launch_plan(n, b, heads, dh, index0,
+                           cuda_build.sm_count(q.device), q.element_size(),
+                           block_index)
+    _check_plan(q, b, dh, plan)
+    elem = q.element_size()
+    vec = (int(s * elem % 16 == 0 and k_shared.data_ptr() % 16 == 0
+               and v_shared.data_ptr() % 16 == 0)
+           | 2 * int(dh * elem % 16 == 0 and k_block.data_ptr() % 16 == 0
+                     and v_block.data_ptr() % 16 == 0))
+    out = torch.empty_like(q)
+    fn = cuda_build.function("decode_attention",
+                             "qaig_prefix_split_attention", _SPLIT_ARGTYPES)
+    err = fn(q.data_ptr(), k_shared.data_ptr(), v_shared.data_ptr(),
+             k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
+             n, b, heads, dh, s, k_block.shape[2], int(index0),
+             int(block_index), plan["splits"], plan["chunk"], plan["stages"],
+             vec, _DTYPES[q.dtype], cuda_build.stream_handle(q))
+    cuda_build.check("decode_attention", err)
+    return out
+
+
+def _launch_int8(q, k_shared, v_shared, k_scale, v_scale, k_block, v_block,
+                 index0, block_index):
     _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
                          v_block, index0, block_index)
     n, heads, dh, s = k_shared.shape
@@ -143,13 +324,13 @@ def _launch(q, k_shared, v_shared, k_scale, v_scale, k_block, v_block,
             f"bytes of shared memory, above the {_MAX_SMEM} a block has")
     out = torch.empty_like(q)
     fn = cuda_build.function("decode_attention",
-                             "qaig_shared_prefix_attention", _ARGTYPES)
+                             "qaig_shared_prefix_attention_int8",
+                             _INT8_ARGTYPES)
     err = fn(q.data_ptr(), k_shared.data_ptr(), v_shared.data_ptr(),
-             k_scale.data_ptr() if quant else None,
-             v_scale.data_ptr() if quant else None,
+             k_scale.data_ptr(), v_scale.data_ptr(),
              k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
              n, b, heads, dh, s, bw, int(index0), int(block_index),
-             _DTYPES[q.dtype], int(quant), cuda_build.stream_handle(q))
+             _DTYPES[q.dtype], cuda_build.stream_handle(q))
     cuda_build.check("decode_attention", err)
     return out
 
@@ -353,7 +534,8 @@ def _launch_flat(q, k_il, v_il, k_scale, v_scale, k_block, v_block, index0,
     index0 = int(index0)
     # about two blocks per SM: the prefix in `splits` chunks of `chunk`
     # slots (at least 8), one block each, plus one block for the segment
-    splits = max(1, min(-(-2 * _sm_count(q.device) // n), -(-index0 // 8)))
+    splits = max(1, min(-(-2 * cuda_build.sm_count(q.device) // n),
+                        -(-index0 // 8)))
     chunk = -(-index0 // splits)
     splits = -(-index0 // chunk) if index0 else 1
     smem_fn = cuda_build.function(
@@ -381,11 +563,6 @@ def _launch_flat(q, k_il, v_il, k_scale, v_scale, k_block, v_block, index0,
              int(quant), float(math.sqrt(dh)), cuda_build.stream_handle(q))
     cuda_build.check("decode_attention_flat", err)
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device):
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_flat_inputs(name, q, k_il, v_il, k_scale, v_scale, k_block,

@@ -28,7 +28,10 @@ are formed in float32.  On CUDA tensors it launches
 ``qaig_tpu_torch/csrc/flash_attention_bwd.cu`` (no (S, S) tensor in device
 memory; bf16 on ``mma.sync`` at every head dim, float32 on exact FMAs);
 on CPU tensors it runs :func:`flash_attention_backward`, the plain
-tensor products that XLA's einsums form there.
+tensor products that XLA's einsums form there.  Its form and geometry
+(threads, fixed rows a block, streamed tile, head-dim split, ring stages)
+come from :func:`backward_launch_plan`, which the kernel checks against
+what it was built with.
 """
 
 import ctypes
@@ -41,9 +44,9 @@ from qaig_tpu_torch.ops import cuda_build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernels instantiate
 HEAD_DIMS = (8, 16, 32, 64, 128, 192, 256)
-_MAX_S = 65535 * 4   # grid y holds the backward's 4-row tiles past dh 128
+_MAX_S = 65535 * 64  # grid y holds 64-row tiles
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
                  + [ctypes.c_void_p])
 
 
@@ -146,13 +149,94 @@ flash_attention.launches = 0
 flash_attention.backward_calls = 0
 
 
+# float32 backward at dh 32-256: (streamed tile, ring depth) by head dim,
+# as flash_attention_bwd.cu's F32Layout builds them
+F32_BACKWARD_GEOMETRY = {32: (64, 1), 64: (64, 2), 128: (64, 2),
+                         192: (32, 2), 256: (32, 1)}
+
+
+def backward_launch_plan(dtype, dh, s, heads, n, sm_count=132):
+    """Form and geometry of the backward kernel pair for a head dim, from
+    the shape alone (the kernel refuses a plan it was not built with).
+
+    ``form``: ``"bf16_mma_dh8"`` (``mma.sync`` m16n8k8, 8 warps of 16 rows,
+    mirrored row groups), ``"bf16_mma"`` (``mma.sync`` m16n8k16, 4 warps of
+    16 rows), ``"f32_rows"`` (dh 8 and 16: a row in the registers of dh / 8
+    lanes, streamed keys broadcast from shared memory) or ``"f32_fma"``
+    (dh 32-256: register-blocked float32 FMAs, 16 x 16 threads of 4 x 4
+    micro-tiles); ``rows`` fixed rows a block (queries in pass 1, keys in
+    pass 2), ``tile`` streamed rows a tile, ``split`` head-dim parts on
+    grid z (``bf16_mma``),
+    ``stages`` ring slots, ``cluster`` CTAs that share a block's streamed
+    rows (``f32_fma``: 2 when a pass has fewer blocks than the card has
+    SMs, ``sm_count``, and at least two streamed tiles), ``grid`` (x counts
+    the clusters' CTAs; both passes), ``smem1`` / ``smem2`` bytes of
+    dynamic shared memory."""
+    return _backward_plan(dtype, dh, s, heads, n, sm_count, None)
+
+
+def _backward_plan(dtype, dh, s, heads, n, sm_count, cluster):
+    """:func:`backward_launch_plan`; ``cluster`` 1 or 2 forces the
+    ``f32_fma`` cluster size (phase 3 of ``chip_smoke.py`` times the one
+    the plan did not take), None chooses."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"backward_launch_plan: no head dim {dh}")
+    f32 = dtype in (torch.float32, "f32", "float32")
+    bh = n * heads
+    chosen, cluster = cluster, cluster or 1
+    if not f32 and dh == 8:
+        form, threads, rows, tile, split = "bf16_mma_dh8", 256, 128, 256, 1
+        stages = 1
+        smem1 = smem2 = 0
+    elif not f32:
+        form, threads, rows = "bf16_mma", 128, 64
+        tile = 32 if dh >= 192 else 64
+        split = 2 if dh >= 128 else 1
+        stages = 4 if dh <= 64 else 2
+        smem1 = smem2 = ((2 * 64 + 2 * stages * tile) * (dh + 8) * 2
+                         + stages * tile * 8)
+    elif dh <= 16:
+        form, threads, rows, tile, split = "f32_rows", 128, 128 * 8 // dh, \
+            128, 1
+        stages = 1
+        smem1 = smem2 = 0
+    else:
+        form, threads, rows = "f32_fma", 256, 64
+        tile, stages = F32_BACKWARD_GEOMETRY[dh]
+        split = 1
+        ld = dh + 4
+        fixed = 2 * rows * ld + rows * (tile + 4)
+        smem1 = (fixed + 2 * stages * tile * ld) * 4
+        smem2 = (fixed + 2 * stages * tile * (ld + 1)) * 4
+        if chosen is None and -(-s // tile) >= 2 \
+                and bh * -(-s // rows) < sm_count:
+            cluster = 2
+    return {"form": form, "threads": threads, "rows": rows, "tile": tile,
+            "split": split, "stages": stages, "cluster": cluster,
+            "grid": (bh * cluster, -(-s // rows), split),
+            "smem1": smem1, "smem2": smem2}
+
+
 def fused_flash_attention_backward(q, k, v, out, dout, heads, causal):
     """The backward kernel: (dq, dk, dv) of :func:`flash_attention` at
     (q, k, v) with saved output ``out`` and output gradient ``dout``, all
     (N, S, H*dh) on the current CUDA device in q's dtype; the function of
     :func:`flash_attention_backward`.  ``dout`` may be non-contiguous (as
     autograd hands it over).  Two launches (dq; dk and dv) with float32
-    (N, H, S) scratch for each row's log-sum-exp and delta."""
+    (N, H, S) scratch for each row's log-sum-exp and delta, in the geometry
+    of :func:`backward_launch_plan`."""
+    grads = _backward(q, k, v, out, dout, heads, causal)
+    fused_flash_attention_backward.launches += 1
+    return grads
+
+
+fused_flash_attention_backward.launches = 0
+
+
+def _backward(q, k, v, out, dout, heads, causal, plan=None):
+    """The backward kernel in :func:`backward_launch_plan`'s geometry, or
+    in ``plan`` (a ``_backward_plan`` of another cluster size, for
+    timing); not counted."""
     _check_kernel_inputs(q, k, v, heads)
     dout = dout.contiguous()
     for name, x in (("out", out), ("dout", dout)):
@@ -167,6 +251,9 @@ def fused_flash_attention_backward(q, k, v, out, dout, heads, causal):
         raise ValueError("flash_attention backward: inputs must be 16-byte "
                          "aligned")
     n, s, d = q.shape
+    if plan is None:
+        plan = backward_launch_plan(q.dtype, d // heads, s, heads, n,
+                                    cuda_build.sm_count(q.device))
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lse2, delta = (torch.empty(n, heads, s, dtype=torch.float32,
                                device=q.device) for _ in range(2))
@@ -175,13 +262,11 @@ def fused_flash_attention_backward(q, k, v, out, dout, heads, causal):
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
              lse2.data_ptr(), delta.data_ptr(), n, s, heads, d // heads,
-             int(causal), _DTYPES[q.dtype], cuda_build.stream_handle(q))
+             int(causal), _DTYPES[q.dtype], plan["rows"], plan["tile"],
+             plan["split"], plan["stages"], plan["cluster"],
+             cuda_build.stream_handle(q))
     cuda_build.check("flash_attention_bwd", err)
-    fused_flash_attention_backward.launches += 1
     return dq, dk, dv
-
-
-fused_flash_attention_backward.launches = 0
 
 
 def _launch(q, k, v, heads, causal):

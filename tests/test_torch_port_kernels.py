@@ -71,6 +71,95 @@ def test_decode_kernels_match_plain(cuda, dtype, b, bw, s, index0,
                                atol=TOL[dtype])
 
 
+# (n, b, bw, s, index0, block_index): the generation path's 8 images at
+# index0 64 and 256, index0 200 (ranges of 56, not a multiple of a tile),
+# index0 1, B 32 at stage 0's S 32, a prefix of S 17 (rows not 16-byte
+# aligned: the element loads) and an empty prefix
+_SPLIT_CASES = [(8, 4, 8, 256, 64, 3), (8, 4, 8, 256, 256, 7),
+                (16, 4, 8, 256, 200, 5), (16, 4, 8, 256, 1, 0),
+                (8, 32, 16, 32, 32, 15), (8, 32, 16, 256, 256, 15),
+                (3, 4, 7, 17, 17, 6), (3, 4, 8, 64, 0, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,b,bw,s,index0,block_index", _SPLIT_CASES)
+def test_decode_split_kernel_matches_plain(cuda, dtype, n, b, bw, s, index0,
+                                           block_index):
+    """Kernel B (the prefix split across a cluster) against its plain
+    version at the plan's split, and in 1 and 2 CTAs a cluster where this
+    index0 splits in that many non-empty ranges; launched once a call."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=cuda).manual_seed(index0 + b + s)
+    h, dh = 8, 64
+    q = _rand(gen, n * b, 1, h * dh, dtype=dtype)
+    kt, vt = (_rand(gen, n, h, dh, s, dtype=dtype) for _ in range(2))
+    kb, vb = (_rand(gen, n * b, h, bw, dh, dtype=dtype) for _ in range(2))
+    want = da.shared_prefix_attention_reference(q, kt, vt, kb, vb, index0,
+                                                block_index)
+    launches = da.shared_prefix_attention_fused_t.launches
+    got = da.shared_prefix_attention_fused_t(q, kt, vt, kb, vb, index0,
+                                             block_index)
+    assert da.shared_prefix_attention_fused_t.launches == launches + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    for splits in (1, 2):
+        try:
+            plan = da._plan(n, b, h, dh, index0, 132, q.element_size(),
+                            block_index, splits)
+        except ValueError:   # no split of index0 in non-empty ranges
+            assert splits == 2 and index0 <= 8
+            continue
+        got = da._launch_split(q, kt, vt, kb, vb, index0, block_index, plan)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=TOL[dtype])
+    # the C side refuses a split it was not built for
+    plan = da._plan(n, b, h, dh, index0, 132, q.element_size(), block_index,
+                    1)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        da._launch_split(q, kt, vt, kb, vb, index0, block_index,
+                         dict(plan, splits=4))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("dh,s", [(8, 64), (20, 64), (20, 17), (12, 40)])
+def test_decode_split_kernel_takes_any_head_dim(cuda, dtype, dh, s):
+    """Kernel B at head dims whose block rows (dh 20 and 12 in bf16, 12 in
+    float32) or prefix rows (S 17) are not whole 16-byte chunks: the
+    element loads instead of cp.async, in clusters of 1 and 2."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=cuda).manual_seed(dh + s)
+    n, b, h, bw = 3, 4, 4, 8
+    q = _rand(gen, n * b, 1, h * dh, dtype=dtype)
+    kt, vt = (_rand(gen, n, h, dh, s, dtype=dtype) for _ in range(2))
+    kb, vb = (_rand(gen, n * b, h, bw, dh, dtype=dtype) for _ in range(2))
+    want = da.shared_prefix_attention_reference(q, kt, vt, kb, vb, s - 1, 5)
+    for splits in (1, 2):
+        plan = da._plan(n, b, h, dh, s - 1, 132, q.element_size(), 5, splits)
+        got = da._launch_split(q, kt, vt, kb, vb, s - 1, 5, plan)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_split_kernel_is_deterministic(cuda, dtype):
+    """Kernel B combines the CTAs' partials in rank order: two calls give
+    the same bits (greedy tokens on the card stay equal run to run)."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    n, b, h, dh, s, bw = 8, 4, 8, 64, 256, 8
+    q = _rand(gen, n * b, 1, h * dh, dtype=dtype)
+    kt, vt = (_rand(gen, n, h, dh, s, dtype=dtype) for _ in range(2))
+    kb, vb = (_rand(gen, n * b, h, bw, dh, dtype=dtype) for _ in range(2))
+    assert da.launch_plan(n, b, h, dh, 256, 132)["splits"] > 1
+    first = da.shared_prefix_attention_fused_t(q, kt, vt, kb, vb, 256, 7)
+    for _ in range(3):
+        again = da.shared_prefix_attention_fused_t(q, kt, vt, kb, vb, 256, 7)
+        assert torch.equal(first, again)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,bw,s,index0,block_index",
                          [(4, 8, 256, 256, 7), (4, 8, 256, 96, 3),
@@ -214,6 +303,34 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, dtype, dh, s,
         assert g.dtype == dtype and g.shape == q.shape
         torch.testing.assert_close(g.float(), w.float(), rtol=0,
                                    atol=GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dh", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("cluster", [1, 2])
+@pytest.mark.parametrize("s,causal", [(13, True), (64, False), (255, True),
+                                      (200, False)])
+def test_flash_attention_f32_backward_clusters_match_plain(cuda, dh, cluster,
+                                                           s, causal):
+    """The float32 backward's register-blocked form in clusters of 1 and
+    2 CTAs sharing a block's streamed rows; a plan the kernel was not built
+    with is refused."""
+    from qaig_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=cuda).manual_seed(s + dh + cluster)
+    heads = 3
+    q, k, v, dout = (_rand(gen, 2, s, heads * dh, dtype=torch.float32)
+                     for _ in range(4))
+    out = fa.flash_attention(q, k, v, heads, causal=causal)
+    plan = fa._backward_plan(torch.float32, dh, s, heads, 2, 132, cluster)
+    got = fa._backward(q, k, v, out, dout, heads, causal, plan=plan)
+    want = fa.flash_attention_backward(q, k, v, out, dout, heads, causal)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=GRAD_TOL[torch.float32])
+    for bad in (dict(stages=3), dict(tile=16), dict(split=2),
+                dict(cluster=4)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            fa._backward(q, k, v, out, dout, heads, causal,
+                         plan=dict(plan, **bad))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -8,6 +8,8 @@ Tolerance: atol 1e-5 (float32, reduction order differs), bit-exact for
 the int8 quantizer and the pure index ops.
 """
 
+import math
+
 import numpy as np
 import pytest
 import jax.numpy as jnp
@@ -64,6 +66,112 @@ def test_shared_prefix_attention_matches_jax(bw, index0, block_index):
     assert got.shape == (8, 1, 512)
     np.testing.assert_allclose(got, np.asarray(want_kernel), atol=ATOL)
     np.testing.assert_allclose(got, np.asarray(want_einsum), atol=ATOL)
+
+
+def _split_combine(q, kt, vt, kb, vb, index0, block_index, plan, chunk):
+    """Kernel B's arithmetic in plain PyTorch: each rank's partial softmax
+    (base-2 max, sum and B x dh accumulator) over its slot range of
+    ``plan`` and its segment chunks (``chunk`` slots each, dealt to the
+    ranks in turn), combined in rank order by the kernel's rule (weights
+    2^(m_r - M), a rank at -inf weighing 0)."""
+    n, h, dh, _ = kt.shape
+    b = q.shape[0] // n
+    splits = len(plan["ranges"])
+    c = math.log2(math.e) / math.sqrt(dh)
+    qg = q.reshape(n, b, h, dh)
+    kseg = kb[:, :, :block_index + 1].reshape(n, b, h, -1, dh)
+    vseg = vb[:, :, :block_index + 1].reshape(n, b, h, -1, dh)
+    slots = torch.arange(block_index + 1)
+    ms, ls, accs = [], [], []
+    for r, (lo, hi) in enumerate(plan["ranges"]):
+        mine = (slots // chunk) % splits == r
+        scores = torch.cat([
+            torch.einsum("nbhd,nhds->nbhs", qg, kt[..., lo:hi]),
+            torch.einsum("nbhd,nbhtd->nbht", qg, kseg[:, :, :, mine])],
+            dim=-1) * c
+        vals = torch.cat([
+            vt[..., lo:hi].permute(0, 1, 3, 2)[:, None].expand(
+                n, b, h, hi - lo, dh), vseg[:, :, :, mine]], dim=3)
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp2(scores - m)
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("nbhs,nbhsd->nbhd", p, vals))
+    top = torch.stack(ms).amax(0)
+    total, out = 0.0, 0.0
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.where(m == float("-inf"), torch.zeros_like(m),
+                        torch.exp2(m - top))
+        total = total + l * w
+        out = out + acc * w
+    return (out / total).reshape(q.shape)
+
+
+@pytest.mark.parametrize("bw,index0,block_index,chunk,splits",
+                         [(8, 200, 5, 16, None), (8, 256, 7, 16, None),
+                          (7, 64, 3, 16, None), (8, 1, 0, 16, None),
+                          (8, 200, 7, 2, 2), (7, 64, 6, 1, 1),
+                          (8, 256, 7, 1, 2)])
+def test_decode_split_combine_matches_jax(bw, index0, block_index, chunk,
+                                          splits):
+    """Kernel B's split of the prefix into its plan's slot ranges (or a
+    forced 1 or 2) and of the segment into chunks
+    dealt to the ranks in turn (16 slots: the plan's at 4 rollouts of dh
+    64; 2 and 1: every rank gets some), and the rank-order combine, in
+    plain PyTorch, against the JAX Pallas kernel (interpreted): the same
+    function as one softmax over all slots."""
+    from qaig_tpu.ops.decode_attention import shared_prefix_attention_fused_t
+    from qaig_tpu_torch.ops.decode_attention import _plan, segment_chunk
+
+    q, kt, vt, kb, vb = _decode_inputs(bw=bw, seed=index0 + chunk)
+    plan = _plan(2, 4, 8, 64, index0, 132, 4, block_index, splits or 0)
+    assert plan["splits"] == (splits or {1: 1, 64: 2, 200: 2, 256: 2}[index0])
+    assert segment_chunk(4, 64, 4) == 16
+    got = _split_combine(_t(q), _t(kt), _t(vt), _t(kb), _t(vb), index0,
+                         block_index, plan, chunk).numpy()
+    want = shared_prefix_attention_fused_t(
+        _j(q), _j(kt), _j(vt), _j(kb), _j(vb), jnp.asarray(index0),
+        jnp.asarray(block_index), interpret=None)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("b", [4, 32])
+@pytest.mark.parametrize("index0", [1, 7, 64, 200, 256])
+def test_decode_launch_plan(n, b, index0):
+    """Kernel B's split on the H100 (132 SMs): contiguous slot ranges in
+    rank order covering [0, index0) once, none empty, each starting on a
+    16-byte chunk; 1 or 2 CTAs a cluster (at most the measured best,
+    ``SPLIT_MAX``), one at index0 1, and at least one CTA an SM
+    wherever the prefix gives each 32 slots and the cap allows; every CTA
+    in one wave; the ring (at most two slots) and shared memory within a
+    block's 227 KB."""
+    from qaig_tpu_torch.ops.decode_attention import (SPLIT_MAX,
+                                                     SPLIT_MAX_STAGES,
+                                                     launch_plan, split_smem)
+
+    heads, dh = 8, 64
+    for itemsize in (2, 4):
+        plan = launch_plan(n, b, heads, dh, index0, 132, itemsize)
+        splits, ranges = plan["splits"], plan["ranges"]
+        assert 1 <= splits <= SPLIT_MAX == 2 and len(ranges) == splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == index0
+        for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(index0, 0)]):
+            assert lo < hi == nxt and lo % 8 == 0
+            assert lo == ranges.index((lo, hi)) * plan["chunk"]
+        if index0 == 1:
+            assert splits == 1
+        if n * heads * splits < 132:
+            assert splits == SPLIT_MAX or index0 < 2 * splits * 32
+        assert plan["waves"] == 1
+        # the ring: two slots, or one where the busiest rank has one tile
+        # (its prefix slots, and on rank 0 the segment's one chunk)
+        busiest = max(-(-(hi - lo) // 64) + (r == 0)
+                      for r, (lo, hi) in enumerate(ranges))
+        assert plan["stages"] == min(SPLIT_MAX_STAGES, busiest) <= 2
+        assert plan["smem"] == split_smem(b, dh, itemsize, plan["stages"])
+        assert plan["smem"] <= 227 * 1024
+        assert plan["ctas"] == n * heads * splits
 
 
 def test_quantize_kv_t_bit_exact():
@@ -381,6 +489,68 @@ def test_non_cpu_tensors_take_the_backward_kernel():
         fa.fused_flash_attention_backward(x, x, x, x, x, 2, False)
     assert fa.flash_attention.backward_calls == calls + 1
     assert fa.fused_flash_attention_backward.launches == launches
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 128, 192, 256])
+def test_backward_launch_plan(dtype, dh):
+    """The backward kernel's form and geometry by head dim, at in_dim 512
+    (768 and 1024 past dh 128) in 8 rows of S 255 on the H100's 132 SMs:
+    float32 keeps a row in registers at dh 8 and 16 and takes
+    register-blocked FMAs (16 x 16 threads of 4-row micro-tiles over 64
+    fixed rows, 32-row streamed tiles at dh 192 and 256) from dh 32, its
+    streamed rows split over
+    clusters of 2 CTAs where a pass has fewer blocks than SMs; bf16 runs
+    on mma.sync (dh 8:
+    8 warps of 16 rows).  A split covers dh once, the rows split evenly
+    over the threads, the shared memory fits a block."""
+    from qaig_tpu_torch.ops.flash_attention import (F32_BACKWARD_GEOMETRY,
+                                                    _backward_plan,
+                                                    backward_launch_plan)
+
+    n, s = 8, 255
+    heads = {192: 4, 256: 4}.get(dh, 512 // dh)
+    plan = backward_launch_plan(torch.float32 if dtype == "f32"
+                                else torch.bfloat16, dh, s, heads, n)
+    want = {("f32", 8): ("f32_rows", 128, 1, 1, 1),
+            ("f32", 16): ("f32_rows", 128, 1, 1, 1),
+            ("f32", 32): ("f32_fma", 64, 1, 1, 1),
+            ("f32", 64): ("f32_fma", 64, 1, 2, 1),
+            ("f32", 128): ("f32_fma", 64, 1, 2, 2),
+            ("f32", 192): ("f32_fma", 32, 1, 2, 2),
+            ("f32", 256): ("f32_fma", 32, 1, 1, 2),
+            ("bf16", 8): ("bf16_mma_dh8", 256, 1, 1, 1),
+            ("bf16", 16): ("bf16_mma", 64, 1, 4, 1),
+            ("bf16", 32): ("bf16_mma", 64, 1, 4, 1),
+            ("bf16", 64): ("bf16_mma", 64, 1, 4, 1),
+            ("bf16", 128): ("bf16_mma", 64, 2, 2, 1),
+            ("bf16", 192): ("bf16_mma", 32, 2, 2, 1),
+            ("bf16", 256): ("bf16_mma", 32, 2, 2, 1)}[dtype, dh]
+    assert (plan["form"], plan["tile"], plan["split"], plan["stages"],
+            plan["cluster"]) == want
+    assert dh % plan["split"] == 0
+    part = dh // plan["split"]
+    tiles = -(-s // plan["rows"])
+    if plan["form"] == "f32_fma":
+        # 16 threads a row of the block, 4 rows each; 16 lanes share a
+        # part's columns in float2 or float4 groups
+        assert (plan["threads"], plan["rows"]) == (256, 64)
+        assert plan["rows"] == 16 * 4 and (part // 16) % 2 == 0
+        assert plan["tile"] % 16 == 0
+        assert (plan["cluster"] == 2) == (n * heads * tiles < 132)
+        assert (plan["tile"], plan["stages"]) == F32_BACKWARD_GEOMETRY[dh]
+        assert _backward_plan(torch.float32, dh, s, heads, n, 132,
+                              1)["cluster"] == 1
+    elif plan["form"] == "f32_rows":
+        # dh / 8 lanes a row, every lane of the block on one row
+        assert plan["rows"] * (dh // 8) == plan["threads"] == 128
+    else:
+        assert plan["rows"] // (plan["threads"] // 32) == 16
+    z = plan["split"] if plan["form"] == "bf16_mma" else 1
+    assert plan["grid"] == (n * heads * plan["cluster"], tiles, z)
+    assert max(plan["smem1"], plan["smem2"]) <= 227 * 1024
+    with pytest.raises(ValueError):
+        backward_launch_plan(torch.float32, 24, s, heads, n)
 
 
 @pytest.mark.parametrize("m,d,k,geometry,splits", [

@@ -215,6 +215,11 @@ _GRAD_CASES = [(heads, dh, s, causal)
                for s, causal in ((16, True), (16, False), (13, True),
                                  (64, False))
                for heads, dh in ((4, 8), (2, 32))]
+# the head dims of the float32 backward's strip form and its head-dim split
+# (dh 64-256), one or two heads, S 16 full and a ragged S 13 causal
+_GRAD_CASES += [(heads, dh, s, causal)
+                for s, causal in ((16, False), (13, True))
+                for heads, dh in ((2, 64), (2, 128), (1, 192), (1, 256))]
 
 
 @pytest.mark.parametrize(
