@@ -16,9 +16,10 @@ Phases (any failure exits non-zero and prints no result line):
 3. kernels -- hold each kernel against its plain PyTorch version on the
    card and time kernel, plain version, bound and a PyTorch yardstick:
    the decode kernels in bf16 and float32 (atol 2e-2 / 1e-5) at the
-   generation path's shapes (kernel B with its launch plan, its bits
-   equal over two calls, and timed in the split of 1 or 2 CTAs its plan
-   did not take), full-sequence attention there in bf16 and
+   generation path's shapes (kernels B and C, one kernel over a working
+   or an int8 prefix, each with its launch plan, its bits equal over two
+   calls, and timed in the split of 1 or 2 CTAs its plan did not take),
+   full-sequence attention there in bf16 and
    float32 (atol 2e-2 / 1e-5; ``scaled_dot_product_attention`` as the
    yardstick); full-sequence attention at the training path's 64
    heads of dim 8 (and at in_dim 512 in heads of 64, 16, 32 and 128),
@@ -33,9 +34,13 @@ Phases (any failure exits non-zero and prints no result line):
    BMU kernel at the codebook shapes of the cascade in both launch
    geometries, and at D 2, D 8192 and K 8192, index for index outside
    near-ties (``torch.cdist(p, c).argmin(1)`` as the yardstick); the flat
-   decode kernel over
+   decode kernel (kernel 4) over
    interleaved caches, bf16 and int8 prefix (atol 2e-2) and float32 (atol
-   1e-5), at the stage-1/2 shapes and at the stage-0 fan; the fused MLP
+   1e-5), at the stage-1/2 shapes of 16 images, the flat path's own 8
+   images at the read lengths and index0 its engine reaches, and the
+   stage-0 fan, with its launch plan, its bits equal over two calls, the
+   clusters the card holds, and timed in a cluster of another size; the
+   fused MLP
    (kernel 6) in bf16 (atol 2e-2) at the probe's packed-QKV and FFN
    shapes, 8192 and 1024 rows and a ragged 1000, beside the same function
    as two cuBLAS products and elementwise calls, with its cluster size,
@@ -43,7 +48,9 @@ Phases (any failure exits non-zero and prints no result line):
    (phase 2's build log);
 4. reference -- a small cascade stage decoded greedily in float32 on the
    card (kernels) and on the CPU (plain versions) must give the same
-   tokens; 4c: the same with ``flat_decode=True``; 4b: one float32 train
+   tokens; 4c: the same with ``flat_decode=True``; 4 and 4c again with
+   ``quantized_prefix=True`` (kernel C, and kernel 4's int8 form, must
+   launch, with the counts the stage gives); 4b: one float32 train
    step of a small windowed cascade on the card and on the CPU must give
    the same tokens, loss and gradients, and one bf16 step the same tokens
    and loss and gradients within bf16 tolerances;
@@ -94,6 +101,7 @@ take the time).
 """
 
 import argparse
+import ctypes
 import json
 import subprocess
 import sys
@@ -216,7 +224,11 @@ def kernel_name(mangled):
     while rest and not rest.startswith("E"):
         lit = re.match(r"L[a-z](\d+)E", rest)
         typ = next((t for t in types if rest.startswith(t)), None)
-        if lit:
+        sub = re.match(r"S\d*_", rest)
+        if sub and args:   # a substitution: here, the type named before
+            args.append(args[-1])
+            rest = rest[sub.end():]
+        elif lit:
             args.append(lit.group(1))
             rest = rest[lit.end():]
         elif typ:
@@ -296,16 +308,20 @@ def bound(nbytes, flops, kind="bf16"):
 def check_decode(torch, timer, records):
     """Kernels B and C against their plain version at ``DECODE_SHAPES``,
     bf16 (atol 2e-2) and float32 (atol 1e-5; serving's phase 7 (a) runs B
-    in float32).  Kernel B with its launch plan, its bits equal over two
+    in float32).  Each with its launch plan, its bits equal over two
     calls, and timed in the split its plan did not take (1 or 2 CTAs a
-    cluster).  A checkout from before kernel B's split (PR 7) has no
-    ``launch_plan``: its records carry none, so this check times the old
-    kernel there."""
+    cluster).  A checkout from before kernel B's split has no
+    ``launch_plan``, and one from before kernel C ran on B's kernel no
+    int8 plan: their records carry none, so this check times the old
+    kernels there."""
+    import inspect
     from qaig_tpu_torch.ops import cuda_build
     from qaig_tpu_torch.ops import decode_attention as da
     from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
     gen = torch.Generator(device="cuda").manual_seed(0)
     split = hasattr(da, "launch_plan")
+    int8_split = split and "prefix_itemsize" in inspect.signature(
+        da.launch_plan).parameters
 
     for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         size = 2 if kind == "bf16" else 4
@@ -322,32 +338,38 @@ def check_decode(torch, timer, records):
             v8, vs = quantize_kv_t(vt)
             for index0, block_index in steps or ((1, 0), (s // 2, bw // 2),
                                                   (s, bw - 1)):
-                for kernel in ("shared_prefix_attention_fused_t",
-                               "shared_prefix_attention_fused_int8"):
+                for kernel, planned in (
+                        ("shared_prefix_attention_fused_t", split),
+                        ("shared_prefix_attention_fused_int8", int8_split)):
                     check_decode_call(
                         torch, timer, records, da, cuda_build, kernel, kind,
                         (q, kt, vt, kb, vb, k8, ks, v8, vs), bw, s, index0,
-                        block_index, size, split)
+                        block_index, size, planned)
 
 
 def check_decode_call(torch, timer, records, da, cuda_build, kernel, kind,
-                      tensors, bw, s, index0, block_index, size, split):
+                      tensors, bw, s, index0, block_index, size, planned):
     """One decode kernel at one step: held to its plain version, timed
-    beside it and its bound; kernel B also in its other split."""
+    beside it and its bound; with ``planned`` (the split kernel) its bits
+    equal over two calls and its other split timed too."""
     q, kt, vt, kb, vb, k8, ks, v8, vs = tensors
     n = kt.shape[0]
     b = q.shape[0] // n
     atol = FWD_ATOL[kind]
-    if kernel.endswith("int8"):
+    quant = kernel.endswith("int8")
+    if quant:
         args = (q, k8, ks, v8, vs, kb, vb, index0, block_index)
         plain_args = (q, k8, v8, kb, vb, index0, block_index)
         plain_kw = {"k_scale": ks, "v_scale": vs}
+        split_args = (q, k8, v8, kb, vb, index0, block_index)
         prefix_bytes = 2 * n * H * index0 * (DH + 2)
+        pelem = 1
     else:
         args = (q, kt, vt, kb, vb, index0, block_index)
-        plain_args = args
+        plain_args = split_args = args
         plain_kw = {}
         prefix_bytes = 2 * n * H * index0 * DH * size
+        pelem = size
     fn = getattr(da, kernel)
 
     def run_kernel():
@@ -361,15 +383,14 @@ def check_decode_call(torch, timer, records, da, cuda_build, kernel, kind,
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     plan = None
-    if kernel.endswith("_t"):
-        # kernel B combines its CTAs in rank order: same bits
+    if planned:
+        # the split kernel combines its CTAs in rank order: same bits
         if not torch.equal(got, run_kernel()):
             raise SystemExit(f"{kernel} {kind} N={n} B={b} index0={index0}: "
                              f"two calls differ")
-        if split:
-            plan = da.launch_plan(n, b, H, DH, index0,
-                                  cuda_build.sm_count(q.device), size,
-                                  block_index)
+        plan = da.launch_plan(n, b, H, DH, index0,
+                              cuda_build.sm_count(q.device), size,
+                              block_index, *((pelem,) if quant else ()))
     nbytes = (prefix_bytes + 2 * q.numel() * size
               + 2 * n * b * H * (block_index + 1) * DH * size)
     flops = 4 * n * b * H * DH * (index0 + block_index + 1)
@@ -384,13 +405,15 @@ def check_decode_call(torch, timer, records, da, cuda_build, kernel, kind,
         rec["launch_plan"] = plan
         rec["alternatives"] = []
         other = 3 - plan["splits"]
+        scales = {"k_scale": ks, "v_scale": vs} if quant else {}
         try:
             alt = da._plan(n, b, H, DH, index0, cuda_build.sm_count(q.device),
-                           size, block_index, other)
+                           size, block_index, other,
+                           *((pelem,) if quant else ()))
         except ValueError:   # no split of index0 in two non-empty ranges
             alt = None
         if alt is not None:
-            e = (da._launch_split(*args, alt).float()
+            e = (da._launch_split(*split_args, alt, **scales).float()
                  - want.float()).abs().max().item()
             if not e <= atol:
                 raise SystemExit(f"{kernel} {kind} in {other} CTAs "
@@ -398,13 +421,13 @@ def check_decode_call(torch, timer, records, da, cuda_build, kernel, kind,
             rec["alternatives"].append({
                 "label": f"splits {other}", "launch_plan": alt,
                 "max_abs_err": e,
-                "ms": timer(lambda: da._launch_split(*args, alt))})
+                "ms": timer(lambda: da._launch_split(*split_args, alt,
+                                                     **scales))})
         note = (f" splits={plan['splits']} chunk={plan['chunk']} "
                 f"stages={plan['stages']}"
                 + "".join(f" ({a['label']}: ms={a['ms']:.4f})"
-                          for a in rec["alternatives"]))
-    if kernel.endswith("_t"):
-        note += " (equal bits over two calls)"
+                          for a in rec["alternatives"])
+                + " (equal bits over two calls)")
     records.append(rec)
     log(f"[kernels] {kernel} {kind} N={n} B={b} bw={bw} S={s} "
         f"index0={index0} block_index={block_index}: "
@@ -417,21 +440,32 @@ def check_decode_call(torch, timer, records, da, cuda_build, kernel, kind,
 
 
 FLAT_SHAPES = [  # (N, B, bw, S, index0, block_index): stage-1/2 widths at
-    # a full, a partly filled and an empty prefix; the stage-0 fan (H*B 256,
-    # which the engine does not route to the flat kernel)
+    # 16 images at a full, a partly filled and an empty prefix; the flat
+    # path's own 8 images at the read lengths and index0 its engine reaches
+    # (stage 1: S 64, index0 57; stage 2: S 256, index0 129 and 241); the
+    # stage-0 fan (H*B 256, which the engine does not route to the flat
+    # kernel)
     (16, 4, 8, 256, 256, 7), (16, 4, 8, 256, 96, 3), (16, 4, 8, 256, 1, 0),
+    (8, 4, 8, 64, 57, 7), (8, 4, 8, 256, 129, 7), (8, 4, 8, 256, 241, 7),
     (16, 32, 16, 32, 32, 15)]
 
 
 def check_flat(torch, timer, records):
     """The flat kernel against its plain version on interleaved caches:
-    bf16 and the int8 prefix (atol 2e-2), float32 (atol 1e-5).  Bound: the
-    live prefix K/V (plus the int8 scales), the live block slots, q and
-    out, over the HBM rate (and the flops over the peak, the larger)."""
+    bf16 and the int8 prefix (atol 2e-2), float32 (atol 1e-5), with its
+    launch plan, its bits equal over two calls, and timed in a cluster
+    twice (at 8, half) the size its plan took.  A checkout
+    from before the flat kernel's single launch has no
+    ``flat_launch_plan``: its records carry none, so this check times the
+    old kernel there.  Bound: the live prefix K/V (plus the int8 scales),
+    the live block slots, q and out, over the HBM rate (and the flops over
+    the peak, the larger)."""
+    from qaig_tpu_torch.ops import cuda_build
     from qaig_tpu_torch.ops import decode_attention as da
     from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
     gen = torch.Generator(device="cuda").manual_seed(4)
     flat = da.shared_prefix_attention_fused_flat
+    planned = hasattr(da, "flat_launch_plan")
     for n, b, bw, s, index0, block_index in FLAT_SHAPES:
         for kind, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             def rnd(*shape):
@@ -450,11 +484,13 @@ def check_flat(torch, timer, records):
                     kw = {"k_scale": da.interleave_scale(ks),
                           "v_scale": da.interleave_scale(vs)}
                     prefix_bytes = 2 * n * H * index0 * (DH + 2)
+                    pelem = 1
                 else:
                     args = (q, da.interleave_t(kt), da.interleave_t(vt), kb,
                             vb, index0, block_index, H)
                     kw = {}
                     prefix_bytes = 2 * n * H * index0 * DH * size
+                    pelem = size
 
                 def run_kernel():
                     return flat(*args, **kw)
@@ -477,12 +513,70 @@ def check_flat(torch, timer, records):
                     "max_abs_err": err, "ms": timer(run_kernel),
                     "plain_ms": timer(run_plain), "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None}
+                note = ""
+                if planned:
+                    if not torch.equal(got, run_kernel()):
+                        raise SystemExit(f"{name} {kind} N={n} B={b} "
+                                         f"index0={index0}: two calls "
+                                         f"differ")
+                    plan = da.flat_launch_plan(
+                        n, b, H, DH, index0, cuda_build.sm_count(q.device),
+                        pelem, block_index, size)
+                    rec["launch_plan"] = plan
+                    held = cuda_build.function(
+                        "decode_attention_flat",
+                        "qaig_flat_attention_max_clusters",
+                        [ctypes.c_int] * 8)
+                    rec["clusters_held"] = held(
+                        plan["rollouts"], H, DH, plan["tile"],
+                        int(kind == "bf16"), int(pelem == 1),
+                        plan["splits"], plan["stages"])
+                    rec["alternatives"] = []
+                    # the cluster twice (or, at 8, half) the plan's size
+                    other = (plan["splits"] * 2 if plan["splits"] * 2
+                             <= da.FLAT_MAX_SPLITS else plan["splits"] // 2)
+                    try:
+                        alt = da._flat_plan(
+                            n, b, H, DH, index0,
+                            cuda_build.sm_count(q.device), pelem,
+                            block_index, size, other)
+                    except ValueError:   # not that many non-empty ranges
+                        alt = None
+                    if alt is not None and other:
+                        e = (da._launch_flat(*args[:3], kw.get("k_scale"),
+                                             kw.get("v_scale"), *args[3:],
+                                             plan=alt).float()
+                             - want.float()).abs().max().item()
+                        if not e <= FWD_ATOL[kind]:
+                            raise SystemExit(f"{name} {kind} in {other} "
+                                             f"CTAs disagrees: {e}")
+                        rec["alternatives"].append({
+                            "label": f"splits {other}", "launch_plan": alt,
+                            "clusters_held": held(
+                                alt["rollouts"], H, DH, alt["tile"],
+                                int(kind == "bf16"), int(pelem == 1),
+                                alt["splits"], alt["stages"]),
+                            "max_abs_err": e, "ms": timer(
+                                lambda: da._launch_flat(
+                                    *args[:3], kw.get("k_scale"),
+                                    kw.get("v_scale"), *args[3:],
+                                    plan=alt))})
+                    note = (f" splits={plan['splits']} "
+                            f"tile={plan['tile']} stages={plan['stages']} "
+                            f"smem={plan['smem']} clusters held "
+                            f"{rec['clusters_held']}"
+                            + "".join(
+                                f" ({a['label']}: tile="
+                                f"{a['launch_plan']['tile']} clusters held "
+                                f"{a['clusters_held']} ms={a['ms']:.4f})"
+                                for a in rec["alternatives"])
+                            + " (equal bits over two calls)")
                 records.append(rec)
                 log(f"[kernels] {name} {kind} N={n} B={b} bw={bw} S={s} "
                     f"index0={index0} block_index={block_index}: "
                     f"max_abs_err={err:.3e} ms={rec['ms']:.4f} "
                     f"plain_ms={rec['plain_ms']:.4f} "
-                    f"bound_ms={bound_ms:.5f} ({bound_by})")
+                    f"bound_ms={bound_ms:.5f} ({bound_by}){note}")
                 if not err <= FWD_ATOL[kind]:
                     raise SystemExit(f"{name} ({kind}) disagrees with its "
                                      f"plain version: {err}")
@@ -1039,35 +1133,59 @@ def _greedy_small_stage(torch, steps, beam_width, window, device="cuda",
     return out, launches
 
 
-def check_reference(torch, device="cuda"):
+def check_reference(torch, device="cuda", quantized_prefix=False):
     """Phase 4: window 8 and segments of 4 give a crossing segment and
-    steady windowed segments; the card's tokens must equal the CPU's."""
-    out, _ = _greedy_small_stage(torch, 16, 4, 8, device)
+    steady windowed segments; the card's tokens must equal the CPU's.
+    With ``quantized_prefix`` the cached segments read an int8 prefix, so
+    they must launch kernel C (and not B)."""
+    out, launches = _greedy_small_stage(torch, 16, 4, 8, device,
+                                        quantized_prefix=quantized_prefix)
     same = bool(torch.equal(out["cpu"], out["card"]))
-    log(f"[reference] small windowed stage, greedy float32: card tokens "
-        f"{'equal' if same else 'DIFFER from'} the CPU's "
-        f"({out['card'].tolist()[0][:8]}...)")
-    if not same:
-        raise SystemExit("card and CPU generations disagree")
-
-
-def check_flat_reference(torch, device="cuda"):
-    """Phase 4c: the same stage with ``flat_decode=True``, window 20 and
-    segments of 8: two cached segments through the flat kernel (2 layers x
-    16 steps on the card), then a 3-step crossing on kernel B and windowed
-    recompute.  The card's tokens must equal the CPU's."""
-    out, launches = _greedy_small_stage(torch, 24, 8, 20, device,
-                                        flat_decode=True)
-    same = bool(torch.equal(out["cpu"], out["card"]))
-    log(f"[reference] flat decode, small windowed stage, greedy float32: "
-        f"card tokens {'equal' if same else 'DIFFER from'} the CPU's "
+    label = "int8 prefix, " if quantized_prefix else ""
+    log(f"[reference] small windowed stage, {label}greedy float32: card "
+        f"tokens {'equal' if same else 'DIFFER from'} the CPU's "
         f"({out['card'].tolist()[0][:8]}...); card launches {launches}")
     if not same:
-        raise SystemExit("card and CPU flat-decode generations disagree")
-    if launches["shared_prefix_attention_fused_flat"] != 2 * 16 or \
-            launches["shared_prefix_attention_fused_t"] != 2 * 3:
+        raise SystemExit(f"card and CPU generations disagree ({label}"
+                         f"phase 4)")
+    quant = launches["shared_prefix_attention_fused_int8"]
+    if quantized_prefix and (
+            quant <= 0 or launches["shared_prefix_attention_fused_t"]):
+        raise SystemExit(f"int8-prefix stage launched {launches}: expected "
+                         f"kernel C and no kernel B")
+
+
+def check_flat_reference(torch, device="cuda", quantized_prefix=False):
+    """Phase 4c: the same stage with ``flat_decode=True``, window 20 and
+    segments of 8: two cached segments through the flat kernel (2 layers x
+    16 steps on the card), then a 3-step crossing on kernel B (C with
+    ``quantized_prefix``, and the flat kernel's int8 form) and windowed
+    recompute.  The card's tokens must equal the CPU's."""
+    out, launches = _greedy_small_stage(torch, 24, 8, 20, device,
+                                        flat_decode=True,
+                                        quantized_prefix=quantized_prefix)
+    same = bool(torch.equal(out["cpu"], out["card"]))
+    label = "int8 prefix, " if quantized_prefix else ""
+    log(f"[reference] flat decode, {label}small windowed stage, greedy "
+        f"float32: card tokens {'equal' if same else 'DIFFER from'} the "
+        f"CPU's ({out['card'].tolist()[0][:8]}...); card launches "
+        f"{launches}")
+    if not same:
+        raise SystemExit(f"card and CPU flat-decode generations disagree "
+                         f"({label}phase 4c)")
+    flat, slot_minor = (
+        ("shared_prefix_attention_fused_flat_int8",
+         "shared_prefix_attention_fused_int8") if quantized_prefix else
+        ("shared_prefix_attention_fused_flat",
+         "shared_prefix_attention_fused_t"))
+    want = {name: 0 for name in (
+        "shared_prefix_attention_fused_flat", "shared_prefix_attention_"
+        "fused_flat_int8", "shared_prefix_attention_fused_t",
+        "shared_prefix_attention_fused_int8")}
+    want.update({flat: 2 * 16, slot_minor: 2 * 3})
+    if any(launches[name] != n for name, n in want.items()):
         raise SystemExit(f"flat-decode stage launched {launches}, expected "
-                         f"32 flat and 6 slot-minor decode launches")
+                         f"{want}")
 
 
 def check_train_reference(torch, device="cuda", bf16=False):
@@ -2495,8 +2613,9 @@ def main():
     for check in CHECKS.values():
         check(torch, timer, records)
     del timer
-    check_reference(torch)
-    check_flat_reference(torch)
+    for quantized_prefix in (False, True):
+        check_reference(torch, quantized_prefix=quantized_prefix)
+        check_flat_reference(torch, quantized_prefix=quantized_prefix)
     check_train_reference(torch)
     check_train_reference(torch, bf16=True)
     with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as workdir:

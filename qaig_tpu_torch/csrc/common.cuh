@@ -1,6 +1,5 @@
 // Helpers shared by the port's attention kernels: element conversions,
-// warp reductions, the online-softmax row update, and the tensor-core and
-// asynchronous-copy primitives of the full-sequence kernels.
+// warp reductions, and the tensor-core and asynchronous-copy primitives.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,6 +26,16 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// a zero of an element type (T, or the int8 of a quantized prefix)
+template <typename P>
+__device__ __forceinline__ P zero_of() {
+  return from_float<P>(0.f);
+}
+template <>
+__device__ __forceinline__ int8_t zero_of<int8_t>() {
+  return 0;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int offset = 16; offset > 0; offset >>= 1)
     x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, offset));
@@ -37,46 +46,6 @@ __device__ __forceinline__ float warp_sum(float x) {
   for (int offset = 16; offset > 0; offset >>= 1)
     x += __shfl_xor_sync(0xffffffffu, x, offset);
   return x;
-}
-
-// Online-softmax update of `rows` score rows held in shared memory
-// (row r at scores + r * pitch, columns [0, ncols) live, masked entries
-// -inf).  One warp per row: the running max m[r] and denominator l[r]
-// advance, alpha[r] receives the factor the caller rescales its
-// accumulator by, and each score is replaced by its probability
-// exp(s - m).  With `prob_scale` (int8 V scales), the stored probability
-// is additionally multiplied by prob_scale[c]; the denominator sums the
-// unscaled probabilities.  The caller synchronises before and after.
-__device__ __forceinline__ void softmax_update(float* scores, int pitch,
-                                               int ncols, int rows,
-                                               float* m, float* l,
-                                               float* alpha,
-                                               const float* prob_scale) {
-  const int lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  for (int r = threadIdx.x >> 5; r < rows; r += nwarps) {
-    float* row = scores + r * pitch;
-    float mx = -INFINITY;
-    for (int c = lane; c < ncols; c += 32) mx = fmaxf(mx, row[c]);
-    mx = warp_max(mx);
-    const float m_old = m[r];
-    const float m_new = fmaxf(m_old, mx);
-    // a row with no live key so far keeps p = 0 instead of exp(-inf + inf)
-    const float m_use = m_new == -INFINITY ? 0.f : m_new;
-    float sum = 0.f;
-    for (int c = lane; c < ncols; c += 32) {
-      const float p = expf(row[c] - m_use);
-      sum += p;
-      row[c] = prob_scale ? p * prob_scale[c] : p;
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) {
-      const float a = expf(m_old - m_use);
-      alpha[r] = a;
-      l[r] = l[r] * a + sum;
-      m[r] = m_new;
-    }
-  }
 }
 
 // 2^x in one instruction (relative error ~2^-22; 2^-inf = 0)
@@ -170,6 +139,16 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(live ? 16 : 0)
+               : "memory");
+}
+
+// 16-byte asynchronous copy of which the first `bytes` (0-16) are read and
+// the rest zeroed (src must be a valid, 16-byte aligned address)
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 

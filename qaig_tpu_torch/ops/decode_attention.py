@@ -13,15 +13,15 @@ softmax over the image's SHARED prefix (slots ``< index0`` of slot-minor
   (V) (kernel C).
 
 Layout.  The caches stay slot-minor, (N, H, dh, S), as in the JAX package,
-and the kernels (``qaig_tpu_torch/csrc/decode_attention.cu``) read that
-layout directly.  Kernel B cuts each (image, head) prefix into the slot
+and one kernel (``qaig_tpu_torch/csrc/decode_attention.cu``,
+``prefix_split_kernel``, templated on the prefix element type) reads that
+layout directly for both: it cuts each (image, head) prefix into the slot
 ranges of :func:`launch_plan` and runs one cluster of CTAs per (image,
-head), each CTA streaming its range with 16-byte copies and the cluster
-combining the partial softmax states through distributed shared memory
-(deterministic, one launch).  Kernel C keeps one block per (image, head),
-streaming the int8 prefix once for all B rollouts.
+head), each CTA streaming its range with 16-byte copies (an int8 tile with
+its scales) and the cluster combining the partial softmax states through
+distributed shared memory (deterministic, one launch).
 
-On CUDA tensors both functions launch their kernel (one CUDA source); on
+On CUDA tensors both functions launch the kernel; on
 CPU tensors they run :func:`shared_prefix_attention_reference`, the plain
 PyTorch version.
 A CUDA input the kernel does not take raises.  Any ``bw >= 1`` is taken,
@@ -33,11 +33,13 @@ prefix caches stored (N, dh, S*H), column = slot*H + head (built once per
 segment by :func:`interleave_t` / :func:`interleave_scale`), with per-column
 int8 scales (N, S*H).  Its kernel
 (``qaig_tpu_torch/csrc/decode_attention_flat.cu``) cuts each image's
-prefix into chunks of slots, one block per chunk covering all heads (so
-each d-row of a slot tile is one contiguous run), and merges the chunks'
-softmax states in a second pass.  Its plain version, :func:`shared_prefix_attention_flat_reference`,
-rounds where the TPU kernel does (pre-scaled q and the probabilities in the
-working dtype), not where kernel B does.
+prefix into the slot ranges of :func:`flat_launch_plan`, one CTA per range
+covering all heads (so each d-row of a slot tile is one contiguous run),
+streams them with 16-byte copies, and combines the CTAs' softmax states in
+rank order inside the same launch.  Its plain version,
+:func:`shared_prefix_attention_flat_reference`, rounds where the TPU kernel
+does (pre-scaled q and the probabilities in the working dtype), not where
+kernel B does.
 """
 
 import ctypes
@@ -49,9 +51,7 @@ import torch
 from qaig_tpu_torch.ops import cuda_build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_INT8_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                  + [ctypes.c_void_p])
-_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 13
+_SPLIT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 14
                    + [ctypes.c_void_p])
 _MAX_SMEM = 227 * 1024
 
@@ -117,21 +117,22 @@ def shared_prefix_attention_fused_int8(q, k8t_shared, k_scale, v8t_shared,
                                        v_scale, k_block, v_block, index0,
                                        block_index):
     """Rollout decode attention over an int8 prefix with per-slot scales
-    (kernel C on CUDA tensors).  ``index0``/``block_index`` are Python
-    ints."""
+    (kernel C on CUDA tensors: kernel B's kernel over int8 tiles).
+    ``index0``/``block_index`` are Python ints."""
     if q.device.type == "cpu":
         return shared_prefix_attention_reference(
             q, k8t_shared, v8t_shared, k_block, v_block, index0,
             block_index, k_scale=k_scale, v_scale=v_scale)
-    out = _launch_int8(q, k8t_shared, v8t_shared, k_scale, v_scale, k_block,
-                       v_block, index0, block_index)
+    out = _launch_split(q, k8t_shared, v8t_shared, k_block, v_block, index0,
+                        block_index, k_scale=k_scale, v_scale=v_scale)
     shared_prefix_attention_fused_int8.launches += 1
     return out
 
 
 shared_prefix_attention_fused_int8.launches = 0
 
-# kernel B's geometry (decode_attention.cu: kSlots, the ring, split_smem)
+# the geometry of kernels B and C (decode_attention.cu: kSlots, the ring,
+# split_smem)
 SPLIT_SLOTS = 64        # prefix slots per ring tile
 # CTAs a cluster (decode_attention.cu: kMaxSplits): on the H100 clusters
 # of 4 and 8 ran slower than pairs at every timed shape (PERF.md)
@@ -153,29 +154,39 @@ def _split_floats(b, dh):
     return -(-f // 4) * 4
 
 
-def _slot_elems(b, dh, itemsize):
-    vec = 16 // itemsize
-    return -(-max(dh * (SPLIT_SLOTS + vec), b * (dh + vec)) // vec) * vec
+def _part_bytes(b, dh, itemsize, prefix_itemsize):
+    """Bytes of a ring slot's K (or V) part: a prefix tile of dh rows of
+    64 slots (pitch 64 slots + 16 bytes; an int8 tile's 64 bf16 scales
+    after it) or a segment chunk's rows, the larger, in 16-byte units."""
+    prefix = (dh * (SPLIT_SLOTS * prefix_itemsize + 16)
+              + (2 * SPLIT_SLOTS if prefix_itemsize == 1 else 0))
+    return -(-max(prefix, b * (dh * itemsize + 16)) // 16) * 16
 
 
-def segment_chunk(b, dh, itemsize):
-    """Segment slots of all ``b`` rollouts one ring slot holds."""
-    return min(SPLIT_SLOTS, _slot_elems(b, dh, itemsize)
-               // (b * (dh + 16 // itemsize)))
+def segment_chunk(b, dh, itemsize, prefix_itemsize=None):
+    """Segment slots of all ``b`` rollouts one ring slot holds
+    (``prefix_itemsize``: 1 for an int8 prefix; ``itemsize`` by
+    default)."""
+    pi = prefix_itemsize or itemsize
+    return min(SPLIT_SLOTS, _part_bytes(b, dh, itemsize, pi)
+               // (b * (dh * itemsize + 16)))
 
 
-def split_smem(b, dh, itemsize, stages):
-    """Shared memory of one kernel-B CTA (``split_smem`` of the source)."""
-    return (_split_floats(b, dh) * 4
-            + stages * 2 * _slot_elems(b, dh, itemsize) * itemsize)
+def split_smem(b, dh, itemsize, stages, prefix_itemsize=None):
+    """Shared memory of one CTA of kernel B (or, with ``prefix_itemsize``
+    1, C): ``split_smem`` of the source."""
+    pi = prefix_itemsize or itemsize
+    return _split_floats(b, dh) * 4 + stages * 2 * _part_bytes(b, dh,
+                                                                itemsize, pi)
 
 
 @functools.lru_cache(maxsize=4096)
 def _plan(n, b, heads, dh, index0, sm_count, itemsize, block_index,
-          splits):
+          splits, prefix_itemsize=None):
     """:func:`launch_plan`; ``splits`` 1 or 2 forces the split (phase 3 of
     ``chip_smoke.py`` times the one the plan did not take), 0 chooses."""
-    chunks = -(-(block_index + 1) // segment_chunk(b, dh, itemsize))
+    pi = prefix_itemsize or itemsize
+    chunks = -(-(block_index + 1) // segment_chunk(b, dh, itemsize, pi))
 
     def chunk_of(s):
         return -(-(-(-index0 // s)) // 8) * 8
@@ -189,9 +200,10 @@ def _plan(n, b, heads, dh, index0, sm_count, itemsize, block_index,
         tiles = max(-(-(hi - lo) // SPLIT_SLOTS) + -(-(chunks - r) // splits)
                     for r, (lo, hi) in enumerate(ranges))
         stages = max(1, min(SPLIT_MAX_STAGES, tiles))
-        while stages > 1 and split_smem(b, dh, itemsize, stages) > _MAX_SMEM:
+        while stages > 1 and split_smem(b, dh, itemsize, stages,
+                                        pi) > _MAX_SMEM:
             stages -= 1
-        smem = split_smem(b, dh, itemsize, stages)
+        smem = split_smem(b, dh, itemsize, stages, pi)
         per_sm = max(1, min(_SM_CTAS, _SM_SMEM // (smem + 1024)))
         return {"splits": splits, "chunk": chunk, "ranges": ranges,
                 "stages": stages, "smem": smem, "ctas": n * heads * splits,
@@ -218,45 +230,51 @@ def _plan(n, b, heads, dh, index0, sm_count, itemsize, block_index,
 
 
 def launch_plan(n, b, heads, dh, index0, sm_count, itemsize=2,
-                block_index=0):
-    """Kernel B's split of each (image, head) prefix, from the shape alone.
+                block_index=0, prefix_itemsize=None):
+    """The split of each (image, head) prefix for kernel B (prefix in the
+    working dtype of ``itemsize`` bytes) or, with ``prefix_itemsize`` 1,
+    kernel C (int8 prefix), from the shape alone.
 
     ``splits`` (1 or 2) CTAs form one cluster per (image, head) and
     rank r streams prefix slots ``ranges[r]``: contiguous, in order,
     covering [0, index0) exactly once, none empty, each a multiple of 8
-    slots long but the last (so every range starts on a 16-byte chunk).
-    The segment (slots 0 .. ``block_index`` of every rollout) is cut in
-    chunks of :func:`segment_chunk` slots, dealt to the ranks in turn.
-    The split is the fewest CTAs that give each of the card's
-    ``sm_count`` SMs one (at most ``SPLIT_MAX``), where each CTA keeps at
-    least ``SPLIT_MIN_SLOTS`` prefix slots, or 8 and two segment chunks,
-    and every CTA runs in one wave (``waves``: of the CTAs an SM holds by
-    shared memory and registers; a second wave measured slower than no
+    slots long but the last (an int8 range that starts mid-chunk reads from
+    the chunk's start and masks the slots before it).  The segment (slots
+    0 .. ``block_index`` of every rollout) is cut in chunks of
+    :func:`segment_chunk` slots, dealt to the ranks in turn.  The split is the fewest CTAs that give each of the
+    card's ``sm_count`` SMs one (at most ``SPLIT_MAX``), where each CTA
+    keeps at least ``SPLIT_MIN_SLOTS`` prefix slots, or 8 and two segment
+    chunks, and every CTA runs in one wave
+    (``waves``: of the CTAs an SM holds by shared memory and registers, at
+    this form's own shared memory; a second wave measured slower than no
     split): a short prefix (index0 1) takes one CTA, whose range may be
     empty only when index0 is 0.  ``stages`` ring slots (at most
     ``SPLIT_MAX_STAGES``, at most the busiest rank's tiles, fewer where
-    shared memory would not hold them); ``smem`` is a CTA's shared memory
-    at ``itemsize`` bytes an element.  The returned dict is shared: copy
-    it to change it."""
+    shared memory would not hold them); ``smem`` is a CTA's shared memory.
+    The returned dict is shared: copy it to change it."""
     return _plan(int(n), int(b), int(heads), int(dh), int(index0),
-                 int(sm_count), int(itemsize), int(block_index), 0)
+                 int(sm_count), int(itemsize), int(block_index), 0,
+                 int(prefix_itemsize or itemsize))
 
 
 _checked = set()
 
 
-def _check_plan(q, b, dh, plan):
+def _check_plan(q, b, dh, plan, quant):
     """Once per shape and geometry: the plan's shared memory is the
     kernel's (``split_smem`` is written in the source and mirrored here),
     within a block's, and the card holds a cluster of ``splits`` CTAs of
     it (``cudaOccupancyMaxActiveClusters``)."""
-    name = "shared_prefix_attention_fused_t"
-    key = (q.device.index, b, dh, q.dtype, plan["splits"], plan["stages"])
+    name = ("shared_prefix_attention_fused_int8" if quant
+            else "shared_prefix_attention_fused_t")
+    key = (q.device.index, b, dh, q.dtype, quant, plan["splits"],
+           plan["stages"])
     if key in _checked:
         return
+    elem = q.element_size()
     smem = cuda_build.function(
-        "decode_attention", "qaig_prefix_split_smem", [ctypes.c_int] * 4,
-        ctypes.c_size_t)(b, dh, q.element_size(), plan["stages"])
+        "decode_attention", "qaig_prefix_split_smem", [ctypes.c_int] * 5,
+        ctypes.c_size_t)(b, dh, elem, 1 if quant else elem, plan["stages"])
     if smem != plan["smem"]:
         raise RuntimeError(f"{name}: the plan's shared memory {plan['smem']}"
                            f" is not the kernel's {smem}")
@@ -266,9 +284,9 @@ def _check_plan(q, b, dh, plan):
             f"memory, above the {_MAX_SMEM} a block has")
     fn = cuda_build.function("decode_attention",
                              "qaig_prefix_split_max_clusters",
-                             [ctypes.c_int] * 5)
+                             [ctypes.c_int] * 6)
     with torch.cuda.device(q.device):
-        clusters = fn(b, dh, _DTYPES[q.dtype], plan["splits"],
+        clusters = fn(b, dh, _DTYPES[q.dtype], int(quant), plan["splits"],
                       plan["stages"])
     if clusters < 1:
         raise RuntimeError(f"{name}: the card holds no cluster of "
@@ -277,60 +295,41 @@ def _check_plan(q, b, dh, plan):
     _checked.add(key)
 
 
+def _aligned(*tensors):
+    return all(x.data_ptr() % 16 == 0 for x in tensors)
+
+
 def _launch_split(q, k_shared, v_shared, k_block, v_block, index0,
-                  block_index, plan=None):
-    """Kernel B in :func:`launch_plan`'s geometry, or in ``plan`` (a
-    ``_plan`` of another split, for timing); not counted."""
-    _check_kernel_inputs(q, k_shared, v_shared, None, None, k_block,
+                  block_index, plan=None, k_scale=None, v_scale=None):
+    """Kernel B (C with ``k_scale``/``v_scale`` and an int8 prefix) in
+    :func:`launch_plan`'s geometry, or in ``plan`` (a ``_plan`` of another
+    split, for timing); not counted."""
+    _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
                          v_block, index0, block_index)
+    quant = k_scale is not None
     n, heads, dh, s = k_shared.shape
     b = q.shape[0] // n
+    elem = q.element_size()
+    pelem = k_shared.element_size()
     if plan is None:
         plan = launch_plan(n, b, heads, dh, index0,
-                           cuda_build.sm_count(q.device), q.element_size(),
-                           block_index)
-    _check_plan(q, b, dh, plan)
-    elem = q.element_size()
-    vec = (int(s * elem % 16 == 0 and k_shared.data_ptr() % 16 == 0
-               and v_shared.data_ptr() % 16 == 0)
-           | 2 * int(dh * elem % 16 == 0 and k_block.data_ptr() % 16 == 0
-                     and v_block.data_ptr() % 16 == 0))
+                           cuda_build.sm_count(q.device), elem, block_index,
+                           pelem)
+    _check_plan(q, b, dh, plan, quant)
+    prefix = (k_shared, v_shared) + ((k_scale, v_scale) if quant else ())
+    vec = (int(s * pelem % 16 == 0 and (not quant or s * 2 % 16 == 0)
+               and _aligned(*prefix))
+           | 2 * int(dh * elem % 16 == 0 and _aligned(k_block, v_block)))
     out = torch.empty_like(q)
     fn = cuda_build.function("decode_attention",
                              "qaig_prefix_split_attention", _SPLIT_ARGTYPES)
     err = fn(q.data_ptr(), k_shared.data_ptr(), v_shared.data_ptr(),
+             k_scale.data_ptr() if quant else None,
+             v_scale.data_ptr() if quant else None,
              k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
              n, b, heads, dh, s, k_block.shape[2], int(index0),
              int(block_index), plan["splits"], plan["chunk"], plan["stages"],
-             vec, _DTYPES[q.dtype], cuda_build.stream_handle(q))
-    cuda_build.check("decode_attention", err)
-    return out
-
-
-def _launch_int8(q, k_shared, v_shared, k_scale, v_scale, k_block, v_block,
-                 index0, block_index):
-    _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
-                         v_block, index0, block_index)
-    n, heads, dh, s = k_shared.shape
-    nb = q.shape[0]
-    b = nb // n
-    bw = k_block.shape[2]
-    smem = cuda_build.function(
-        "decode_attention", "qaig_shared_prefix_attention_smem",
-        [ctypes.c_int, ctypes.c_int], ctypes.c_size_t)(b, dh)
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"shared_prefix_attention: {b} rollouts x dh {dh} need {smem} "
-            f"bytes of shared memory, above the {_MAX_SMEM} a block has")
-    out = torch.empty_like(q)
-    fn = cuda_build.function("decode_attention",
-                             "qaig_shared_prefix_attention_int8",
-                             _INT8_ARGTYPES)
-    err = fn(q.data_ptr(), k_shared.data_ptr(), v_shared.data_ptr(),
-             k_scale.data_ptr(), v_scale.data_ptr(),
-             k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
-             n, b, heads, dh, s, bw, int(index0), int(block_index),
-             _DTYPES[q.dtype], cuda_build.stream_handle(q))
+             vec, _DTYPES[q.dtype], int(quant), cuda_build.stream_handle(q))
     cuda_build.check("decode_attention", err)
     return out
 
@@ -412,9 +411,8 @@ def _check_blocks(name, k_block, v_block, nb, heads, dh, s, index0,
 # ---------------------------------------------------------------------------
 
 NEG = -1e30
-_FLAT_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 13
+_FLAT_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 16
                   + [ctypes.c_float, ctypes.c_void_p])
-_FLAT_TILES = (32, 16, 8, 4, 2, 1)
 
 
 def flat_segment_supported(heads, num_beam, block_width):
@@ -521,8 +519,188 @@ shared_prefix_attention_fused_flat.launches = 0
 shared_prefix_attention_fused_flat.int8_launches = 0
 
 
+# the flat kernel's geometry (decode_attention_flat.cu)
+FLAT_MAX_TILE = 64      # slots of a ring tile (kMaxTile)
+FLAT_THREADS = 512      # threads a CTA (kThreads): one CTA an SM
+FLAT_MAX_SPLITS = 8     # CTAs an image, one cluster (kMaxSplits)
+# SMs that clusters of 4 or 8 one-CTA-an-SM blocks fill on the H100:
+# cudaOccupancyMaxActiveClusters gives 30 and 15 there, not 33 and 16
+# (clusters stay inside a GPC); the plan keeps every cluster in one wave
+FLAT_CLUSTER_SMS = 120
+
+
+def _flat_parts(b, heads, dh, tile):
+    colwarps = -(-(tile * heads // 2) // 32)
+    units = colwarps * -(-b // 4)
+    parts = 1
+    while parts < 8 and units * parts < FLAT_THREADS // 32 and 2 * parts <= dh:
+        parts *= 2
+    return parts
+
+
+def _flat_part_bytes(b, heads, dh, tile, itemsize, prefix_itemsize):
+    cw = tile * heads
+    prefix = (dh * (cw * prefix_itemsize + 16)
+              + (2 * cw if prefix_itemsize == 1 else 0))
+    return -(-max(prefix, b * heads * (dh * itemsize + 16)) // 16) * 16
+
+
+def flat_segment_chunk(b, heads, dh, tile, itemsize, prefix_itemsize):
+    """Segment slots of every (rollout, head) one ring part of the flat
+    kernel holds (1 .. ``tile``)."""
+    return min(tile, _flat_part_bytes(b, heads, dh, tile, itemsize,
+                                      prefix_itemsize)
+               // (b * heads * (dh * itemsize + 16)))
+
+
+def flat_smem(b, heads, dh, tile, itemsize, prefix_itemsize, stages):
+    """Shared memory of one flat-kernel CTA of ``b`` rollouts
+    (``flat_smem`` of the source): q and the accumulator (dh x H *
+    ceil4(b) floats each), the score strips, m / l / alpha, the combine's
+    weights and ``stages`` ring slots."""
+    hb4 = heads * -(-b // 4) * 4
+    floats = (2 * dh * (hb4 + 4) + _flat_parts(b, heads, dh, tile) * tile
+              * (hb4 + 4) + (3 + FLAT_MAX_SPLITS + 1) * hb4)
+    return (-(-floats // 4) * 4 * 4
+            + stages * 2 * _flat_part_bytes(b, heads, dh, tile, itemsize,
+                                            prefix_itemsize))
+
+
+@functools.lru_cache(maxsize=4096)
+def _flat_plan(n, b, heads, dh, index0, sm_count, itemsize, block_index,
+               q_itemsize, splits=0):
+    """:func:`flat_launch_plan`; ``splits`` > 0 forces the CTAs an image
+    (phase 3 of ``chip_smoke.py`` times a split the plan did not take)."""
+    align = 16 // math.gcd(16, heads * itemsize)
+    step = align * 2 // math.gcd(align, 2)      # tiles: even, aligned
+    forced = bool(splits)
+    if forced:
+        if not 1 <= splits <= FLAT_MAX_SPLITS:
+            raise ValueError(f"flat_launch_plan: {splits} CTAs an image, "
+                             f"above the {FLAT_MAX_SPLITS} of a cluster")
+    else:
+        held = FLAT_CLUSTER_SMS * sm_count // 132
+        splits = FLAT_MAX_SPLITS
+        while splits > 1 and n * splits > held:
+            splits //= 2
+        splits = max(1, min(splits, -(-index0 // align)))
+    chunk = (-(-(-(-index0 // splits)) // align) * align) if index0 else 1
+    if splits > 1 and (not index0 or -(-index0 // chunk) != splits):
+        if forced:
+            raise ValueError(f"flat_launch_plan: no split of index0 "
+                             f"{index0} in {splits} non-empty ranges")
+        splits = -(-index0 // chunk)
+    ranges = [(r * chunk, min(index0, (r + 1) * chunk))
+              for r in range(splits)]
+    bc = b
+    while True:   # all rollouts in a CTA, or the most its memory holds
+        groups = -(-b // bc)
+        best = None
+        for tile in range(step, FLAT_MAX_TILE + 1, step):
+            tc = flat_segment_chunk(bc, heads, dh, tile, q_itemsize, itemsize)
+            chunks = -(-(block_index + 1) // tc)
+            tiles = max(-(-(hi - lo) // tile)
+                        + max(0, -(-(chunks - r) // splits))
+                        for r, (lo, hi) in enumerate(ranges))
+            stages = max(1, min(2, tiles))
+            while stages > 1 and flat_smem(bc, heads, dh, tile, q_itemsize,
+                                           itemsize, stages) > _MAX_SMEM:
+                stages -= 1
+            smem = flat_smem(bc, heads, dh, tile, q_itemsize, itemsize,
+                             stages)
+            if smem > _MAX_SMEM:
+                continue
+            ctas = n * groups * splits
+            waves = -(-ctas // sm_count)
+            # fewest waves; a ring that overlaps copies with use; fewest
+            # tiles for the busiest CTA; the narrowest tile
+            key = (waves, stages < min(2, tiles), tiles, tile)
+            if best is None or key < best[0]:
+                best = (key, {"splits": splits, "chunk": chunk,
+                              "ranges": ranges, "rollouts": bc,
+                              "groups": groups, "tile": tile,
+                              "stages": stages, "smem": smem,
+                              "segment_chunk": tc, "tiles": tiles,
+                              "ctas": ctas, "waves": waves})
+        if best is not None or bc == 1:
+            break
+        bc = -(-bc // 2)
+    if best is None:
+        raise ValueError(
+            f"shared_prefix_attention_fused_flat: {heads} heads x dh {dh} "
+            f"need {flat_smem(1, heads, dh, step, q_itemsize, itemsize, 1)} "
+            f"bytes of shared memory even at one rollout and {step} slots a "
+            f"tile, above the {_MAX_SMEM} a block has")
+    return best[1]
+
+
+def flat_launch_plan(n, b, heads, dh, index0, sm_count, itemsize,
+                     block_index, q_itemsize=None):
+    """The flat kernel's geometry, from the shape alone.  ``itemsize`` is
+    the prefix's element size (1 for int8), ``q_itemsize`` that of q and
+    the blocks (``itemsize`` by default, bf16 for an int8 prefix).
+
+    Each image's prefix slots [0, index0) go to ``splits`` CTAs, one
+    cluster, as ``ranges``: contiguous, in rank order, covering [0,
+    index0) once, none empty (one empty range only at index0 0), each
+    starting on a 16-byte chunk of the interleaved rows (a multiple of
+    16 / gcd(16, H * itemsize) slots).  ``splits`` is the most (at most 8,
+    no more than the prefix has such chunks) whose clusters the card holds
+    in one wave (``FLAT_CLUSTER_SMS`` of 132 SMs, scaled to
+    ``sm_count``), halving from 8.  A CTA takes all B rollouts, or
+    ``rollouts`` of them in ``groups`` where its shared memory cannot hold
+    them all (wide fans that the engine does not route here).  The
+    segment (slots 0 .. ``block_index`` of every (rollout, head)) is cut in
+    chunks of ``segment_chunk`` slots, dealt to the CTAs in turn.
+    ``tile`` (even, at most ``FLAT_MAX_TILE`` slots) is chosen for the
+    fewest waves, then a two-slot ring where the busiest CTA has two tiles
+    or more, then its fewest ring tiles (``tiles``), then the narrowest;
+    ``stages`` ring slots; ``smem`` a CTA's shared memory.  The returned
+    dict is shared: copy it to change it."""
+    qi = int(q_itemsize or (2 if itemsize == 1 else itemsize))
+    return _flat_plan(int(n), int(b), int(heads), int(dh), int(index0),
+                      int(sm_count), int(itemsize), int(block_index), qi)
+
+
+_flat_checked = set()
+
+
+def _check_flat_plan(q, heads, dh, plan, quant):
+    """Once per shape and geometry: the plan's shared memory is the
+    kernel's, and the card holds a cluster of it."""
+    name = "shared_prefix_attention_fused_flat"
+    key = (q.device.index, plan["rollouts"], heads, dh, q.dtype, quant,
+           plan["tile"], plan["splits"], plan["stages"])
+    if key in _flat_checked:
+        return
+    elem = q.element_size()
+    smem = cuda_build.function(
+        "decode_attention_flat", "qaig_flat_attention_smem",
+        [ctypes.c_int] * 7, ctypes.c_size_t)(
+            plan["rollouts"], heads, dh, plan["tile"], elem,
+            1 if quant else elem, plan["stages"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"{name}: the plan's shared memory {plan['smem']}"
+                           f" is not the kernel's {smem}")
+    fn = cuda_build.function("decode_attention_flat",
+                             "qaig_flat_attention_max_clusters",
+                             [ctypes.c_int] * 8)
+    with torch.cuda.device(q.device):
+        clusters = fn(plan["rollouts"], heads, dh, plan["tile"],
+                      _DTYPES[q.dtype], int(quant), plan["splits"],
+                      plan["stages"])
+    if clusters < 1:
+        raise RuntimeError(f"{name}: the card holds no cluster of "
+                           f"{plan['splits']} CTAs at {smem} bytes "
+                           f"(cudaOccupancyMaxActiveClusters: {clusters})")
+    _flat_checked.add(key)
+
+
 def _launch_flat(q, k_il, v_il, k_scale, v_scale, k_block, v_block, index0,
-                 block_index, heads):
+                 block_index, heads, plan=None):
+    """The flat kernel in :func:`flat_launch_plan`'s geometry, or in
+    ``plan`` (a ``_flat_plan`` of another split, for timing); not
+    counted."""
     name = "shared_prefix_attention_fused_flat"
     quant = k_scale is not None
     _check_flat_inputs(name, q, k_il, v_il, k_scale, v_scale, k_block,
@@ -530,37 +708,27 @@ def _launch_flat(q, k_il, v_il, k_scale, v_scale, k_block, v_block, index0,
     n, dh, sh = k_il.shape
     s = sh // heads
     b = q.shape[0] // n
-    bw = k_block.shape[2]
-    index0 = int(index0)
-    # about two blocks per SM: the prefix in `splits` chunks of `chunk`
-    # slots (at least 8), one block each, plus one block for the segment
-    splits = max(1, min(-(-2 * cuda_build.sm_count(q.device) // n),
-                        -(-index0 // 8)))
-    chunk = -(-index0 // splits)
-    splits = -(-index0 // chunk) if index0 else 1
-    smem_fn = cuda_build.function(
-        "decode_attention_flat", "qaig_flat_attention_smem",
-        [ctypes.c_int] * 5, ctypes.c_size_t)
-    elem = 1 if quant else q.element_size()
-    tile = next((t for t in _FLAT_TILES if t <= max(chunk, 1)
-                 and smem_fn(heads, b, dh, t, elem) <= _MAX_SMEM), None)
-    if tile is None:
-        raise ValueError(
-            f"{name}: {heads} heads x {b} rollouts x dh {dh} need "
-            f"{smem_fn(heads, b, dh, 1, elem)} bytes of shared memory even "
-            f"at one slot per tile, above the {_MAX_SMEM} a block has")
+    elem = q.element_size()
+    pelem = k_il.element_size()
+    if plan is None:
+        plan = flat_launch_plan(n, b, heads, dh, index0,
+                                cuda_build.sm_count(q.device), pelem,
+                                block_index, elem)
+    _check_flat_plan(q, heads, dh, plan, quant)
+    prefix = (k_il, v_il) + ((k_scale, v_scale) if quant else ())
+    vec = (int(sh * pelem % 16 == 0 and _aligned(*prefix))
+           | 2 * int(dh * elem % 16 == 0 and _aligned(k_block, v_block)))
     out = torch.empty_like(q)
-    partial = torch.empty(n, splits + 1, heads * b, dh + 2,
-                          dtype=torch.float32, device=q.device)
     fn = cuda_build.function("decode_attention_flat", "qaig_flat_attention",
                              _FLAT_ARGTYPES)
     err = fn(q.data_ptr(), k_il.data_ptr(), v_il.data_ptr(),
              k_scale.data_ptr() if quant else None,
              v_scale.data_ptr() if quant else None,
              k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
-             partial.data_ptr(), n, b, heads, dh, s, bw, index0,
-             int(block_index), tile, splits, chunk, _DTYPES[q.dtype],
-             int(quant), float(math.sqrt(dh)), cuda_build.stream_handle(q))
+             n, b, plan["rollouts"], heads, dh, s, k_block.shape[2],
+             int(index0), int(block_index), plan["splits"], plan["chunk"],
+             plan["tile"], plan["stages"], vec, _DTYPES[q.dtype], int(quant),
+             float(math.sqrt(dh)), cuda_build.stream_handle(q))
     cuda_build.check("decode_attention_flat", err)
     return out
 

@@ -161,6 +161,170 @@ def test_decode_split_kernel_is_deterministic(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,b,bw,s,index0,block_index", _SPLIT_CASES)
+def test_int8_split_kernel_matches_plain(cuda, dtype, n, b, bw, s, index0,
+                                         block_index):
+    """Kernel C (kernel B's kernel over an int8 prefix and its per-slot
+    scales) against its plain version at the plan's split, and in 1 and 2
+    CTAs a cluster where this index0 splits in that many non-empty ranges
+    (a range of int8 slots may start mid-chunk: index0 200 at S 256; S 17:
+    rows not 16-byte aligned, the element loads); launched once a call,
+    equal bits over two calls."""
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    gen = torch.Generator(device=cuda).manual_seed(index0 + b + s + 1)
+    h, dh = 8, 64
+    q = _rand(gen, n * b, 1, h * dh, dtype=dtype)
+    (k8, ks), (v8, vs) = (quantize_kv_t(_rand(gen, n, h, dh, s, dtype=dtype))
+                          for _ in range(2))
+    kb, vb = (_rand(gen, n * b, h, bw, dh, dtype=dtype) for _ in range(2))
+    want = da.shared_prefix_attention_reference(
+        q, k8, v8, kb, vb, index0, block_index, k_scale=ks, v_scale=vs)
+    fn = da.shared_prefix_attention_fused_int8
+    launches = fn.launches
+    got = fn(q, k8, ks, v8, vs, kb, vb, index0, block_index)
+    assert fn.launches == launches + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert torch.equal(got, fn(q, k8, ks, v8, vs, kb, vb, index0,
+                               block_index))
+    for splits in (1, 2):
+        try:
+            plan = da._plan(n, b, h, dh, index0, 132, q.element_size(),
+                            block_index, splits, 1)
+        except ValueError:   # no split of index0 in non-empty ranges
+            assert splits == 2 and index0 <= 8
+            continue
+        got = da._launch_split(q, k8, v8, kb, vb, index0, block_index, plan,
+                               k_scale=ks, v_scale=vs)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=TOL[dtype])
+
+
+def test_decode_plan_the_card_cannot_hold_raises(cuda):
+    """A kernel-B/C plan whose shared memory is past a block's 227 KB
+    (B 256 at dh 256) raises before any launch."""
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    n, b, h, dh, s = 1, 256, 1, 256, 64
+    q = torch.zeros(n * b, 1, h * dh, device=cuda)
+    k8, ks = quantize_kv_t(torch.zeros(n, h, dh, s, device=cuda))
+    kb = torch.zeros(n * b, h, 8, dh, device=cuda)
+    fn = da.shared_prefix_attention_fused_int8
+    launches = fn.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fn(q, k8, ks, k8, ks, kb, kb, s, 7)
+    assert fn.launches == launches
+
+
+# (n, b, bw, s, index0, block_index): the timed shapes (16 images, and the
+# flat path's 8 at stage 1's S 64 and stage 2's S 256), index0 1, a range
+# that is not a whole tile, B 8, and an empty prefix
+_FLAT_CASES = [(16, 4, 8, 256, 256, 7), (8, 4, 8, 64, 57, 7),
+               (8, 4, 8, 256, 241, 7), (16, 4, 8, 256, 1, 0),
+               (16, 4, 8, 256, 200, 5), (8, 8, 8, 96, 90, 7),
+               (3, 4, 8, 64, 0, 2)]
+
+
+def _flat_inputs(gen, n, b, h, dh, bw, s, dtype, quant):
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    q = _rand(gen, n * b, 1, h * dh, dtype=dtype)
+    kt, vt = (_rand(gen, n, h, dh, s, dtype=dtype) for _ in range(2))
+    kb, vb = (_rand(gen, n * b, h, bw, dh, dtype=dtype) for _ in range(2))
+    if not quant:
+        return (q, da.interleave_t(kt), da.interleave_t(vt), kb, vb), {}
+    (k8, ks), (v8, vs) = quantize_kv_t(kt), quantize_kv_t(vt)
+    return ((q, da.interleave_t(k8), da.interleave_t(v8), kb, vb),
+            {"k_scale": da.interleave_scale(ks),
+             "v_scale": da.interleave_scale(vs)})
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["t", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,b,bw,s,index0,block_index", _FLAT_CASES)
+def test_flat_split_kernel_matches_plain(cuda, quant, dtype, n, b, bw, s,
+                                         index0, block_index):
+    """The flat kernel (one launch, the prefix split over a cluster of
+    CTAs by its plan) against its plain version, and in forced clusters of
+    1 and 3 CTAs an image; launched once a call, equal bits over two
+    calls."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=cuda).manual_seed(index0 + b + s)
+    h, dh = 8, 64
+    (q, k_il, v_il, kb, vb), kw = _flat_inputs(gen, n, b, h, dh, bw, s,
+                                               dtype, quant)
+    args = (q, k_il, v_il, kb, vb, index0, block_index, h)
+    want = da.shared_prefix_attention_flat_reference(*args, **kw)
+    flat = da.shared_prefix_attention_fused_flat
+    counts = (flat.launches, flat.int8_launches)
+    got = flat(*args, **kw)
+    assert (flat.launches, flat.int8_launches) == (
+        counts[0] + (not quant), counts[1] + quant)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=TOL[dtype])
+    assert torch.equal(got, flat(*args, **kw))
+    for splits in (1, 3):
+        try:
+            plan = da._flat_plan(n, b, h, dh, index0, 132,
+                                 k_il.element_size(), block_index,
+                                 q.element_size(), splits)
+        except ValueError:   # no split of index0 in non-empty ranges
+            assert splits == 3 and index0 <= 2 * 2
+            continue
+        got = da._launch_flat(q, k_il, v_il, kw.get("k_scale"),
+                              kw.get("v_scale"), kb, vb, index0, block_index,
+                              h, plan=plan)
+        torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                                   atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["t", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,s,index0", [(3, 17, 17), (5, 40, 33),
+                                        (8, 17, 15)])
+def test_flat_kernel_element_path_matches_plain(cuda, quant, dtype, h, s,
+                                                index0):
+    """The flat kernel where an interleaved row (S*H elements) is not
+    whole 16-byte chunks (3 and 5 heads; 8 heads of int8 at S 17): the
+    element loads instead of cp.async."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=cuda).manual_seed(h + s)
+    n, b, dh, bw = 3, 4, 64, 8
+    (q, k_il, v_il, kb, vb), kw = _flat_inputs(gen, n, b, h, dh, bw, s,
+                                               dtype, quant)
+    args = (q, k_il, v_il, kb, vb, index0, 5, h)
+    torch.testing.assert_close(
+        da.shared_prefix_attention_fused_flat(*args, **kw).float(),
+        da.shared_prefix_attention_flat_reference(*args, **kw).float(),
+        rtol=0, atol=TOL[dtype])
+
+
+def test_flat_plan_the_card_cannot_hold_raises(cuda):
+    """A flat plan of 64-slot float32 tiles in two ring slots (~540 KB of
+    shared memory) is refused once its occupancy is asked, before any
+    launch."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    n, b, h, dh = 2, 4, 8, 64
+    (q, k_il, v_il, kb, vb), _ = _flat_inputs(gen, n, b, h, dh, 8, 256,
+                                              torch.float32, False)
+    plan = dict(da.flat_launch_plan(n, b, h, dh, 256, 132, 4, 7), tile=64,
+                stages=2)
+    plan["smem"] = da.flat_smem(b, h, dh, 64, 4, 4, 2)
+    assert plan["smem"] > 227 * 1024
+    with pytest.raises(RuntimeError, match="holds no"):
+        da._launch_flat(q, k_il, v_il, None, None, kb, vb, 256, 7, h,
+                        plan=plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("b,bw,s,index0,block_index",
                          [(4, 8, 256, 256, 7), (4, 8, 256, 96, 3),
                           (4, 8, 256, 1, 0), (32, 16, 40, 33, 15),
@@ -219,11 +383,11 @@ def test_flat_wrapper_refuses_what_the_kernel_does_not_take(cuda):
             ((q, k_il.to(torch.int8), k_il.to(torch.int8), kb, kb, 1, 0, 8),
              {"k_scale": torch.zeros(2, 256, device=cuda,
                                      dtype=torch.bfloat16)}, "both"),
-            ((torch.zeros(2048, 1, 512, device=cuda),
-              torch.zeros(8, 64, 32 * 8, device=cuda),
-              torch.zeros(8, 64, 32 * 8, device=cuda),
-              torch.zeros(2048, 8, 4, 64, device=cuda),
-              torch.zeros(2048, 8, 4, 64, device=cuda), 1, 0, 8), {},
+            ((torch.zeros(8, 1, 64 * 256, device=cuda),
+              torch.zeros(2, 256, 32 * 64, device=cuda),
+              torch.zeros(2, 256, 32 * 64, device=cuda),
+              torch.zeros(8, 64, 4, 256, device=cuda),
+              torch.zeros(8, 64, 4, 256, device=cuda), 1, 0, 64), {},
              "shared memory")):
         with pytest.raises(ValueError, match=match):
             flat(*args, **kw)

@@ -68,12 +68,16 @@ def test_shared_prefix_attention_matches_jax(bw, index0, block_index):
     np.testing.assert_allclose(got, np.asarray(want_einsum), atol=ATOL)
 
 
-def _split_combine(q, kt, vt, kb, vb, index0, block_index, plan, chunk):
+def _split_combine(q, kt, vt, kb, vb, index0, block_index, plan, chunk,
+                   k_scale=None, v_scale=None):
     """Kernel B's arithmetic in plain PyTorch: each rank's partial softmax
     (base-2 max, sum and B x dh accumulator) over its slot range of
     ``plan`` and its segment chunks (``chunk`` slots each, dealt to the
     ranks in turn), combined in rank order by the kernel's rule (weights
-    2^(m_r - M), a rank at -inf weighing 0)."""
+    2^(m_r - M), a rank at -inf weighing 0).  With ``k_scale`` /
+    ``v_scale`` (N, H, S), kernel C's: the K scales multiply the prefix
+    scores, the V scales the probabilities of the P V product (the sum
+    takes the unscaled ones)."""
     n, h, dh, _ = kt.shape
     b = q.shape[0] // n
     splits = len(plan["ranges"])
@@ -83,20 +87,26 @@ def _split_combine(q, kt, vt, kb, vb, index0, block_index, plan, chunk):
     vseg = vb[:, :, :block_index + 1].reshape(n, b, h, -1, dh)
     slots = torch.arange(block_index + 1)
     ms, ls, accs = [], [], []
+    ones = torch.ones(n, h, kt.shape[-1])
+    ks = ones if k_scale is None else k_scale.float()
+    vs = ones if v_scale is None else v_scale.float()
     for r, (lo, hi) in enumerate(plan["ranges"]):
         mine = (slots // chunk) % splits == r
         scores = torch.cat([
-            torch.einsum("nbhd,nhds->nbhs", qg, kt[..., lo:hi]),
+            torch.einsum("nbhd,nhds->nbhs", qg, kt[..., lo:hi])
+            * ks[:, None, :, lo:hi],
             torch.einsum("nbhd,nbhtd->nbht", qg, kseg[:, :, :, mine])],
             dim=-1) * c
         vals = torch.cat([
             vt[..., lo:hi].permute(0, 1, 3, 2)[:, None].expand(
                 n, b, h, hi - lo, dh), vseg[:, :, :, mine]], dim=3)
+        vscale = torch.cat([vs[:, None, :, lo:hi].expand(n, b, h, hi - lo),
+                            torch.ones(n, b, h, int(mine.sum()))], dim=-1)
         m = scores.amax(-1, keepdim=True)
         p = torch.exp2(scores - m)
         ms.append(m)
         ls.append(p.sum(-1, keepdim=True))
-        accs.append(torch.einsum("nbhs,nbhsd->nbhd", p, vals))
+        accs.append(torch.einsum("nbhs,nbhsd->nbhd", p * vscale, vals))
     top = torch.stack(ms).amax(0)
     total, out = 0.0, 0.0
     for m, l, acc in zip(ms, ls, accs):
@@ -172,6 +182,216 @@ def test_decode_launch_plan(n, b, index0):
         assert plan["smem"] == split_smem(b, dh, itemsize, plan["stages"])
         assert plan["smem"] <= 227 * 1024
         assert plan["ctas"] == n * heads * splits
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("b", [4, 32])
+@pytest.mark.parametrize("index0", [1, 7, 64, 200, 256])
+def test_decode_launch_plan_int8_prefix(n, b, index0):
+    """Kernel C's split (kernel B's kernel over an int8 prefix) on the
+    H100: the same properties as kernel B's (ranges of 8-slot multiples:
+    the kernel reads a range that starts mid-chunk from the chunk's start
+    and masks the slots before it), one wave counted at C's own shared
+    memory, and the byte-counted ring equal to a hand count."""
+    from qaig_tpu_torch.ops.decode_attention import (SPLIT_MAX, launch_plan,
+                                                     segment_chunk,
+                                                     split_smem)
+
+    heads, dh = 8, 64
+    for itemsize in (2, 4):
+        plan = launch_plan(n, b, heads, dh, index0, 132, itemsize, 0, 1)
+        splits, ranges = plan["splits"], plan["ranges"]
+        assert 1 <= splits <= SPLIT_MAX and len(ranges) == splits
+        assert ranges[0][0] == 0 and ranges[-1][1] == index0
+        for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(index0, 0)]):
+            assert lo < hi == nxt and lo % 8 == 0
+        if index0 == 1:
+            assert splits == 1
+        assert plan["waves"] == 1
+        assert plan["smem"] == split_smem(b, dh, itemsize, plan["stages"], 1)
+        assert plan["smem"] <= 227 * 1024
+        assert segment_chunk(b, dh, itemsize, 1) >= 1
+    # the hand count at dh 64, bf16 q, two ring slots: floats (q, acc,
+    # score strips of `parts` x B4 x 64, m / l / alpha), then per slot a K
+    # and a V part of max(64 rows x (64 + 16) bytes + 64 bf16 scales,
+    # B rows x (64 x 2 + 16) bytes)
+    parts = {4: 8, 32: 1}[b]
+    floats = 64 * b + b * 64 + parts * b * 64 + 3 * b
+    part = max(64 * (64 + 16) + 2 * 64, b * (64 * 2 + 16))
+    assert split_smem(b, 64, 2, 2, 1) == floats * 4 + 2 * 2 * part
+    assert split_smem(b, 64, 2, 2) == floats * 4 + 2 * 2 * max(
+        64 * (64 * 2 + 16), b * (64 * 2 + 16))
+
+
+@pytest.mark.parametrize("bw,index0,block_index,chunk,splits",
+                         [(8, 200, 5, None, None), (8, 256, 7, None, None),
+                          (8, 1, 0, None, None), (7, 64, 6, 1, 2),
+                          (8, 48, 7, 3, 2)])
+def test_int8_split_combine_matches_jax(bw, index0, block_index, chunk,
+                                        splits):
+    """Kernel C as kernel B's kernel over an int8 prefix: its plan's (or a
+    forced) split into 8-slot ranges, the segment dealt to the
+    ranks in chunks (the plan's, or 1 and 3: every rank gets some), the
+    scales folded in, and the rank-order combine, in plain PyTorch,
+    against the JAX int8 Pallas kernel (interpreted)."""
+    from qaig_tpu.ops.decode_attention import (
+        shared_prefix_attention_fused_int8 as jax_int8)
+    from qaig_tpu.ops.kv_quant import quantize_kv_t as jax_quantize
+    from qaig_tpu_torch.ops.decode_attention import _plan, segment_chunk
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    q, kt, vt, kb, vb = _decode_inputs(bw=bw, seed=index0 + 3)
+    plan = _plan(2, 4, 8, 64, index0, 132, 4, block_index, splits or 0, 1)
+    assert plan["splits"] == (splits or {1: 1, 200: 2, 256: 2}[index0])
+    assert all(lo % 8 == 0 for lo, _ in plan["ranges"])
+    k8, ks = quantize_kv_t(_t(kt))
+    v8, vs = quantize_kv_t(_t(vt))
+    got = _split_combine(_t(q), k8.float(), v8.float(), _t(kb), _t(vb),
+                         index0, block_index, plan,
+                         chunk or segment_chunk(4, 64, 4, 1), ks, vs).numpy()
+    jk8, jks = jax_quantize(_j(kt))
+    jv8, jvs = jax_quantize(_j(vt))
+    want = jax_int8(_j(q), jk8, jks, jv8, jvs, _j(kb), _j(vb),
+                    jnp.asarray(index0), jnp.asarray(block_index),
+                    interpret=None)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+def _flat_split_combine(q, k_il, v_il, kb, vb, index0, block_index, heads,
+                        plan, chunk, k_scale=None, v_scale=None):
+    """The flat kernel's arithmetic in plain PyTorch (float32, where its
+    roundings to the working dtype are exact): q pre-scaled by 1/sqrt(dh);
+    each rank's partial softmax (natural-base max, sum and (H x B) x dh
+    accumulator) over all heads of its slot range of ``plan`` and its
+    segment chunks (``chunk`` slots of every (rollout, head), dealt to the
+    ranks in turn); the K scales on the prefix scores, the V scales on its
+    probabilities; combined in rank order (weights e^(m_r - M), a rank
+    with no slot weighing 0)."""
+    nb, _, d = q.shape
+    n, dh, sh = k_il.shape
+    h, b, s = heads, nb // n, sh // heads
+    splits = len(plan["ranges"])
+    q4 = (q.reshape(n, b, h, dh) / math.sqrt(dh)).transpose(1, 2)
+    k = k_il.float().reshape(n, dh, s, h)
+    v = v_il.float().reshape(n, dh, s, h)
+    ones = torch.ones(n, s, h)
+    ks = ones if k_scale is None else k_scale.float().reshape(n, s, h)
+    vs = ones if v_scale is None else v_scale.float().reshape(n, s, h)
+    kseg = kb.reshape(n, b, h, -1, dh).transpose(1, 2)[:, :, :, :block_index
+                                                        + 1]
+    vseg = vb.reshape(n, b, h, -1, dh).transpose(1, 2)[:, :, :, :block_index
+                                                        + 1]
+    slots = torch.arange(block_index + 1)
+    ms, ls, accs = [], [], []
+    for r, (lo, hi) in enumerate(plan["ranges"]):
+        mine = (slots // chunk) % splits == r
+        sc_s = torch.einsum("nhbd,ndsh->nhbs", q4, k[:, :, lo:hi]) * \
+            ks[:, lo:hi].transpose(1, 2)[:, :, None]
+        sc_b = torch.einsum("nhbd,nhbtd->nhbt", q4, kseg[:, :, :, mine])
+        scores = torch.cat([sc_s, sc_b], dim=-1)
+        if scores.shape[-1] == 0:
+            continue
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp(scores - m)
+        p_s = p[..., :hi - lo] * vs[:, lo:hi].transpose(1, 2)[:, :, None]
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("nhbs,ndsh->nhbd", p_s, v[:, :, lo:hi])
+                    + torch.einsum("nhbt,nhbtd->nhbd", p[..., hi - lo:],
+                                   vseg[:, :, :, mine]))
+    top = torch.stack(ms).amax(0)
+    total, out = 0.0, 0.0
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.exp(m - top)
+        total = total + l * w
+        out = out + acc * w
+    return (out / total).transpose(1, 2).reshape(nb, 1, d)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["t", "int8"])
+@pytest.mark.parametrize("index0,block_index,splits,chunk",
+                         [(256, 7, 0, None), (200, 5, 0, None),
+                          (1, 0, 0, None), (96, 3, 5, 2), (64, 7, 8, 1)])
+def test_flat_split_combine_matches_jax(quant, index0, block_index, splits,
+                                        chunk):
+    """The flat kernel's split of each image's prefix into the slot ranges
+    of its plan (8 CTAs an image at N8) or a forced 5 or 8, the segment's
+    chunks (the plan's, or 1 and 2 slots: every rank gets some) dealt to
+    the ranks, and the rank-order combine, in plain PyTorch, against the
+    JAX flat Pallas kernel (interpreted), with and without int8 scales."""
+    from qaig_tpu.ops import decode_attention as jda
+    from qaig_tpu.ops.kv_quant import quantize_kv_t as jax_quantize
+    from qaig_tpu_torch.ops import decode_attention as da
+    from qaig_tpu_torch.ops.kv_quant import quantize_kv_t
+
+    q, kt, vt, kb, vb = _decode_inputs(n=8, seed=index0 + splits)
+    itemsize = 1 if quant else 4
+    plan = da._flat_plan(8, 4, 8, 64, index0, 132, itemsize, block_index, 4,
+                         splits)
+    assert plan["splits"] == (splits or (1 if index0 == 1 else 8))
+    assert plan["ranges"][-1][1] == index0
+    if quant:
+        (k8, ks), (v8, vs) = quantize_kv_t(_t(kt)), quantize_kv_t(_t(vt))
+        k_il, v_il = da.interleave_t(k8), da.interleave_t(v8)
+        scales = (da.interleave_scale(ks), da.interleave_scale(vs))
+        (jk8, jks), (jv8, jvs) = jax_quantize(_j(kt)), jax_quantize(_j(vt))
+        jax_args = (jda.interleave_t(jk8), jda.interleave_t(jv8))
+        jax_kw = {"k_scale": jda.interleave_scale(jks),
+                  "v_scale": jda.interleave_scale(jvs)}
+    else:
+        k_il, v_il = da.interleave_t(_t(kt)), da.interleave_t(_t(vt))
+        scales = (None, None)
+        jax_args = (_j(k_il), _j(v_il))
+        jax_kw = {}
+    got = _flat_split_combine(_t(q), k_il, v_il, _t(kb), _t(vb), index0,
+                              block_index, 8, plan,
+                              chunk or plan["segment_chunk"],
+                              *scales).numpy()
+    want = jda.shared_prefix_attention_fused_flat(
+        _j(q), *jax_args, _j(kb), _j(vb), jnp.asarray(index0),
+        jnp.asarray(block_index), heads=8, interpret=True, **jax_kw)
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
+
+
+@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("b", [4, 8])
+@pytest.mark.parametrize("index0", [1, 7, 64, 200, 256])
+@pytest.mark.parametrize("itemsize", [1, 2, 4])
+def test_flat_launch_plan(n, b, index0, itemsize):
+    """The flat kernel's plan on the H100 (132 SMs), 8 heads of dim 64:
+    slot ranges in rank order covering [0, index0) once, none empty, each
+    starting on a 16-byte chunk of its interleaved rows; one cluster of at
+    most 8 CTAs an image, as many as the prefix has chunks for and the
+    card holds in one wave (clusters fill 120 of its SMs); an even tile of
+    at most 64 slots, the ring within a block's 227 KB, and the shared
+    memory the sum of its parts."""
+    from qaig_tpu_torch.ops import decode_attention as da
+
+    heads, dh = 8, 64
+    plan = da.flat_launch_plan(n, b, heads, dh, index0, 132, itemsize, 7)
+    splits, ranges = plan["splits"], plan["ranges"]
+    assert 1 <= splits <= da.FLAT_MAX_SPLITS == 8
+    assert plan["rollouts"] == b and plan["groups"] == 1
+    assert len(ranges) == splits and plan["ctas"] == n * splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == index0
+    for (lo, hi), (nxt, _) in zip(ranges, ranges[1:] + [(index0, 0)]):
+        assert lo < hi == nxt and lo * heads * itemsize % 16 == 0
+    fit = 8
+    while n * fit > 120:
+        fit //= 2
+    chunk_slots = 16 // math.gcd(16, heads * itemsize)
+    assert splits <= fit
+    assert splits >= min(fit, -(-index0 // chunk_slots)) // 2
+    assert plan["waves"] == 1
+    tile = plan["tile"]
+    assert tile % 2 == 0 and 2 <= tile <= da.FLAT_MAX_TILE
+    assert tile * heads * itemsize % 16 == 0
+    assert plan["stages"] in (1, 2) and plan["smem"] <= 227 * 1024
+    q_itemsize = 2 if itemsize == 1 else itemsize
+    assert plan["smem"] == da.flat_smem(b, heads, dh, tile, q_itemsize,
+                                        itemsize, plan["stages"])
+    assert 1 <= plan["segment_chunk"] == da.flat_segment_chunk(
+        b, heads, dh, tile, q_itemsize, itemsize) <= tile
 
 
 def test_quantize_kv_t_bit_exact():
