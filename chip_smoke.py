@@ -57,8 +57,19 @@ Phases (any failure exits non-zero and prints no result line):
 5. generation main path -- the full-width 3-stage cascade of ``bench.py
    --scale full`` with seeded random weights, written as
    ``qaig_tpu``-schema checkpoints and generated through
-   ``qaig_tpu_torch.infer.generate.run`` in bf16 on 8 images; then one
-   stage-2 rollout with an int8 prefix;
+   ``qaig_tpu_torch.infer.generate.run`` in bf16 on 8 images (the
+   dispatched loop, ``fused`` False); then one stage-2 rollout with an
+   int8 prefix;
+5f. fused generation -- the capturable categorical draw against
+   ``torch.multinomial``; a capture that reads a device value raises;
+   ``python -m qaig_tpu_torch.cli.generate_images --bf16`` in a new
+   process (fused by default: a cold capture); then ``generate.run``
+   fused with one cache (the whole cascade from one CUDA graph): cold
+   (load, capture, instantiation, replay timed), warm at a second seed,
+   warm again, the dispatched loop at the second seed, and a warm replay
+   under ``--profile-dir``.  Tokens equal the dispatched loop's at both
+   seeds, grids and launch counts equal phase 5's, the trace's kernels
+   equal the replay's counts;
 5b. flat-decode path -- the same checkpoints through
    ``DecodeEngine(flat_decode=True)`` in ``bench.py --flat-decode``'s
    stage order (timed in turns with the slot-minor engine), then a stage-2
@@ -70,9 +81,12 @@ Phases (any failure exits non-zero and prints no result line):
    decoder: 6 bf16 steps at batch 8, checkpoints and previews at steps 0
    and 3; then the same 6 steps in float32 (the trainer's default), which
    run the backward kernel's float32 form;
-7. serving -- ``CascadePipeline`` on phase 5's checkpoints: float32
+7. serving -- ``CascadePipeline`` on phase 5's checkpoints (fused, one
+   CUDA graph per batch size): float32
    composition invariance of row-keyed sampling (asserted) and the bf16
-   share of equal tokens (reported); then ``python -m
+   share of equal tokens (reported), fused tokens equal to the
+   dispatched loop's in both; a bf16 1-image request fused (first call,
+   then warm) against the dispatched loop, in turns; then ``python -m
    qaig_tpu_torch.cli.serve_generation --bf16`` as a subprocess: /healthz,
    four concurrent /generate requests, /metrics, a PNG, SIGTERM;
 8. probe path -- ``qaig_tpu_torch.scripts.probe_mlp_fused.main()`` at its
@@ -1378,24 +1392,8 @@ def synchronize(torch, device):
 
 
 def _counted():
-    from qaig_tpu_torch.ops import bmu
-    from qaig_tpu_torch.ops import decode_attention as da
-    from qaig_tpu_torch.ops import flash_attention as fa
-    from qaig_tpu_torch.ops import mlp_fused as mf
-    return [("flash_attention", fa.flash_attention, "launches"),
-            ("flash_attention_backward", fa.fused_flash_attention_backward,
-             "launches"),
-            ("shared_prefix_attention_fused_t",
-             da.shared_prefix_attention_fused_t, "launches"),
-            ("shared_prefix_attention_fused_int8",
-             da.shared_prefix_attention_fused_int8, "launches"),
-            ("shared_prefix_attention_fused_flat",
-             da.shared_prefix_attention_fused_flat, "launches"),
-            ("shared_prefix_attention_fused_flat_int8",
-             da.shared_prefix_attention_fused_flat, "int8_launches"),
-            ("fused_bmu", bmu.fused_bmu, "launches"),
-            ("fused_bmu_small_m", bmu.fused_bmu, "small_m_launches"),
-            ("mlp2_fused", mf.mlp2_fused, "launches")]
+    from qaig_tpu_torch.infer.graphs import launch_counters
+    return launch_counters()
 
 
 def reset_launches():
@@ -1410,9 +1408,10 @@ def read_launches():
 def run_main_path(torch, workdir, paths, seed=0, num_images=8,
                   device="cuda", profile=False):
     """The cascade of ``paths`` (``write_full_cascade``) through
-    ``generate.run`` (bf16), then one stage-2 rollout with an int8 prefix
-    (and, with ``profile``, a profiled stage-2 window).  Returns (launches,
-    timings)."""
+    ``generate.run`` (bf16, the dispatched loop: ``fused`` False), then one
+    stage-2 rollout with an int8 prefix (and, with ``profile``, a profiled
+    stage-2 window).  Returns (launches, timings, the dispatched run's
+    tokens, saved grids and launches for ``run_fused_path``)."""
     import numpy as np
     from qaig_tpu_torch.infer import generate
     from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
@@ -1444,11 +1443,13 @@ def run_main_path(torch, workdir, paths, seed=0, num_images=8,
         tokens = generate.run({
             "device": device, "config_path": str(config_path),
             "decoder_path": str(decoder_path), "num_images": num_images,
-            "seed": seed, "bf16": True,
+            "seed": seed, "bf16": True, "fused": False,
             "out_dir": str(Path(workdir) / "out")})
         synchronize(torch, device)
         run_s = time.perf_counter() - t0
         launches = read_launches()
+        reference = {"tokens": tokens.cpu(), "saved": dict(saved),
+                     "launches": dict(launches), "run_s": run_s}
     finally:
         generate.save_images = save_images
         generate.generate_stage_tokens = stage_fn
@@ -1515,7 +1516,7 @@ def run_main_path(torch, workdir, paths, seed=0, num_images=8,
             torch, DecodeEngine(model), init, x_enc, gen,
             SamplerSettings(end_token=k, pos_offset=1), num_beam, beam_width,
             FULL["sliding"][2])
-    return launches, timings
+    return launches, timings, reference
 
 
 def profile_window(torch, engine, init, x_enc, gen, settings, num_beam,
@@ -1551,6 +1552,220 @@ def profile_window(torch, engine, init, x_enc, gen, settings, num_beam,
     for e in out["top"]:
         log(f"[profile]   {e['ms']:8.2f} ms  {e['count']:6d}x  {e['name']}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5f: the same cascade fused (one CUDA graph, captured then replayed)
+# ---------------------------------------------------------------------------
+
+def check_categorical(torch, device="cuda"):
+    """The capturable draw of batch-keyed sampling (``decode._categorical``:
+    argmax(p / E), E ~ Exp(1)) against ``torch.multinomial(p, 1)`` from the
+    same generator state on the card: equal tokens, equal state after."""
+    from qaig_tpu_torch.infer.decode import _categorical
+    gen = torch.Generator(device=device).manual_seed(3)
+    for rows in (8, 64, 256):
+        logits = torch.randn(rows, FULL["k"] + 1, generator=gen,
+                             device=device)
+        for seed in (0, 7):
+            g1 = torch.Generator(device=device).manual_seed(seed)
+            g2 = torch.Generator(device=device).manual_seed(seed)
+            want = torch.multinomial(torch.softmax(logits, dim=-1), 1,
+                                     generator=g1)[:, 0]
+            if not torch.equal(_categorical(logits, g2), want) or \
+                    not torch.equal(g1.get_state(), g2.get_state()):
+                raise SystemExit(f"_categorical draws other tokens than "
+                                 f"torch.multinomial at {rows} rows")
+    log(f"[fused] _categorical == torch.multinomial(p, 1) on the card at "
+        f"8/64/256 x {FULL['k'] + 1}, seeds 0 and 7")
+
+
+def trace_kernels(trace_path):
+    """Kernel events of a ``torch.profiler`` Chrome trace: launches by
+    kernel, and the device busy share over the span from the first kernel's
+    start to the last one's end."""
+    events = [e for e in json.loads(Path(trace_path).read_text())
+              ["traceEvents"] if e.get("cat") == "kernel"]
+    if not events:
+        raise SystemExit(f"{trace_path}: no kernel events")
+    start = min(e["ts"] for e in events)
+    end = max(e["ts"] + e["dur"] for e in events)
+    busy = sum(e["dur"] for e in events)
+    return {"kernels": len(events),
+            "flash_attention": sum("flash_attention_fwd" in e["name"]
+                                   for e in events),
+            "shared_prefix_attention_fused_t": sum(
+                "prefix_split_kernel" in e["name"] for e in events),
+            "span_ms": (end - start) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (end - start)}
+
+
+def failed_capture(torch, device="cuda"):
+    """A capture that reads a device value on the host must raise, count
+    nothing and keep no graph; the runner captures afterwards."""
+    from qaig_tpu_torch.infer.graphs import GraphRunner, read_counts
+    runner = GraphRunner(device)
+    x = torch.ones(4, device=device)
+    before = read_counts()
+    try:
+        runner("bad", lambda t: t * float(t.sum()), inputs=(x,))
+    except Exception as e:   # PyTorch raises its own capture error types
+        error = f"{type(e).__name__}: {str(e).splitlines()[0]}"
+    else:
+        raise SystemExit("a capture that syncs with the host did not raise")
+    if runner.graphs or read_counts() != before:
+        raise SystemExit("a failed capture kept a graph or counted launches")
+    if not torch.equal(runner("good", lambda t: (t * 2,), inputs=(x,))[0],
+                       x * 2):
+        raise SystemExit("the runner does not capture after a failure")
+    log(f"[fused] a capture that reads a device value raised ({error}); no "
+        f"graph kept, no launch counted, the next capture replays")
+
+
+def run_generate_cli(torch, workdir, paths, seed, num_images):
+    """``python -m qaig_tpu_torch.cli.generate_images --bf16`` in a new
+    process: the fused path by default, so its capture runs where no
+    library or kernel was used before.  Returns its seconds, its cascade
+    line and its output directory."""
+    config_path, decoder_path, _ = paths
+    out = Path(workdir) / "cli_out"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "qaig_tpu_torch.cli.generate_images",
+         "--bf16", "--config-path", str(config_path), "--decoder-path",
+         str(decoder_path), "--num-images", str(num_images), "--seed",
+         str(seed), "--out-dir", str(out)],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+        timeout=600)
+    seconds = time.perf_counter() - t0
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or \
+            "Fused single-dispatch cascade: 3 stages" not in lines:
+        raise SystemExit(f"generate_images CLI failed ({proc.returncode}):"
+                         f"\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    line = next(ln for ln in lines if ln.startswith("Cascade:"))
+    return {"seconds": seconds, "line": line, "out": out}
+
+
+def run_fused_path(torch, workdir, paths, reference, seed=0, num_images=8,
+                   device="cuda"):
+    """Phase 5f: ``generate.run`` fused (the whole cascade from one CUDA
+    graph) on phase 5's checkpoints, with one cache: cold at phase 5's seed
+    (load, capture, instantiation, replay), warm at another seed, warm at
+    phase 5's seed again, the dispatched loop at the other seed, and a warm
+    replay under ``--profile-dir``.  Tokens, saved grids and launches are
+    held to the dispatched runs' at the same seed, the two seeds must
+    differ, one graph must serve every call, and the trace's kernels must
+    equal the replay's counts.  Returns (a warm replay's launches,
+    timings)."""
+    import numpy as np
+    from qaig_tpu_torch.infer import generate
+
+    check_categorical(torch, device)
+    config_path, decoder_path, _ = paths
+    saved, load_s = {}, []
+    save_images, load_stage = generate.save_images, generate._load_stage
+
+    def recording_save(images, name, dest, **kw):
+        saved[name] = images
+        return save_images(images, name, dest, **kw)
+
+    def timed_load(*a, **kw):
+        t0 = time.perf_counter()
+        out = load_stage(*a, **kw)
+        load_s.append(time.perf_counter() - t0)
+        return out
+
+    def run(run_seed, fused, cache=None, **extra):
+        saved.clear()
+        synchronize(torch, device)
+        reset_launches()
+        t0 = time.perf_counter()
+        tokens = generate.run(dict(
+            device=device, config_path=str(config_path),
+            decoder_path=str(decoder_path), num_images=num_images,
+            seed=run_seed, bf16=True, fused=fused,
+            out_dir=str(Path(workdir) / "fused_out"), **extra), cache=cache)
+        synchronize(torch, device)
+        seconds = time.perf_counter() - t0
+        return tokens.cpu(), dict(saved), read_launches(), seconds
+
+    failed_capture(torch, device)
+    cli = run_generate_cli(torch, workdir, paths, seed, num_images)
+    generate.save_images, generate._load_stage = recording_save, timed_load
+    cache = {}
+    try:
+        cold = run(seed, True, cache)
+        cold_load_s = sum(load_s)
+        other = run(seed + 1, True, cache)
+        warm = run(seed, True, cache)
+        dispatched_other = run(seed + 1, False)
+        traced = run(seed, True, cache,
+                     profile_dir=str(Path(workdir) / "fused_trace"))
+    finally:
+        generate.save_images, generate._load_stage = save_images, load_stage
+    runner = cache["runner"]
+    if list(runner.graphs) != [num_images]:
+        raise SystemExit(f"expected one graph, got keys {list(runner.graphs)}")
+    graph = runner.graphs[num_images]
+    for name, result in (("cold", cold), ("warm", warm), ("traced", traced)):
+        if not torch.equal(result[0], reference["tokens"]):
+            raise SystemExit(f"fused {name} tokens differ from the "
+                             f"dispatched loop's at seed {seed}")
+        for count, want in reference["launches"].items():
+            if result[2][count] != want:
+                raise SystemExit(f"fused {name} run counted {count} "
+                                 f"{result[2][count]}, dispatched {want}")
+    if not torch.equal(other[0], dispatched_other[0]):
+        raise SystemExit(f"fused tokens differ from the dispatched loop's at "
+                         f"seed {seed + 1}")
+    if torch.equal(other[0], cold[0]):
+        raise SystemExit("seeds 0 and 1 replayed the same tokens")
+    grid_err = max(float(np.abs(cold[1][name] - images).max())
+                   for name, images in reference["saved"].items())
+    if set(cold[1]) != set(reference["saved"]) or grid_err > ATOL:
+        raise SystemExit(f"fused grids differ from the dispatched ones "
+                         f"({sorted(cold[1])}, max abs err {grid_err})")
+    for name in ("flash_attention", "shared_prefix_attention_fused_t"):
+        if warm[2][name] <= 0:
+            raise SystemExit(f"the fused replay never launched {name}")
+    trace = trace_kernels(Path(workdir) / "fused_trace" / "trace_0.json")
+    for name in ("flash_attention", "shared_prefix_attention_fused_t"):
+        if trace[name] != warm[2][name]:
+            raise SystemExit(f"the replay's trace holds {trace[name]} "
+                             f"{name} kernels, its count {warm[2][name]}")
+    for grid in ("recon_model_Cond", "recon_model_2"):
+        mine = (Path(workdir) / "fused_out" / "images" / f"{grid}.jpg")
+        if mine.read_bytes() != (cli["out"] / "images"
+                                 / f"{grid}.jpg").read_bytes():
+            raise SystemExit(f"the CLI's {grid}.jpg differs from the fused "
+                             f"run's at seed {seed}")
+    replay_s = (cold[3] - cold_load_s - graph.capture_s
+                - graph.instantiate_s)
+    timings = {"dispatched_s": reference["run_s"], "cold_s": cold[3],
+               "cold_load_s": cold_load_s, "capture_s": graph.capture_s,
+               "instantiate_s": graph.instantiate_s,
+               "cold_replay_rest_s": replay_s,
+               "warm_s": [other[3], warm[3]],
+               "dispatched_other_s": dispatched_other[3],
+               "cli_process_s": cli["seconds"], "cli_cascade": cli["line"],
+               "grid_max_abs_err": grid_err, "trace": trace}
+    log(f"[fused] generate.run {num_images} images: dispatched "
+        f"{reference['run_s']:.3f} s / {dispatched_other[3]:.3f} s; fused "
+        f"cold {cold[3]:.3f} s (load {cold_load_s:.3f}, capture "
+        f"{graph.capture_s:.3f}, instantiation {graph.instantiate_s:.3f}, "
+        f"replay and the rest {replay_s:.3f}); warm {other[3]:.3f} s (seed "
+        f"{seed + 1}), {warm[3]:.3f} s (seed {seed}); tokens equal the "
+        f"dispatched loop's at both seeds, grids max abs err {grid_err}")
+    log(f"[fused] the CLI in a new process (fused by default, cold): "
+        f"{cli['seconds']:.3f} s with start and load; {cli['line']}; its "
+        f"grids equal the fused run's at seed {seed}")
+    log(f"[fused] replay launches {warm[2]}; traced replay: "
+        f"{trace['kernels']} kernels, {trace['flash_attention']} "
+        f"flash_attention_fwd, {trace['shared_prefix_attention_fused_t']} "
+        f"prefix_split_kernel; device busy {trace['busy_ms']:.1f} ms of a "
+        f"{trace['span_ms']:.1f} ms span ({100 * trace['busy_share']:.1f}%)")
+    return warm[2], timings
 
 
 # ---------------------------------------------------------------------------
@@ -1793,7 +2008,14 @@ def run_serve_path(torch, paths, device="cuda"):
         equal[kind] = (solo.cpu() == merged[:3].cpu()).double().mean().item()
         log(f"[serve] CascadePipeline {kind}: generate(3, seed=7) and the "
             f"same rows in a coalesced 8-row batch: {100 * equal[kind]:.2f}% "
-            f"of tokens equal ({seconds:.3f} s for both calls)")
+            f"of tokens equal ({seconds:.3f} s for both calls, fused: each "
+            f"captures its graph)")
+        _, dispatched = pipe.generate(3, seed=7, fused=False)
+        if not torch.equal(solo, dispatched):
+            raise SystemExit(f"CascadePipeline {kind}: fused tokens differ "
+                             f"from the dispatched loop's")
+        if kind == "bf16":
+            fused_timing = time_pipeline_request(torch, pipe, device)
         del pipe
     log(f"[serve] pipeline path launches (float32 calls): {launches}")
     if equal["f32"] != 1.0:
@@ -1911,7 +2133,47 @@ def run_serve_path(torch, paths, device="cuda"):
             proc.wait()
     return launches, {"pipeline_equal_share": equal, "server_start_s":
                       start_s, "burst_s": burst_s, "warm_request_s": warm_s,
-                      "dispatch_s_by_batch": by_batch, "metrics": metrics}
+                      "dispatch_s_by_batch": by_batch, "metrics": metrics,
+                      "pipeline_request": fused_timing}
+
+
+def time_pipeline_request(torch, pipe, device, seed=9, turns=2):
+    """A 1-image request as the server's batcher makes it
+    (``pipe.generate(1, row_keys=...)``), bf16: the fused call's first call
+    of the key (capture, instantiation, replay), then warm fused and
+    dispatched calls in turns (fused, dispatched, dispatched, fused, ...),
+    each to a synchronised end; fused and dispatched tokens must be
+    equal."""
+    from qaig_tpu_torch.infer.pipeline import derive_row_keys
+    keys = derive_row_keys(seed, 1)
+
+    def call(fused):
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        _, tokens = pipe.generate(1, row_keys=keys, fused=fused)
+        synchronize(torch, device)
+        return time.perf_counter() - t0, tokens.cpu()
+
+    cold_s, want = call(True)
+    graph = pipe._graphs.graphs[(1, None)]
+    times = {True: [], False: []}
+    for turn in range(2 * turns):
+        fused = turn % 4 in (0, 3)
+        seconds, tokens = call(fused)
+        if not torch.equal(tokens, want):
+            kind = "fused" if fused else "dispatched"
+            raise SystemExit(f"1-image request: {kind} tokens differ from "
+                             f"the first fused call's")
+        times[fused].append(seconds)
+    out = {"cold_s": cold_s, "capture_s": graph.capture_s,
+           "instantiate_s": graph.instantiate_s, "warm_fused_s": times[True],
+           "dispatched_s": times[False]}
+    log(f"[serve] 1-image request, bf16 CascadePipeline: fused first call "
+        f"{cold_s:.3f} s (capture {graph.capture_s:.3f}, instantiation "
+        f"{graph.instantiate_s:.3f}); warm fused "
+        f"{[round(t, 4) for t in times[True]]} s, dispatched "
+        f"{[round(t, 4) for t in times[False]]} s (in turns); tokens equal")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2541,7 +2803,7 @@ def repeat_paths(torch, runs):
         for i in range(runs + 1):
             for sub in ("out", "train"):
                 shutil.rmtree(Path(workdir) / sub, ignore_errors=True)
-            _, gen = run_main_path(torch, workdir, paths)
+            _, gen, _ = run_main_path(torch, workdir, paths)
             _, train = run_train_path(torch, workdir)
             if i:
                 out["generate_s"].append(gen["run_s"])
@@ -2624,8 +2886,11 @@ def main():
         log(f"[main] full-width cascade written in "
             f"{time.perf_counter() - t0:.1f} s")
         launches = {}
-        launches["generate"], timings = run_main_path(
+        launches["generate"], timings, reference = run_main_path(
             torch, workdir, paths, profile=args.profile)
+        launches["generate_fused"], timings["fused"] = run_fused_path(
+            torch, workdir, paths, reference)
+        del reference
         launches["flat_generate"], timings["flat"] = run_flat_path(
             torch, paths)
         launches["train"], timings["train"] = run_train_path(

@@ -2,7 +2,8 @@
 counterpart of ``qaig_tpu/cli/generate_images.py``).
 
     python -m qaig_tpu_torch.cli.generate_images --config-path gen.json \
-        --decoder-path ae.pt --out-dir out [--device cuda] [--bf16]
+        --decoder-path ae.pt --out-dir out [--device cuda] [--bf16] \
+        [--fused | --no-fused] [--profile-dir trace]
 """
 
 import argparse
@@ -27,6 +28,18 @@ def main(argv=None):
     parser.add_argument("--use-ema", action="store_true",
                         help="Generate with the EMA weights (model_ema); "
                              "falls back to live weights with a log line.")
+    parser.add_argument("--profile-dir", default=None, type=pathlib.Path,
+                        help="Write a torch.profiler trace of the whole "
+                             "generation here (trace_0.json).")
+    fused = parser.add_mutually_exclusive_group()
+    fused.add_argument("--fused", dest="fused", action="store_true",
+                       default=None,
+                       help="Run the whole cascade as one function (on "
+                            "CUDA one CUDA graph, captured then replayed; "
+                            "the default on CUDA).")
+    fused.add_argument("--no-fused", dest="fused", action="store_false",
+                       help="Run the dispatched per-step loop (the default "
+                            "on the CPU).")
     parser.add_argument("--out-dir", required=True, type=pathlib.Path)
     args = vars(parser.parse_args(argv))
     generate.run(args)

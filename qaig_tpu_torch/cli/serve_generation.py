@@ -17,12 +17,28 @@ flag parity and refused with an error (``ROADMAP.md`` queue 1 item 10).
 """
 
 import argparse
+import ctypes
 import pathlib
 import signal
 import time
 
 ONE_CARD = "not in the port yet: it serves one card (ROADMAP.md queue 1 " \
            "item 10)"
+
+
+def one_malloc_arena():
+    """One glibc malloc arena for the whole process (``M_ARENA_MAX`` 1),
+    set before any thread starts.  glibc gives each new thread an arena of
+    its own, and the dispatcher thread captures the CUDA graphs: a capture
+    makes hundreds of thousands of small host allocations inside CUDA,
+    which ran several times slower (most of it system time) in a thread's
+    arena than in the main one.  Nothing to do where the C library is not
+    glibc."""
+    try:
+        mallopt = ctypes.CDLL("libc.so.6").mallopt
+    except (OSError, AttributeError):
+        return
+    mallopt(-8, 1)   # M_ARENA_MAX
 
 
 def main(argv=None):
@@ -57,7 +73,10 @@ def main(argv=None):
                              "complete). Default: wait forever.")
     parser.add_argument("--warmup-batch", type=int, default=0,
                         help="Run the pipeline once at this batch size "
-                             "before accepting traffic (0 = none).")
+                             "before accepting traffic (0 = none); on "
+                             "CUDA this captures the fused cascade's CUDA "
+                             "graph for that batch, so a first request of "
+                             "that size replays it.")
     parser.add_argument("--compilation-cache-dir", default=None,
                         type=pathlib.Path, help=f"XLA's cache: {ONE_CARD}.")
     parser.add_argument("--compiler-options", default=None, type=str,
@@ -71,6 +90,8 @@ def main(argv=None):
     if refused:
         parser.error(f"{', '.join(refused)}: {ONE_CARD}")
 
+    if args.device == "cuda":
+        one_malloc_arena()
     import torch
     from qaig_tpu_torch.infer.pipeline import CascadePipeline
     from qaig_tpu_torch.serve import GenerationServer
@@ -86,7 +107,10 @@ def main(argv=None):
             use_ema=args.use_ema)
         if args.warmup_batch > 0:
             # also runs during POST /reload (old weights keep serving), so
-            # the swapped-in pipeline never serves its first, slow call
+            # the swapped-in pipeline never serves its first, slow call;
+            # on CUDA that call captures the batch's graph (infer/graphs.py
+            # serialises captures, so one made while the dispatcher
+            # replays the old pipeline's graphs is safe)
             pipe.generate(args.warmup_batch, seed=0)
             if pipe.device.type == "cuda":
                 torch.cuda.synchronize(pipe.device)

@@ -87,11 +87,16 @@ def _bucket_schedule(needed, total):
 def _categorical(logits, draw):
     """One categorical draw per row of (rows, K) float32 logits: all rows
     from one ``torch.Generator``, or by Gumbel-max with per-row noise
-    (rows, K) (``_SlotNoise.at``)."""
+    (rows, K) (``_SlotNoise.at``).  The generator's draw is
+    ``torch.multinomial(softmax, 1)``'s own algorithm written out,
+    ``argmax(p / E)`` with ``E ~ Exp(1)`` from the generator, so the same
+    generator state gives the same tokens; ``multinomial`` also checks the
+    distribution on the host, which a CUDA graph capture cannot do."""
     if isinstance(draw, torch.Tensor):
         return torch.argmax(logits + draw, dim=-1)
-    return torch.multinomial(torch.softmax(logits, dim=-1), 1,
-                             generator=draw)[:, 0]
+    probs = torch.softmax(logits, dim=-1)
+    noise = torch.empty_like(probs).exponential_(1, generator=draw)
+    return torch.argmax(probs / noise, dim=-1)
 
 
 def _is_row_keys(rng):

@@ -5,14 +5,23 @@ codebooks, generate the stage's tokens by rollout best-of-``num_beam``
 sampling, decode them through the HR codebook and the FC decoder, and save
 an image grid.  Stage "0" is the base model conditioned on random LR tokens;
 each later stage is conditioned on the previous stage's tokens through its
-encoder.  One eager loop, in the JAX package's dispatched order.
+encoder.
+
+Two paths, as in the JAX package: the dispatched loop (one eager step at a
+time, stage by stage) and the fused cascade (:func:`_run_fused`: every
+stage's rollout, the stage-0 conditioning image and every stage's pixel
+decode as one function), which on CUDA runs from one CUDA graph
+(``infer/graphs.py``) and on the CPU runs eagerly.  Both draw from the
+generator in the same order and give the same tokens.
 """
 
 import time
 
 import torch
+import torch.nn.functional as F
 
 from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
+from qaig_tpu_torch.infer.graphs import GraphRunner
 from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
 from qaig_tpu_torch.train import common
 from qaig_tpu_torch.utils.checkpoint import load_model
@@ -117,67 +126,188 @@ def _load_stage(index, stage_cfg, cast, device, use_ema=False,
         "is_base": index == "0"}
 
 
-@torch.inference_mode()
-def run(args):
-    """Generate ``num_images`` images through every stage of the config;
-    returns the last stage's tokens (N, seq).  ``args`` holds the CLI
-    flags; ``device`` defaults to ``cuda``."""
-    device = common.select_device(args.get("device") or "cuda")
-    out_dir = common.ensure_dir(args["out_dir"])
-    num_images = args.get("num_images", 25)
-    generator = torch.Generator(device=device).manual_seed(
-        args.get("seed") or 0)
-    config_dict = common.load_config(args["config_path"])
+def _run_stage(st, decoder, num_images, generator, prev_tokens):
+    """One stage, with no host read of a device value: the stage-0 random
+    conditioning grid (drawn first) and its image, the rollout
+    (conditioned on ``prev_tokens`` past stage 0) and the stage's pixel
+    decode.  Returns (conditioning image (stage 0, else None),
+    reconstruction, tokens), images float32."""
+    cond = None
+    if st["is_base"]:
+        lr_codebook = st["lr_codebook"]
+        init_tokens = _random_tokens(
+            (num_images, lr_codebook.seq_len), st["lr_num_embeddings"],
+            generator)
+        cond = decoder(lr_codebook.get_quantized_image(init_tokens)).float()
+    else:
+        init_tokens = torch.full((num_images, 1), st["hr_num_embeddings"],
+                                 dtype=torch.long, device=generator.device)
+    tokens = generate_stage_tokens(
+        st["model"], st["stage_cfg"], generator, st["is_base"],
+        st["lr_num_embeddings"], st["hr_num_embeddings"], st["total_seq"],
+        st["sliding_window"], lr_input=prev_tokens, init_tokens=init_tokens)
+    recon = decoder(st["hr_codebook"].get_quantized_image(tokens)).float()
+    return cond, recon, tokens
 
-    status, dec_ckpt = load_model(args["decoder_path"])
+
+def _run_fused(stages, decoder, num_images, generator):
+    """The whole cascade -- every stage's rollout, the stage-0 conditioning
+    reconstruction and every stage's pixel decode -- as one function, so
+    that a CUDA graph can hold it.  The dispatched loop runs the same
+    stages one at a time, so both draw from ``generator`` in one order and
+    give the same tokens.  Returns (conditioning image, one reconstruction
+    per stage, last tokens)."""
+    cond, recons, tokens = None, [], None
+    for st in stages:
+        stage_cond, recon, tokens = _run_stage(st, decoder, num_images,
+                                               generator, tokens)
+        cond = stage_cond if stage_cond is not None else cond
+        recons.append(recon)
+    return cond, recons, tokens
+
+
+def library_warmup(decoder, codebook, dtype, device):
+    """A :class:`GraphRunner`'s warm-up for the cascade: one image's pixel
+    decode (cuDNN's convolutions) and a product, a batched product and a
+    product with a bias, 8 x 8 in ``dtype`` (cuBLAS and cuBLASLt), so that
+    a capture finds both libraries set up in its thread."""
+    def warmup():
+        tokens = torch.zeros(1, codebook.seq_len, dtype=torch.long,
+                             device=device)
+        decoder(codebook.get_quantized_image(tokens))
+        a = torch.ones(8, 8, dtype=dtype, device=device)
+        a @ a
+        torch.bmm(a[None], a[None])
+        F.linear(a, a, a[0])
+    return warmup
+
+
+def _load_decoder(decoder_path, device, dtype):
+    status, dec_ckpt = load_model(decoder_path)
     if not status:
         raise RuntimeError(
             "An error occured while loading decoder model checkpoint!")
     decoder, _ = common.decoder_from_checkpoint(dec_ckpt, device)
+    return common.cast_floats(decoder, dtype)
+
+
+def use_fused(fused, device):
+    """The path ``generate.run`` takes: ``fused`` (``--fused`` /
+    ``--no-fused``) when given, else fused on CUDA (the port has no mesh)
+    and dispatched on the CPU."""
+    return device.type == "cuda" if fused is None else bool(fused)
+
+
+@torch.inference_mode()
+def run(args, cache=None):
+    """Generate ``num_images`` images through every stage of the config;
+    returns the last stage's tokens (N, seq).  ``args`` holds the CLI
+    flags; ``device`` defaults to ``cuda``, ``fused`` to :func:`use_fused`.
+
+    ``cache``: a dict the caller keeps between calls.  The fused path
+    keeps its loaded stages, generator and CUDA graphs there, so a later
+    call with the same config, checkpoints, precision and device re-seeds
+    the generator and, at a batch size seen before, replays that batch's
+    graph instead of loading and capturing again."""
+    device = common.select_device(args.get("device") or "cuda")
+    common.ensure_dir(args["out_dir"])
     # --bf16: serving precision; float32 (reference numerics) is the default
     dtype = torch.bfloat16 if args.get("bf16") else torch.float32
-    decoder = common.cast_floats(decoder, dtype)
+    profiler = None
+    if args.get("profile_dir"):
+        # the whole generation, one Chrome trace: profile_dir/trace_0.json
+        profiler = common.Profiler(dict(args, profile_start=0))
+        profiler.step(0)
+    try:
+        if use_fused(args.get("fused"), device):
+            return _generate_fused(args, device, dtype, cache)
+        return _generate_dispatched(args, device, dtype)
+    finally:
+        if profiler is not None:
+            profiler.close()
 
-    def cast(module):
-        return common.cast_floats(module, dtype)
 
-    def synchronize():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+def _synchronize(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
+
+def _generate_dispatched(args, device, dtype):
+    """The dispatched loop: load, generate and save one stage at a time."""
+    num_images = args.get("num_images", 25)
+    generator = torch.Generator(device=device).manual_seed(
+        args.get("seed") or 0)
+    decoder = _load_decoder(args["decoder_path"], device, dtype)
     prev_tokens = None
-    for index, stage_cfg in config_dict.items():
+    for index, stage_cfg in common.load_config(args["config_path"]).items():
         print(f"Model: {int(index):,}")
-        st = _load_stage(index, stage_cfg, cast, device,
+        st = _load_stage(index, stage_cfg,
+                         lambda m: common.cast_floats(m, dtype), device,
                          use_ema=bool(args.get("use_ema")))
-        synchronize()
+        _synchronize(device)
         t0 = time.perf_counter()
-        if st["is_base"]:
-            # random LR conditioning grid over the codebook's token grid
-            lr_codebook = st["lr_codebook"]
-            init_tokens = _random_tokens(
-                (num_images, lr_codebook.seq_len), st["lr_num_embeddings"],
-                generator)
-            lr_input = None
-            cond = decoder(lr_codebook.get_quantized_image(init_tokens))
-            save_images(cond.float().cpu().numpy(), "recon_model_Cond",
-                        out_dir, logging=print)
-        else:
-            lr_input = prev_tokens
-            init_tokens = torch.full((num_images, 1),
-                                     st["hr_num_embeddings"],
-                                     dtype=torch.long, device=device)
-
-        tokens = generate_stage_tokens(
-            st["model"], stage_cfg, generator, st["is_base"],
-            st["lr_num_embeddings"], st["hr_num_embeddings"],
-            st["total_seq"], st["sliding_window"], lr_input=lr_input,
-            init_tokens=init_tokens)
-        recon = decoder(st["hr_codebook"].get_quantized_image(tokens))
-        recon = recon.float().cpu().numpy()
-        synchronize()
+        cond, recon, prev_tokens = _run_stage(st, decoder, num_images,
+                                              generator, prev_tokens)
+        if cond is not None:
+            save_images(cond.cpu().numpy(), "recon_model_Cond",
+                        args["out_dir"], logging=print)
+        recon = recon.cpu().numpy()
+        _synchronize(device)
         print(f"Stage {index}: {st['total_seq']} tokens x {num_images} "
               f"images in {time.perf_counter() - t0:.3f} s")
-        save_images(recon, f"recon_model_{index}", out_dir, logging=print)
-        prev_tokens = tokens
+        save_images(recon, f"recon_model_{index}", args["out_dir"],
+                    logging=print)
     return prev_tokens
+
+
+def _generate_fused(args, device, dtype, cache):
+    """The fused cascade (:func:`_run_fused`): on CUDA from the batch's
+    CUDA graph, captured at its first call; on the CPU eagerly."""
+    num_images = args.get("num_images", 25)
+    use_ema = bool(args.get("use_ema"))
+    key = (str(args["config_path"]), str(args["decoder_path"]), dtype,
+           use_ema, str(device))
+    held = cache if cache is not None else {}
+    if held.get("key") != key:
+        decoder = _load_decoder(args["decoder_path"], device, dtype)
+        stages = [_load_stage(index, stage_cfg,
+                              lambda m: common.cast_floats(m, dtype),
+                              device, use_ema=use_ema)
+                  for index, stage_cfg in common.load_config(
+                      args["config_path"]).items()]
+        held.clear()
+        held.update(key=key, decoder=decoder, stages=stages,
+                    generator=torch.Generator(device=device), runner=(
+                        GraphRunner(device, library_warmup(
+                            decoder, stages[-1]["hr_codebook"], dtype,
+                            device))
+                        if device.type == "cuda" else None))
+    stages, generator, runner = (held["stages"], held["generator"],
+                                 held["runner"])
+    generator.manual_seed(args.get("seed") or 0)
+    print(f"Fused single-dispatch cascade: {len(stages)} stages")
+    _synchronize(device)
+    t0 = time.perf_counter()
+
+    def cascade():
+        return _run_fused(stages, held["decoder"], num_images, generator)
+    captured = runner is not None and num_images not in runner.graphs
+    cond, recons, tokens = (cascade() if runner is None else
+                            runner(num_images, cascade, generator=generator))
+    cond = None if cond is None else cond.cpu().numpy()
+    recons = [recon.cpu().numpy() for recon in recons]
+    _synchronize(device)
+    note = ""
+    if captured:
+        graph = runner.graphs[num_images]
+        note = (f" (first call: capture {graph.capture_s:.3f} s, "
+                f"instantiation {graph.instantiate_s:.3f} s)")
+    print(f"Cascade: {sum(st['total_seq'] for st in stages)} tokens x "
+          f"{num_images} images in {time.perf_counter() - t0:.3f} s{note}")
+    if cond is not None:
+        save_images(cond, "recon_model_Cond", args["out_dir"], logging=print)
+    for st, recon in zip(stages, recons):
+        print(f"Model: {int(st['index']):,}")
+        save_images(recon, f"recon_model_{st['index']}", args["out_dir"],
+                    logging=print)
+    return tokens

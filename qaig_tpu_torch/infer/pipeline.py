@@ -9,11 +9,12 @@ sampling is row-keyed (``infer/row_keys.py``): row ``j`` draws from
 do not depend on the rows it is batched with.  The serving batcher
 (``qaig_tpu_torch/serve.py``) relies on that.
 
-Not ported: the ``mesh`` argument (sharded and tensor-parallel generation,
-``ROADMAP.md`` queue 1 item 10) and the single-program ``fused`` path (its
-counterpart is a CUDA-graph capture of this loop, queue 1 item 6).  The
-port runs the dispatched per-segment loop, to which ``qaig_tpu`` pins its
-fused program token for token.
+``generate`` runs the whole cascade as one function per (batch,
+temperature) (``fused``, row-keyed only, as in ``qaig_tpu``): on CUDA, the
+default, from a CUDA graph captured at the key's first call
+(``infer/graphs.py``); on the CPU, where the dispatched loop stays the
+default, eagerly.  Not ported: the ``mesh`` argument (sharded and
+tensor-parallel generation, ``ROADMAP.md`` queue 1 item 10).
 """
 
 import dataclasses
@@ -23,7 +24,8 @@ import torch
 
 from qaig_tpu_torch.infer import row_keys as rk
 from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
-from qaig_tpu_torch.infer.generate import _load_stage
+from qaig_tpu_torch.infer.generate import _load_stage, library_warmup
+from qaig_tpu_torch.infer.graphs import GraphRunner
 from qaig_tpu_torch.train import common
 from qaig_tpu_torch.utils.checkpoint import load_model
 
@@ -71,6 +73,12 @@ class CascadePipeline:
             # device (torch.cuda.set_device refuses a bare "cuda")
             device = torch.device("cuda", torch.cuda.current_device())
         self.device = device
+        # the fused path's CUDA graphs, by (batch, temperature)
+        self._graphs = None
+        if device.type == "cuda":
+            self._graphs = GraphRunner(device, library_warmup(
+                decoder, stages[-1].hr_codebook,
+                stages[-1].engine.model.dtype, device))
 
     @classmethod
     def from_config(cls, config_dict, decoder_path, logging=print,
@@ -128,6 +136,8 @@ class CascadePipeline:
         if (rng is None) == (row_keys is None):
             raise ValueError("pass exactly one of rng / row_keys")
         if row_keys is not None:
+            # a no-op for the fused path's static key buffer, which is
+            # filled before the replay, outside the captured region
             row_keys = torch.as_tensor(row_keys, dtype=torch.int64).to(
                 self.device)
         tokens = (None if init_tokens is None else
@@ -163,20 +173,53 @@ class CascadePipeline:
             per_stage.append(tokens)
         return tokens, per_stage
 
+    def _images(self, num_images, row_keys, temperature, init_tokens=None):
+        """Every stage, the codebook lookup and the pixel decode: (images
+        float32, final tokens)."""
+        tokens, _ = self.generate_tokens(num_images, row_keys=row_keys,
+                                         init_tokens=init_tokens,
+                                         temperature=temperature)
+        quant = self.stages[-1].hr_codebook.get_quantized_image(tokens)
+        return self.decoder(quant).float(), tokens
+
+    def _fused_program(self, num_images, temperature):
+        """The whole cascade (:meth:`_images`) at a fixed (batch,
+        temperature), as a function of the row keys (N, 2): on CUDA,
+        replayed from the key's CUDA graph (captured at its first call),
+        else run eagerly."""
+        def cascade(row_keys):
+            return self._images(num_images, row_keys, temperature)
+
+        if self._graphs is None:
+            return cascade
+        return lambda row_keys: self._graphs((num_images, temperature),
+                                             cascade, inputs=(row_keys,))
+
     @torch.inference_mode()
     def generate(self, num_images, seed=0, init_tokens=None,
-                 temperature=None, row_keys=None):
+                 temperature=None, row_keys=None, fused=None):
         """Returns (images (N, C, H, W) float32 in [-1, 1] BGR, final
         tokens), both on the pipeline's device.
 
         Sampling is ROW-KEYED: row ``j`` draws from
         ``derive_row_keys(seed, N)[j]``, or from ``row_keys[j]`` when given
         (the serving batcher passes per-request keys), so a row's result
-        does not depend on the batch it runs in."""
+        does not depend on the batch it runs in.
+
+        ``fused``: run the whole cascade as one function
+        (:meth:`_fused_program`; on CUDA one CUDA graph replay per call).
+        The default is fused on CUDA when no ``init_tokens`` are given,
+        and the dispatched loop otherwise; ``fused=True`` with
+        ``init_tokens`` raises."""
         if row_keys is None:
             row_keys = derive_row_keys(seed, num_images)
-        tokens, _ = self.generate_tokens(num_images, row_keys=row_keys,
-                                         init_tokens=init_tokens,
-                                         temperature=temperature)
-        quant = self.stages[-1].hr_codebook.get_quantized_image(tokens)
-        return self.decoder(quant).float(), tokens
+        if fused is None:
+            fused = self.device.type == "cuda" and init_tokens is None
+        if not fused:
+            return self._images(num_images, row_keys, temperature,
+                                init_tokens)
+        if init_tokens is not None:
+            raise ValueError("fused generation supports only the "
+                             "unconditioned path (no init_tokens)")
+        program = self._fused_program(num_images, temperature)
+        return program(torch.as_tensor(row_keys, dtype=torch.int64))
