@@ -51,7 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
    tokens; 4c: the same with ``flat_decode=True``; 4 and 4c again with
    ``quantized_prefix=True`` (kernel C, and kernel 4's int8 form, must
    launch, with the counts the stage gives); 4b: one float32 train
-   step of a small windowed cascade on the card and on the CPU must give
+   step of a small windowed cascade on the card (graphed) and on the CPU
+   (eager) must give
    the same tokens, loss and gradients, and one bf16 step the same tokens
    and loss and gradients within bf16 tolerances;
 5. generation main path -- the full-width 3-stage cascade of ``bench.py
@@ -78,9 +79,18 @@ Phases (any failure exits non-zero and prints no result line):
 6. training main path -- ``qaig_tpu_torch.train.transformer.run`` on
    ``examples/configs/transformer_cascade.json`` (full width, 64 heads)
    over seeded random latents and phase 5's stage-2 codebooks and
-   decoder: 6 bf16 steps at batch 8, checkpoints and previews at steps 0
-   and 3; then the same 6 steps in float32 (the trainer's default), which
-   run the backward kernel's float32 form;
+   decoder: 6 bf16 steps at batch 8, each step replayed from one CUDA
+   graph (the default on the card), checkpoints and previews at steps 0
+   and 3, a replay's launches asserted (A and its backward once per
+   layer, BMU twice) and the graph's kernel nodes as many; then 6 steps
+   of ``make_train_step`` graphed against 6 eager on one seed (losses and
+   parameters bit-equal; seconds per step of both, capture and
+   instantiation seconds; the distance to the host-side Adam of the eager
+   steps before graphs, at most 1e-6 in float32; A, A' and BMU in the
+   graph's kernel nodes as often as a replay counts them); then the same
+   in
+   float32 (the trainer's default), which runs the backward kernel's
+   float32 form;
 7. serving -- ``CascadePipeline`` on phase 5's checkpoints (fused, one
    CUDA graph per batch size): float32
    composition invariance of row-keyed sampling (asserted) and the bf16
@@ -97,13 +107,28 @@ Phases (any failure exits non-zero and prints no result line):
    ``examples/configs/autoencoder.json`` (6 float32 steps, then 6 bf16
    steps, batch 8), feature maps of all 64 images, codebooks on
    ``codebook_hr.json`` and ``codebook_lr.json`` (6 steps each, previews
-   through the new decoder), pruning of the HR codebook; every file
-   checked, the BMU launches (and the LR codebook's small-M geometry)
-   asserted from the control flow;
+   through the new decoder), pruning of the HR codebook; the trainers'
+   steps replayed from CUDA graphs; every file checked, the BMU launches
+   (and the LR codebook's small-M geometry) asserted from the control
+   flow, one a codebook step's replay; then each trainer's
+   ``make_train_step`` at these configs, 6 graphed steps against 6 eager
+   on one seed (as in phase 6: bit-equal, the host-side Adam's distance,
+   BMU's row-tiled and small-M kernels among the graph's nodes, seconds
+   per step of both); 9 (c): in a new process, a traced replay each of
+   phase 6 (b)'s bf16 transformer step and of the codebook steps must
+   hold A, A' and BMU (row tiles, small M) as a replay counts them;
 4d. reference, front -- one float32 autoencoder step and one codebook step
    on the card and on the CPU (loss, gradients, BMU indices outside
    near-ties; the autoencoder step also with cuDNN's TF32 on, reported),
-   and phase 9's latents against the CPU's encoder.
+   and phase 9's latents against the CPU's encoder (the card's steps
+   graphed, the CPU's eager);
+10. interchange -- phase 5's checkpoints and phase 6's ``model_3.pt``
+   exported to the reference's torch ``.pt`` format by ``python -m
+   qaig_tpu_torch.cli.export_torch`` in new processes; ``generate.run``
+   fused from the archives at phase 5f's seed (tokens and grids bit-equal
+   to phase 5f's from the pickles); 2 graphed bf16 train steps resumed
+   from the exported ``model_3.pt`` and its reference Adam state, the
+   Adam step count and learning rate held to the ones the state implies.
 
 The kernels' launch counts are set to 0 before each main path's run and
 read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
@@ -1205,9 +1230,9 @@ def check_flat_reference(torch, device="cuda", quantized_prefix=False):
 def check_train_reference(torch, device="cuda", bf16=False):
     """Phase 4b: one float32 ``make_train_step`` step of a small windowed
     cascade (in_dim 128 in 16 heads of dim 8, as on the main path; K 32
-    codebooks over 4x16x16 latents, window 32) on the card (kernels) and
-    on the CPU
-    (plain) from the same weights, batch and window starts.  SGD(lr=1), so
+    codebooks over 4x16x16 latents, window 32) on the card (kernels, the
+    step captured as a CUDA graph and replayed) and on the CPU (plain,
+    eager) from the same weights, batch and window starts.  SGD(lr=1), so
     old minus new parameters are the gradients.  Tokens equal, loss within
     relative 1e-5, gradients within atol 1e-4 (float32 sums in another
     order through four layers).  On the card each layer's self-attention
@@ -1247,13 +1272,18 @@ def check_train_reference(torch, device="cuda", bf16=False):
         lr_cb.load_state_dict(books[0])
         hr_cb.load_state_dict(books[1])
         x = batch.to(device)
-        tokens = train.tokenize_batch(
-            x, torch.Generator().manual_seed(6), lr_cb, hr_cb, False, k, k,
-            window)
+        starts = train.draw_window_starts(
+            torch.Generator().manual_seed(6), x.shape[0],
+            train.sequence_length(x, lr_cb, hr_cb, False), window)
+        tokens = train.tokenize_batch(x, starts.to(device), lr_cb, hr_cb,
+                                      False, k, k, window)
         before = {n: p.detach().clone() for n, p in model.named_parameters()}
         step = train.make_train_step(
             model, torch.optim.SGD(model.parameters(), lr=1.0), lr_cb,
             hr_cb, False, k, k, window, bf16=bf16)
+        if (step.runner is not None) != (device != "cpu"):
+            raise SystemExit(f"the train step on {device} is not graphed "
+                             f"on the card and eager on the CPU")
         backward = fa.fused_flash_attention_backward.launches
         loss = float(step(x, torch.Generator().manual_seed(6)))
         backward = fa.fused_flash_attention_backward.launches - backward
@@ -1268,7 +1298,8 @@ def check_train_reference(torch, device="cuda", bf16=False):
     grad_max = max(g.abs().max().item() for g in cpu[2].values())
     kind = "bf16" if bf16 else "float32"
     loss_tol, grad_tol = (1e-3, 3e-2 * grad_max) if bf16 else (1e-5, 1e-4)
-    log(f"[reference] train step, small windowed cascade, {kind}: tokens "
+    log(f"[reference] train step, small windowed cascade, {kind} (one "
+        f"graphed step on the card, eager on the CPU): tokens "
         f"{'equal' if same_tokens else 'DIFFER'}; loss card {card[1]:.7f} "
         f"cpu {cpu[1]:.7f} (rel {loss_rel:.2e}, tolerance {loss_tol:.0e}); "
         f"max |grad card - grad cpu| {grad_err:.3e} (tolerance "
@@ -1657,7 +1688,7 @@ def run_fused_path(torch, workdir, paths, reference, seed=0, num_images=8,
     held to the dispatched runs' at the same seed, the two seeds must
     differ, one graph must serve every call, and the trace's kernels must
     equal the replay's counts.  Returns (a warm replay's launches,
-    timings)."""
+    timings, the cold run's tokens and saved grids)."""
     import numpy as np
     from qaig_tpu_torch.infer import generate
 
@@ -1765,7 +1796,196 @@ def run_fused_path(torch, workdir, paths, reference, seed=0, num_images=8,
         f"flash_attention_fwd, {trace['shared_prefix_attention_fused_t']} "
         f"prefix_split_kernel; device busy {trace['busy_ms']:.1f} ms of a "
         f"{trace['span_ms']:.1f} ms span ({100 * trace['busy_share']:.1f}%)")
-    return warm[2], timings
+    return warm[2], timings, {"tokens": cold[0], "saved": cold[1]}
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the reference's torch checkpoints (export, generate, resume)
+# ---------------------------------------------------------------------------
+
+def export_checkpoints(sources, out_dir, timeout=600):
+    """``python -m qaig_tpu_torch.cli.export_torch`` on each of ``sources``
+    (pickle checkpoints), one new process each, all at once; returns
+    ({source: its ``.pt`` archive in ``out_dir``}, seconds)."""
+    import os
+    repo = Path(__file__).resolve().parent
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = {}
+    for source in sources:
+        dest = out_dir / f"ref_{Path(source).name}"
+        procs[source] = (dest, subprocess.Popen(
+            [sys.executable, "-m", "qaig_tpu_torch.cli.export_torch",
+             "--model-path", str(source), "--out-path", str(dest)],
+            cwd=repo, env=dict(os.environ), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for source, (dest, proc) in procs.items():
+        try:
+            output, _ = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            output, _ = proc.communicate()
+        if proc.returncode != 0 or not dest.is_file() \
+                or dest.read_bytes()[:2] != b"PK":
+            failed.append(f"{source} (exit {proc.returncode}):\n"
+                          f"{output[-2000:]}")
+    if failed:
+        raise SystemExit("export_torch failed: " + "\n".join(failed))
+    return ({source: dest for source, (dest, _) in procs.items()},
+            time.perf_counter() - t0)
+
+
+def run_interchange_path(torch, workdir, paths, fused_ref, seed=0,
+                         num_images=8, device="cuda"):
+    """Phase 10.  (a) Phase 5's checkpoints (the decoder, the four
+    codebooks, the three stages) and phase 6's bf16 ``model_3.pt`` (with
+    its optax Adam state) exported to the reference's torch format by the
+    export CLI, in new processes.  (b) ``generate.run`` fused, bf16, from
+    the ``.pt`` archives at phase 5f's seed: tokens and grids bit-equal to
+    phase 5f's from the pickles (the same float32 weights).  (c) two
+    graphed bf16 train steps resumed from the exported ``model_3.pt``, its
+    reference Adam state and the exported codebooks and decoder, with
+    ``lr_step`` 2: the Adam step count and learning rate before the first
+    step are the ones the state's step implies (4 updates: ``1e-4 *
+    0.5``), and two updates later 6 and ``1e-4 * 0.25``.  Returns
+    (launches of (b), timings)."""
+    import numpy as np
+    from qaig_tpu_torch.infer import generate
+    from qaig_tpu_torch.train import optim
+    from qaig_tpu_torch.train import transformer as train
+    from qaig_tpu_torch.utils.checkpoint import load_model
+
+    config_path, decoder_path, _ = paths
+    config = json.loads(Path(config_path).read_text())
+    keys = ("model_path", "lr_codebook_path", "hr_codebook_path")
+    trained = Path(workdir) / "train" / "out" / "models_checkpoint" / \
+        f"model_{TRAIN['checkpoint_step']}.pt"
+    sources = sorted({str(decoder_path), str(trained), *(
+        stage[key] for stage in config.values() for key in keys)})
+    exported, export_s = export_checkpoints(sources,
+                                            Path(workdir) / "reference")
+    for stage in config.values():
+        for key in keys:
+            stage[key] = str(exported[stage[key]])
+    ref_config = Path(workdir) / "reference" / "generate.json"
+    ref_config.write_text(json.dumps(config, indent=1))
+    log(f"[interchange] {len(sources)} checkpoints exported to torch .pt "
+        f"archives by python -m qaig_tpu_torch.cli.export_torch, one new "
+        f"process each, in parallel: {export_s:.1f} s")
+
+    saved = {}
+    save_images = generate.save_images
+
+    def recording_save(images, name, dest, **kw):
+        saved[name] = images
+        return save_images(images, name, dest, **kw)
+
+    generate.save_images = recording_save
+    try:
+        synchronize(torch, device)
+        reset_launches()
+        t0 = time.perf_counter()
+        tokens = generate.run(dict(
+            device=device, config_path=str(ref_config),
+            decoder_path=str(exported[str(decoder_path)]),
+            num_images=num_images, seed=seed, bf16=True, fused=True,
+            out_dir=str(Path(workdir) / "reference_out")), cache={})
+        synchronize(torch, device)
+        generate_s = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        generate.save_images = save_images
+    if not torch.equal(tokens.cpu(), fused_ref["tokens"]):
+        raise SystemExit("tokens from the .pt archives differ from phase "
+                         "5f's from the pickles")
+    if set(saved) != set(fused_ref["saved"]) or not all(
+            np.array_equal(saved[k], fused_ref["saved"][k]) for k in saved):
+        raise SystemExit("grids from the .pt archives differ from phase "
+                         "5f's from the pickles")
+    log(f"[interchange] generate.run fused from the .pt archives (seed "
+        f"{seed}, {num_images} images, cold) in {generate_s:.3f} s: tokens "
+        f"and grids {sorted(saved)} bit-equal to phase 5f's from the "
+        f"pickles; launches {launches}")
+
+    ok, ckpt = load_model(exported[str(trained)])
+    state = ckpt["model_optimizer"] if ok else None
+    if not isinstance(state, dict) or "param_groups" not in state:
+        raise SystemExit("the exported model_3.pt carries no torch Adam "
+                         "state")
+    implied = int(max(float(e["step"]) for e in state["state"].values()))
+    base_lr, lr_step, steps = 1e-4, 2, 2
+    factor = optim.halving_factor(lr_step)
+    seen, made = [], []
+    make_train_step = train.make_train_step
+
+    def observed_make_train_step(model, optimizer, *a, **kw):
+        step = make_train_step(model, optimizer, *a, **kw)
+        made.append((step, optimizer))
+
+        def observed(*args):
+            seen.append(_adam_position(optimizer))
+            return step(*args)
+        observed.runner = step.runner
+        return observed
+
+    train.make_train_step = observed_make_train_step
+    out_dir = Path(workdir) / "resume"
+    try:
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        train.run({
+            "device": device, "dataset_path": str(
+                Path(workdir) / "train" / "fmaps" / "all_dataset.json"),
+            "decoder_path": str(exported[str(decoder_path)]),
+            "lr_codebook_path": config["2"]["lr_codebook_path"],
+            "hr_codebook_path": config["2"]["hr_codebook_path"],
+            "config_path": str(Path(__file__).resolve().parent
+                               / TRAIN["config"]),
+            "out_dir": str(out_dir), "bf16": True,
+            "batch_size": TRAIN["batch"], "max_steps": steps,
+            "checkpoint_step": 1000, "skip_preview": True, "seed": seed,
+            "model_path": str(exported[str(trained)]), "load_optim": True,
+            "lr_step": lr_step})
+        synchronize(torch, device)
+        resume_s = time.perf_counter() - t0
+    finally:
+        train.make_train_step = make_train_step
+    if len(made) != 1 or made[0][0].runner is None:
+        raise SystemExit("the resumed run did not train graphed")
+    after = _adam_position(made[0][1])
+    # the learning rate is a float32 tensor on the card
+    want = [(implied, base_lr * factor(implied)),
+            (implied + steps, base_lr * factor(implied + steps))]
+    got = [seen[0], after]
+    if implied != 4 or any(g[0] != {w[0]} or np.float32(g[1])
+                           != np.float32(w[1]) for g, w in zip(got, want)):
+        raise SystemExit(f"resumed from a reference Adam state at step "
+                         f"{implied}: (Adam steps, lr) {got}, expected "
+                         f"{want}")
+    losses = [json.loads(line)["ce_loss"] for line in
+               (out_dir / "metrics.jsonl").read_text().splitlines()]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        raise SystemExit(f"resumed losses not all finite: {losses}")
+    log(f"[interchange] train.run resumed from the exported model_3.pt "
+        f"(reference Adam state, step {implied}), {steps} graphed bf16 "
+        f"steps in {resume_s:.3f} s: Adam steps and lr before "
+        f"{sorted(got[0][0])} / {got[0][1]:.3e}, after {sorted(got[1][0])} "
+        f"/ {got[1][1]:.3e}, as the state implies at lr_step {lr_step}; "
+        f"losses {[round(x, 4) for x in losses]}")
+    return launches, {"export_s": export_s, "generate_s": generate_s,
+                      "resume_s": resume_s, "implied_step": implied,
+                      "adam_before": [sorted(got[0][0]), got[0][1]],
+                      "adam_after": [sorted(got[1][0]), got[1][1]],
+                      "resumed_losses": losses}
+
+
+def _adam_position(optimizer):
+    """({the Adam step counts of its parameters}, the first group's
+    learning rate)."""
+    return ({int(float(s["step"])) for s in optimizer.state.values()},
+            float(optimizer.param_groups[0]["lr"]))
 
 
 # ---------------------------------------------------------------------------
@@ -2214,11 +2434,12 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
 
     # time each train step (synchronised) and, with ``profile``, trace
     # steps 2-5 one by one, so the checkpoint at step 3 stays out
-    step_s, traces = [], []
+    step_s, traces, made = [], [], []
     make_train_step = train.make_train_step
 
     def timed_make_train_step(*a, **kw):
         step = make_train_step(*a, **kw)
+        made.append(step)
 
         def timed(*args):
             index = len(step_s)
@@ -2241,15 +2462,17 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
         synchronize(torch, device)
         reset_launches()
         t0 = time.perf_counter()
-        train.run({
-            "device": device, "dataset_path": manifest,
-            "decoder_path": str(ckpt / "decoder.pt"),
-            "lr_codebook_path": str(ckpt / "codebook_2.pt"),
-            "hr_codebook_path": str(ckpt / "codebook_3.pt"),
-            "config_path": str(config), "out_dir": str(out_dir),
-            "bf16": bf16, "batch_size": t["batch"],
-            "max_steps": t["steps"], "checkpoint_step": t["checkpoint_step"],
-            "test_num_sample": t["previews"], "seed": seed})
+        with dumpable_graphs(torch):
+            train.run({
+                "device": device, "dataset_path": manifest,
+                "decoder_path": str(ckpt / "decoder.pt"),
+                "lr_codebook_path": str(ckpt / "codebook_2.pt"),
+                "hr_codebook_path": str(ckpt / "codebook_3.pt"),
+                "config_path": str(config), "out_dir": str(out_dir),
+                "bf16": bf16, "batch_size": t["batch"],
+                "max_steps": t["steps"],
+                "checkpoint_step": t["checkpoint_step"],
+                "test_num_sample": t["previews"], "seed": seed})
         synchronize(torch, device)
         run_s = time.perf_counter() - t0
         launches = read_launches()
@@ -2292,30 +2515,427 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
             "flash_attention": (enc + dec) * t["steps"] + len(checkpoints)
             * (enc + dec + windowed * (dec - 1)),
             "flash_attention_backward": (enc + dec) * t["steps"],
+            "flash_attention_backward_calls": (enc + dec) * t["steps"],
             "fused_bmu_small_m": 0}
     for name, n in want.items():
         if launches[name] != n:
             raise SystemExit(f"the training path launched {name} "
                              f"{launches[name]} times, expected {n}")
+    # one graph (batch 8 of 4x32x32, one dtype) replayed at every step; a
+    # replay launches one step's kernels
+    graph = replay_graph(made, f"the {kind} trainer")
+    per_replay = {"flash_attention": enc + dec,
+                  "flash_attention_backward": enc + dec,
+                  "flash_attention_backward_calls": enc + dec,
+                  "fused_bmu": 2, "fused_bmu_small_m": 0}
+    for name, n in per_replay.items():
+        if graph["launches"][name] != n:
+            raise SystemExit(f"a {kind} train step's replay launches {name} "
+                             f"{graph['launches'][name]} times, expected {n}")
+    graph["kernel_nodes"] = graph_kernel_nodes(made[0].runner)
+    for name in TRACED_KERNELS:
+        if graph["kernel_nodes"][name] != per_replay[name]:
+            raise SystemExit(f"the {kind} train step's graph holds "
+                             f"{graph['kernel_nodes'][name]} {name} kernel "
+                             f"nodes, a replay counts {per_replay[name]}")
     per_step = sum(step_s[1:]) / len(step_s[1:])
-    log(f"[train] {kind}: seconds per step (step 0 left out): "
-        f"{per_step:.4f} (steps {[round(x, 4) for x in step_s]}); backward "
-        f"kernel launches {launches['flash_attention_backward']}")
+    log(f"[train] {kind}: seconds per step, graphed (step 0, with its "
+        f"warm-up, capture and instantiation, left out): {per_step:.4f} "
+        f"(steps {[round(x, 4) for x in step_s]}); capture "
+        f"{graph['capture_s']:.3f} s, instantiation "
+        f"{graph['instantiate_s']:.3f} s; a replay launches "
+        f"{ {k: graph['launches'][k] for k in per_replay} }, the graph "
+        f"holds as many kernel nodes of each")
     timings = {"run_s": run_s, "step_s": step_s, "step_mean_s": per_step,
-               "losses": losses}
+               "losses": losses, "graph": graph}
     if profile:
         wall = sum(tr["wall_ms"] for tr in traces)
         busy = sum(tr["device_busy_ms"] for tr in traces)
         timings["profile"] = {"steps": [2, 5], "wall_ms": wall,
                               "device_busy_ms": busy,
                               "busy_share": busy / wall, "per_step": traces}
-        log(f"[profile] train steps 2-5: wall {wall:.1f} ms, device busy "
-            f"{busy:.1f} ms ({100 * busy / wall:.1f}%), "
-            f"{sum(tr['kernel_launches'] for tr in traces)} kernel launches")
+        log(f"[profile] train steps 2-5 (graph replays): wall {wall:.1f} "
+            f"ms, device busy {busy:.1f} ms ({100 * busy / wall:.1f}%), "
+            f"{sum(tr['kernel_launches'] for tr in traces)} kernel launches; "
+            f"the port's kernels in each traced step "
+            f"{[tr['ours'] for tr in traces]}")
+        # kernel A and its backward must show in the trace of a replay;
+        # the BMU kernels are reported only: traces in this process have
+        # listed none of them (what drops them is open), while the
+        # graph's kernel nodes hold them (asserted above) and phase 9
+        # (c)'s traces in a new process list them
+        for tr in traces:
+            for name in ("flash_attention", "flash_attention_backward"):
+                if tr["ours"][name] != per_replay[name]:
+                    raise SystemExit(f"a traced {kind} replay ran "
+                                     f"{tr['ours'][name]} {name} kernels, "
+                                     f"its count {per_replay[name]}")
         for e in traces[-1]["top"]:
             log(f"[profile]   step 5: {e['ms']:8.2f} ms  {e['count']:6d}x  "
                 f"{e['name']}")
     return launches, timings
+
+
+def replay_graph(steps, what):
+    """The one graph of the one train step in ``steps`` (what
+    ``make_train_step`` returned): its capture and instantiation seconds
+    and the launches of a replay, by counter."""
+    if len(steps) != 1 or steps[0].runner is None \
+            or len(steps[0].runner.graphs) != 1:
+        raise SystemExit(f"{what} did not run one graphed train step")
+    graph, = steps[0].runner.graphs.values()
+    return {"capture_s": graph.capture_s,
+            "instantiate_s": graph.instantiate_s,
+            "launches": dict(zip(read_launches(), graph.launches))}
+
+
+def _train_run(torch, build, inputs, steps, device, graphed,
+               capturable=True):
+    """``steps`` synchronised steps of ``build(graphed, capturable)`` on
+    ``inputs(i)``: (losses, parameters, seconds per step, the step)."""
+    step, model = build(graphed, capturable)
+    losses, step_s = [], []
+    for i in range(steps):
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        losses.append(step(*inputs(i)))
+        synchronize(torch, device)
+        step_s.append(time.perf_counter() - t0)
+    return torch.stack(losses).cpu(), list(model.parameters()), step_s, step
+
+
+def _max_diff(a, b):
+    return max((x - y).abs().max().item() for x, y in zip(a, b))
+
+
+def graphed_against_eager(torch, what, build, inputs, steps, device,
+                          deterministic=False, float32=True):
+    """``build(graphed, capturable) -> (step, model)`` run ``steps`` steps
+    of ``inputs(i)`` graphed, eager, eager again, and eager on the
+    host-side Adam of the eager steps before graphs (``capturable=False``),
+    each from the same seeded state.  Graphed and eager (one capturable
+    Adam, the same kernels) must give equal losses and parameters, bit for
+    bit, as the two eager runs must.  The host-side Adam's distance is
+    bounded at ``HOST_ADAM_ATOL`` when the step runs in ``float32`` (a
+    fault in the capturable Adam's bias correction or its learning-rate
+    tensor moves parameters by about the learning rate) and reported in
+    bf16.  The graph's kernel nodes (:func:`graph_kernel_nodes`) must
+    hold the port's kernels as often as a replay counts them.
+    ``deterministic``: all four
+    runs under ``cudnn.deterministic`` (cuDNN's default backward
+    convolutions may sum in an order that changes from run to run).
+    Returns seconds per step (steps 1 on) and the differences."""
+    runs = {}
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        for name, graphed, capturable in (
+                ("graphed", True, True), ("eager", False, True),
+                ("eager_again", False, True),
+                ("eager_host_adam", False, False)):
+            with dumpable_graphs(torch, graphed):
+                runs[name] = _train_run(torch, build, inputs, steps,
+                                        device, graphed, capturable)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lg, pg, sg, step), (le, pe, se, _), (la, pa, _, _), (lh, ph, _, _) = (
+        runs["graphed"], runs["eager"], runs["eager_again"],
+        runs["eager_host_adam"])
+    for other, (lo, po) in (("eager", (le, pe)), ("eager again", (la, pa))):
+        if not torch.equal(lg, lo) or _max_diff(pg, po) != 0:
+            raise SystemExit(f"{what}: graphed and {other} steps differ: "
+                             f"losses {lg.tolist()} against {lo.tolist()}, "
+                             f"max |param diff| {_max_diff(pg, po):.3e}")
+    host_adam = _max_diff(pe, ph)
+    if float32 and host_adam > HOST_ADAM_ATOL:
+        raise SystemExit(f"{what}: the capturable Adam's parameters are "
+                         f"{host_adam:.3e} from the host-side Adam's after "
+                         f"{steps} float32 steps (bound {HOST_ADAM_ATOL})")
+    graph = replay_graph([step], what)
+    nodes = graph_kernel_nodes(step.runner)
+    for name, tags in TRACED_KERNELS.items():
+        if nodes[name] != graph["launches"][name]:
+            raise SystemExit(f"{what}: the graph holds {nodes[name]} "
+                             f"{name} kernel nodes ({'/'.join(tags)}), a "
+                             f"replay counts {graph['launches'][name]}")
+    out = {"graphed_step_s": _step_mean(sg), "eager_step_s": _step_mean(se),
+           "graphed_steps": sg, "eager_steps": se, "losses": lg.tolist(),
+           "capture_s": graph["capture_s"],
+           "instantiate_s": graph["instantiate_s"],
+           "cudnn_deterministic": deterministic,
+           "host_adam_max_param_diff": host_adam,
+           "host_adam_max_loss_diff": (le - lh).abs().max().item(),
+           "graph_kernel_nodes": nodes}
+    log(f"[compare] {what}, {steps} steps of make_train_step on one seed"
+        f"{' (cudnn.deterministic)' if deterministic else ''}: graphed, "
+        f"eager and eager again: losses and parameters equal bit for bit; "
+        f"seconds per step (steps 1-{steps - 1}) graphed "
+        f"{out['graphed_step_s']:.4f}, eager {out['eager_step_s']:.4f}; "
+        f"capture {out['capture_s']:.3f} s, instantiation "
+        f"{out['instantiate_s']:.3f} s; against the host-side Adam "
+        f"(capturable=False): max |param diff| "
+        f"{out['host_adam_max_param_diff']:.3e}"
+        f"{f' (bound {HOST_ADAM_ATOL})' if float32 else ''}, max |loss "
+        f"diff| {out['host_adam_max_loss_diff']:.3e}; the graph's kernel "
+        f"nodes {nodes}, as a replay counts them")
+    return out
+
+
+# the capturable Adam against the host-side one after 6 float32 steps
+# (largest reading 2.384e-07, the transformer in float32, NVIDIA H100 80GB
+# HBM3, 700.00 W); a wrong bias correction or a stale learning rate moves
+# parameters by about the learning rate, 1e-5 to 1e-4 in these configs
+HOST_ADAM_ATOL = 1e-6
+
+
+def dumpable_graphs(torch, on=True):
+    """While open (and ``on``), every ``torch.cuda.CUDAGraph`` made keeps
+    its captured graph (``keep_graph``) for ``debug_dump`` and is still
+    instantiated as it ends its capture, so that nothing a replay runs,
+    nor the time ``capture_end`` takes, changes."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def patched():
+        base = torch.cuda.CUDAGraph
+
+        class Dumpable(base):
+            def __init__(self, *args, **kwargs):
+                super().__init__(keep_graph=True)
+
+            def capture_end(self):
+                super().capture_end()
+                self.instantiate()
+
+        torch.cuda.CUDAGraph = Dumpable
+        try:
+            yield
+        finally:
+            torch.cuda.CUDAGraph = base
+    return patched() if on else contextlib.nullcontext()
+
+
+def graph_kernel_nodes(runner):
+    """The port's kernels among the kernel nodes of ``runner``'s one graph
+    (captured under :func:`dumpable_graphs`), by ``TRACED_KERNELS``' names,
+    read from the graph's DOT dump (``cudaGraphDebugDotPrint``)."""
+    graph, = runner.graphs.values()
+    with tempfile.TemporaryDirectory(prefix="qaig_graph_") as tmp:
+        path = Path(tmp) / "graph.dot"
+        graph.graph.debug_dump(str(path))
+        statements = path.read_text().split("];")
+    if len(statements) < 2:
+        raise SystemExit("the graph's DOT dump lists no node")
+    return {name: sum(any(tag in st for tag in tags) for st in statements)
+            for name, tags in TRACED_KERNELS.items()}
+
+
+def traced_replay(torch, step, inputs, device):
+    """One more call of a graphed ``step`` (a replay) in a
+    ``torch.profiler`` window of its own: :func:`stop_trace`'s reading."""
+    synchronize(torch, device)
+    prof = start_trace(torch)
+    t0 = time.perf_counter()
+    step(*inputs)
+    synchronize(torch, device)
+    return stop_trace(prof, time.perf_counter() - t0)
+
+
+def transformer_steps(torch, workdir, bf16=True, seed=0, device="cuda"):
+    """Phase 6 (b)'s steps: ``TRAIN``'s full-width model through
+    ``make_train_step`` on seeded batches and window starts, with phase
+    5's stage-2 codebooks.  Returns (``build(graphed, capturable) ->
+    (step, model)``, ``inputs(i)``, steps)."""
+    import numpy as np
+    from qaig_tpu_torch.models.core import init_parameters
+    from qaig_tpu_torch.models.transformer import Transformer
+    from qaig_tpu_torch.train import common, optim
+    from qaig_tpu_torch.train import transformer as train
+    from qaig_tpu_torch.utils.checkpoint import load_model
+
+    t = TRAIN
+    config = json.loads((Path(__file__).resolve().parent
+                         / t["config"]).read_text())
+    ckpt = Path(workdir) / "models_checkpoint"
+    lr_cb, hr_cb = (common.codebook_from_checkpoint(
+        load_model(ckpt / f"codebook_{i}.pt")[1], torch.device(device))
+        for i in (2, 3))
+    k = FULL["k"]
+    cfg = train.build_transformer_config(config, False, k, k)
+    rng = np.random.default_rng(seed + 7)
+    batches = [torch.from_numpy(rng.standard_normal(
+        (t["batch"], FULL["latent_c"]) + FULL["image_dim"])
+        .astype(np.float32)).to(device) for _ in range(t["steps"])]
+
+    def build(graphed, capturable):
+        model = init_parameters(Transformer(cfg, device=device),
+                                torch.Generator(device=device)
+                                .manual_seed(seed))
+        optimizer, scheduler = optim.make_adam(
+            model.parameters(), config["model_lr"], 50_000,
+            capturable=capturable)
+        step = train.make_train_step(
+            model, optimizer, lr_cb, hr_cb, False, k, k,
+            config["sliding_window"], bf16=bf16, scheduler=scheduler,
+            graphed=graphed)
+        windows = torch.Generator().manual_seed(seed)
+
+        def windowed(batch):
+            return step(batch, windows)
+        windowed.runner = step.runner
+        return windowed, model
+
+    return build, lambda i: (batches[i],), t["steps"]
+
+
+def compare_train_steps(torch, workdir, bf16=True, seed=0, device="cuda"):
+    """Phase 6 (b): :func:`transformer_steps` graphed against eager
+    (:func:`graphed_against_eager`)."""
+    return graphed_against_eager(
+        torch, f"transformer {'bf16' if bf16 else 'float32'}",
+        *transformer_steps(torch, workdir, bf16, seed, device), device,
+        float32=not bf16)
+
+
+def codebook_steps(torch, name, seed=0, device="cuda"):
+    """Phase 9 (b)'s steps of ``FRONT``'s ``name`` codebook (hr, lr)
+    through ``make_train_step`` on seeded latents of its config's shape,
+    the neighbourhood range shrinking by one a step.  Returns
+    (``build(graphed, capturable) -> (step, model)``, ``inputs(i)``,
+    steps)."""
+    import numpy as np
+    from qaig_tpu_torch.models.codebook import Codebook
+    from qaig_tpu_torch.train import codebook, optim
+
+    f = FRONT
+    c = json.loads((Path(__file__).resolve().parent
+                    / f["codebooks"][name]).read_text())
+    rng = np.random.default_rng(seed + 12 + list(f["codebooks"]).index(name))
+    latents = [torch.from_numpy(rng.standard_normal(
+        (f["batch"], c["image_C"], c["image_H"], c["image_W"]))
+        .astype(np.float32)).to(device) for _ in range(f["steps"])]
+    half = c["num_embeddings"] // 2
+
+    def build(graphed, capturable):
+        model = Codebook(
+            patch_dim=(c["patch_H"], c["patch_W"]),
+            image_dim=(c["image_H"], c["image_W"]),
+            image_channel=c["image_C"],
+            num_embeddings=c["num_embeddings"], device=device).init(
+            torch.Generator(device=device).manual_seed(seed))
+        optimizer, scheduler = optim.make_adam(
+            model.parameters(), c["model_lr"], 100_000,
+            capturable=capturable)
+        return codebook.make_train_step(
+            model, optimizer, scheduler, graphed=graphed), model
+
+    return build, lambda i: (latents[i], float(half - i)), f["steps"]
+
+
+def compare_front_steps(torch, seed=0, device="cuda"):
+    """Phase 9 (b): the front trainers' steps through ``make_train_step``
+    at ``FRONT``'s configs, graphed against eager
+    (:func:`graphed_against_eager`): the autoencoder in float32 and bf16
+    on seeded 128x128x3 images (under ``cudnn.deterministic``; with
+    cuDNN's default algorithms two eager runs are compared too), the HR
+    and LR codebooks (:func:`codebook_steps`); batch 8, 6 steps each."""
+    import numpy as np
+    from qaig_tpu_torch.models.core import init_parameters
+    from qaig_tpu_torch.train import autoencoder, optim
+
+    f, repo = FRONT, Path(__file__).resolve().parent
+    rng = np.random.default_rng(seed + 11)
+    out = {}
+    ae_cfg = json.loads((repo / f["autoencoder"]).read_text())
+    images = [torch.from_numpy(rng.uniform(
+        -1, 1, (f["batch"], 3, f["side"], f["side"])).astype(np.float32))
+        .to(device) for _ in range(f["steps"])]
+    for kind in ("float32", "bf16"):
+        def build(graphed, capturable, bf16=kind == "bf16"):
+            model, _ = autoencoder.build_autoencoder(ae_cfg, device)
+            init_parameters(model, torch.Generator(device=device)
+                            .manual_seed(seed))
+            optimizer, scheduler = optim.make_adam(
+                model.parameters(), ae_cfg["model_lr"], 50_000,
+                capturable=capturable)
+            return autoencoder.make_train_step(
+                model, optimizer, bf16=bf16, scheduler=scheduler,
+                graphed=graphed), model
+        out[f"autoencoder_{kind}"] = graphed_against_eager(
+            torch, f"autoencoder {kind}", build, lambda i: (images[i],),
+            f["steps"], device, deterministic=True,
+            float32=kind == "float32")
+        # cuDNN's default algorithms, eager twice: how far two runs of the
+        # same steps land apart without cudnn.deterministic
+        eager = [_train_run(torch, build, lambda i: (images[i],),
+                            f["steps"], device, False) for _ in range(2)]
+        spread = _max_diff(eager[0][1], eager[1][1])
+        out[f"autoencoder_{kind}"]["default_eager_max_param_diff"] = spread
+        log(f"[compare] autoencoder {kind}, cuDNN's default algorithms: "
+            f"two eager runs of the same {f['steps']} steps, max |param "
+            f"diff| {spread:.3e}")
+    for name in f["codebooks"]:
+        out[f"codebook_{name}"] = graphed_against_eager(
+            torch, f"codebook {name}", *codebook_steps(torch, name, seed,
+                                                       device), device)
+    return out
+
+
+# in a new process: one graphed step (the capture) and a traced replay of
+# each of phase 6 (b)'s bf16 transformer step and phase 9 (b)'s codebook
+# steps; prints each replay's launches and the trace's kernels, last
+TRACE_RUNNER = """
+import json, sys
+import torch
+import chip_smoke
+from qaig_tpu_torch.train.common import full_float32
+full_float32()
+workdir, device = sys.argv[1], sys.argv[2]
+steps = {"transformer bf16": chip_smoke.transformer_steps(
+             torch, workdir, device=device),
+         "codebook hr": chip_smoke.codebook_steps(torch, "hr", device=device),
+         "codebook lr": chip_smoke.codebook_steps(torch, "lr", device=device)}
+out = {}
+for what, (build, inputs, _) in steps.items():
+    step, _ = build(True, True)
+    step(*inputs(0))
+    replay = chip_smoke.replay_graph([step], what)["launches"]
+    trace = chip_smoke.traced_replay(torch, step, inputs(1), device)
+    out[what] = {"replay": {k: replay[k] for k in chip_smoke.TRACED_KERNELS},
+                 "trace": trace["ours"], "wall_ms": trace["wall_ms"],
+                 "device_busy_ms": trace["device_busy_ms"]}
+print("TRACED " + json.dumps(out))
+"""
+
+
+def traced_replays_alone(workdir, device="cuda"):
+    """Phase 9 (c): ``TRACE_RUNNER`` in a new process.  Each traced
+    replay must hold A, A' and BMU (row tiles and small M) as often as a
+    replay counts them.  (In this script's own process, after phases 3-9,
+    traces of the same replays list A and A' but no BMU kernel, while the
+    graphs' kernel nodes hold them: what drops them from those traces is
+    open.)  Returns the readings."""
+    import os
+    proc = subprocess.run(
+        [sys.executable, "-c", TRACE_RUNNER, str(workdir), device],
+        cwd=Path(__file__).resolve().parent, env=dict(os.environ),
+        capture_output=True, text=True, timeout=600)
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("TRACED ")]
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"the traced replays failed (exit "
+                         f"{proc.returncode}):\n"
+                         + (proc.stdout + proc.stderr)[-4000:])
+    out = json.loads(lines[-1][len("TRACED "):])
+    for what, r in out.items():
+        if r["trace"] != r["replay"]:
+            raise SystemExit(f"a traced replay of the {what} step in a new "
+                             f"process ran {r['trace']}, a replay counts "
+                             f"{r['replay']}")
+        log(f"[trace] {what}, a replay traced in a new process: kernels "
+            f"{r['trace']} as a replay counts them (wall "
+            f"{r['wall_ms']:.2f} ms, device busy "
+            f"{r['device_busy_ms']:.2f} ms)")
+    return out
 
 
 def _no_skips(msg):
@@ -2351,8 +2971,21 @@ def stop_trace(prof, wall_s):
             "device_busy_ms": sum(e.self_device_time_total
                                   for e in kernels) / 1e3,
             "kernel_launches": sum(e.count for e in kernels),
+            "ours": {name: sum(e.count for e in kernels
+                               if any(tag in e.key for tag in tags))
+                     for name, tags in TRACED_KERNELS.items()},
             "top": [{"name": e.key[:90], "count": e.count,
                      "ms": e.self_device_time_total / 1e3} for e in top]}
+
+
+# a train step's kernels by their names in a device trace or a graph's
+# kernel nodes, one per counted launch (one backward launch runs a dq and
+# a dk/dv kernel, one BMU launch a kernel and, when it splits the codes,
+# a reduction: the first of each is counted)
+TRACED_KERNELS = {"flash_attention": ("flash_attention_fwd",),
+                  "flash_attention_backward": ("flash_bwd_dq",),
+                  "fused_bmu": ("bmu_kernel", "bmu_small_m_kernel"),
+                  "fused_bmu_small_m": ("bmu_small_m_kernel",)}
 
 
 # ---------------------------------------------------------------------------
@@ -2408,7 +3041,9 @@ FRONT = dict(images=64, side=128, batch=8, steps=6, checkpoint_step=3,
              prune_threshold=1)
 
 # runs one CLI's main() in a fresh process, its train steps timed
-# (synchronised), and prints the kernels' launch counts last
+# (synchronised), and prints the kernels' launch counts, and the train
+# step's graph (capture and instantiation seconds, launches of a replay),
+# last
 CLI_RUNNER = """
 import importlib, json, sys, time
 import torch
@@ -2417,12 +3052,13 @@ module, stage, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
 device = argv[argv.index("--device") + 1]
 def sync():
     chip_smoke.synchronize(torch, device)
-steps = []
+steps, made = [], []
 if stage:
     train = importlib.import_module(f"qaig_tpu_torch.train.{stage}")
     make = train.make_train_step
     def timed_make(*a, **kw):
         step = make(*a, **kw)
+        made.append(step)
         def timed(*args):
             sync()
             t0 = time.perf_counter()
@@ -2439,8 +3075,11 @@ t0 = time.perf_counter()
 cli.main(argv)
 sync()
 seconds = time.perf_counter() - t0
-print("LAUNCHES " + json.dumps({"launches": chip_smoke.read_launches(),
-                                "step_s": steps, "seconds": seconds}))
+out = {"launches": chip_smoke.read_launches(), "step_s": steps,
+       "seconds": seconds}
+if stage:
+    out["graph"] = chip_smoke.replay_graph(made, stage)
+print("LAUNCHES " + json.dumps(out))
 """
 
 
@@ -2534,11 +3173,14 @@ def run_front_path(torch, workdir, device="cuda"):
                     raise SystemExit(f"ae_{kind}: {grid}_{n}.jpg missing")
         timings[f"autoencoder_{kind}"] = {
             "step_s": res["step_s"], "step_mean_s": _step_mean(res["step_s"]),
-            "seconds": res["seconds"], "losses": losses}
-        log(f"[front] train_autoencoder {kind}: {f['steps']} steps at batch "
-            f"{f['batch']}, {_step_mean(res['step_s']):.4f} s per step "
-            f"(steps 1-5; all {[round(x, 4) for x in res['step_s']]}); "
-            f"losses {[round(x, 5) for x in losses]}; checkpoints and grids "
+            "seconds": res["seconds"], "losses": losses,
+            "graph": res["graph"]}
+        log(f"[front] train_autoencoder {kind}: {f['steps']} graphed steps "
+            f"at batch {f['batch']}, {_step_mean(res['step_s']):.4f} s per "
+            f"step (steps 1-5; all {[round(x, 4) for x in res['step_s']]}; "
+            f"capture {res['graph']['capture_s']:.3f} s, instantiation "
+            f"{res['graph']['instantiate_s']:.3f} s); losses "
+            f"{[round(x, 5) for x in losses]}; checkpoints and grids "
             f"{checkpoints}")
     decoder = root / "ae_f32" / "models_checkpoint" / \
         f"model_{checkpoints[-1]}.pt"
@@ -2585,21 +3227,28 @@ def run_front_path(torch, workdir, device="cuda"):
         want = f["steps"] + len(checkpoints)
         want_small = want if name == "lr" else 0
         launches[f"train_codebook_{name}"] = res["launches"]
+        replay = res["graph"]["launches"]
         if res["launches"]["fused_bmu"] != want or \
-                res["launches"]["fused_bmu_small_m"] != want_small:
+                res["launches"]["fused_bmu_small_m"] != want_small or \
+                replay["fused_bmu"] != 1 or \
+                replay["fused_bmu_small_m"] != (name == "lr"):
             raise SystemExit(f"train_codebook {name} launched fused_bmu "
                              f"{res['launches']['fused_bmu']} times "
                              f"({res['launches']['fused_bmu_small_m']} "
-                             f"small-M), expected {want} ({want_small})")
+                             f"small-M), expected {want} ({want_small}); "
+                             f"a replay {replay['fused_bmu']} "
+                             f"({replay['fused_bmu_small_m']}), expected 1")
         books[name] = out / "models_checkpoint" / \
             f"codebook_{checkpoints[-1]}.pt"
         timings[f"codebook_{name}"] = {
             "step_s": res["step_s"], "step_mean_s": _step_mean(res["step_s"]),
-            "seconds": res["seconds"]}
-        log(f"[front] train_codebook {name}: {f['steps']} steps, "
+            "seconds": res["seconds"], "graph": res["graph"]}
+        log(f"[front] train_codebook {name}: {f['steps']} graphed steps, "
             f"{_step_mean(res['step_s']):.4f} s per step (steps 1-5; all "
-            f"{[round(x, 4) for x in res['step_s']]}); fused_bmu calls "
-            f"{want}, {want_small} of them small-M")
+            f"{[round(x, 4) for x in res['step_s']]}; capture "
+            f"{res['graph']['capture_s']:.3f} s, instantiation "
+            f"{res['graph']['instantiate_s']:.3f} s); fused_bmu calls "
+            f"{want}, {want_small} of them small-M, one a replay")
 
     out = root / "pruned"
     res = run_cli("prune_codebook", None, [
@@ -2627,16 +3276,24 @@ def run_front_path(torch, workdir, device="cuda"):
 # phase 4d: the front's stages, card against CPU in float32
 # ---------------------------------------------------------------------------
 
-def _sgd_step(torch, model, step_fn):
-    """(loss, gradients as old minus new) of one SGD(lr=1) step."""
+def _sgd_step(torch, model, make_step, *inputs):
+    """(loss, gradients as old minus new) of one SGD(lr=1) step of
+    ``make_step(model, optimizer)``: graphed on the card, eager on the
+    CPU."""
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    loss = float(step_fn(torch.optim.SGD(model.parameters(), lr=1.0)))
+    step = make_step(model, torch.optim.SGD(model.parameters(), lr=1.0))
+    if (step.runner is not None) != (next(model.parameters()).device.type
+                                     == "cuda"):
+        raise SystemExit("the front's train step is not graphed on the "
+                         "card and eager on the CPU")
+    loss = float(step(*inputs))
     return loss, {n: (before[n] - p.detach()).cpu()
                   for n, p in model.named_parameters()}
 
 
 def check_front_reference(torch, paths, device="cuda"):
-    """Phase 4d, float32, TF32 off: (a) one autoencoder train step of a
+    """Phase 4d, float32, TF32 off, each card step graphed against the
+    CPU's eager one: (a) one autoencoder train step of a
     small config (32-64 channels, 32x32 images, batch 4): loss rel 1e-5,
     gradients atol 1e-5, then the same step with cuDNN's TF32 on (reported
     only: the fault the package's setting repairs); (b) one codebook train step at the HR shape
@@ -2666,8 +3323,8 @@ def check_front_reference(torch, paths, device="cuda"):
     def ae_step(dev):
         model = autoencoder.build_autoencoder(cfg, dev)[0]
         model.load_state_dict(weights)
-        return _sgd_step(torch, model, lambda opt: autoencoder
-                         .make_train_step(model, opt)(batch.to(dev)))
+        return _sgd_step(torch, model, autoencoder.make_train_step,
+                         batch.to(dev))
 
     def differ(a, b):   # (loss rel, max grad abs diff)
         return (abs(a[0] - b[0]) / abs(b[0]),
@@ -2675,7 +3332,8 @@ def check_front_reference(torch, paths, device="cuda"):
 
     out = {dev: ae_step(dev) for dev in ("cpu", device)}
     loss_rel, grad_err = differ(out[device], out["cpu"])
-    log(f"[reference] autoencoder train step, float32: loss card "
+    log(f"[reference] autoencoder train step, float32 (graphed on the "
+        f"card): loss card "
         f"{out[device][0]:.8f} cpu {out['cpu'][0]:.8f} (rel {loss_rel:.2e});"
         f" max |grad card - grad cpu| {grad_err:.3e}")
     if not loss_rel <= 1e-5 or not grad_err <= 1e-5:
@@ -2703,16 +3361,16 @@ def check_front_reference(torch, paths, device="cuda"):
                          init_neighbour_range=256, device=dev)
         model.load_state_dict(book.state_dict())
         tokens[dev] = model.get_patches_bmu(latents.to(dev)).cpu()
-        out[dev] = _sgd_step(torch, model, lambda opt: codebook
-                             .make_train_step(model, opt)(latents.to(dev),
-                                                          256.0))
+        out[dev] = _sgd_step(torch, model, codebook.make_train_step,
+                             latents.to(dev), 256.0)
     patches = patchify(latents, patch_dim=(8, 8)).reshape(-1, 256)
     agree = near_tie_agreement(patches, book.codebook.detach(),
                                tokens[device], tokens["cpu"])
     loss_rel = abs(out[device][0] - out["cpu"][0]) / abs(out["cpu"][0])
     grad_err = (out[device][1]["codebook"]
                 - out["cpu"][1]["codebook"]).abs().max().item()
-    log(f"[reference] codebook train step (M 128, D 256, K 512), float32: "
+    log(f"[reference] codebook train step (M 128, D 256, K 512), float32, "
+        f"graphed on the card: "
         f"BMU indices differ on {agree['differing_rows']} rows, all within "
         f"the {agree['near_tie_rows']} near-tie rows; loss card "
         f"{out[device][0]:.8f} cpu {out['cpu'][0]:.8f} (rel {loss_rel:.2e});"
@@ -2888,14 +3546,17 @@ def main():
         launches = {}
         launches["generate"], timings, reference = run_main_path(
             torch, workdir, paths, profile=args.profile)
-        launches["generate_fused"], timings["fused"] = run_fused_path(
-            torch, workdir, paths, reference)
+        launches["generate_fused"], timings["fused"], fused_ref = \
+            run_fused_path(torch, workdir, paths, reference)
         del reference
         launches["flat_generate"], timings["flat"] = run_flat_path(
             torch, paths)
         launches["train"], timings["train"] = run_train_path(
             torch, workdir, profile=args.profile)
+        timings["train"]["compare"] = compare_train_steps(torch, workdir)
         launches["train_f32"], timings["train_f32"] = run_train_path(
+            torch, workdir, bf16=False)
+        timings["train_f32"]["compare"] = compare_train_steps(
             torch, workdir, bf16=False)
         launches["pipeline"], timings["serve"] = run_serve_path(torch,
                                                                 paths)
@@ -2905,6 +3566,10 @@ def main():
         launches.update(front)
         timings["front"]["reference"] = check_front_reference(torch,
                                                               front_paths)
+        timings["front"]["compare"] = compare_front_steps(torch)
+        timings["front"]["traced_alone"] = traced_replays_alone(workdir)
+        launches["interchange"], timings["interchange"] = \
+            run_interchange_path(torch, workdir, paths, fused_ref)
 
     line = kernels_line(records, launches)
     if args.json_out:

@@ -11,9 +11,11 @@ http://host:port`` once it accepts requests (``--port 0`` binds a free
 port), and on SIGTERM or SIGINT drains every accepted request and exits 0
 after ``drained; bye.``.
 
-The port serves one card: ``--shard-batch``, ``--num-model-shards`` above 1,
-``--compilation-cache-dir`` and ``--compiler-options`` are accepted for
-flag parity and refused with an error (``ROADMAP.md`` queue 1 item 10).
+Accepted for flag parity and refused with an error: ``--shard-batch`` and
+``--num-model-shards`` above 1 (the port serves one card until
+``ROADMAP.md`` queue 1's "Parallelism" item), and
+``--compilation-cache-dir`` and ``--compiler-options`` (XLA's, with no
+counterpart in PyTorch).
 """
 
 import argparse
@@ -22,8 +24,9 @@ import pathlib
 import signal
 import time
 
-ONE_CARD = "not in the port yet: it serves one card (ROADMAP.md queue 1 " \
-           "item 10)"
+ONE_CARD = "not in the port yet: it serves one card (ROADMAP.md queue 1, " \
+           "\"Parallelism\")"
+XLA_ONLY = "XLA-only: the port compiles nothing through XLA"
 
 
 def one_malloc_arena():
@@ -78,17 +81,20 @@ def main(argv=None):
                              "graph for that batch, so a first request of "
                              "that size replays it.")
     parser.add_argument("--compilation-cache-dir", default=None,
-                        type=pathlib.Path, help=f"XLA's cache: {ONE_CARD}.")
+                        type=pathlib.Path, help=f"XLA's cache: {XLA_ONLY}.")
     parser.add_argument("--compiler-options", default=None, type=str,
-                        help=f"XLA's options: {ONE_CARD}.")
+                        help=f"XLA's options: {XLA_ONLY}.")
     args = parser.parse_args(argv)
-    refused = [flag for flag, used in (
-        ("--shard-batch", args.shard_batch),
-        ("--num-model-shards", args.num_model_shards > 1),
-        ("--compilation-cache-dir", args.compilation_cache_dir is not None),
-        ("--compiler-options", args.compiler_options is not None)) if used]
-    if refused:
-        parser.error(f"{', '.join(refused)}: {ONE_CARD}")
+    for reason, flags in (
+            (ONE_CARD, (("--shard-batch", args.shard_batch),
+                        ("--num-model-shards", args.num_model_shards > 1))),
+            (XLA_ONLY, (("--compilation-cache-dir",
+                         args.compilation_cache_dir is not None),
+                        ("--compiler-options",
+                         args.compiler_options is not None)))):
+        refused = [flag for flag, used in flags if used]
+        if refused:
+            parser.error(f"{', '.join(refused)}: {reason}")
 
     if args.device == "cuda":
         one_malloc_arena()

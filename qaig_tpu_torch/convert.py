@@ -154,10 +154,21 @@ def load_optax_state(module, optimizer, state, logging=print):
             logging(f"No optimizer state for {jax_path}, keeping a fresh "
                     "one")
             continue
-        optimizer.state[target] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
-            "exp_avg": moments[0], "exp_avg_sq": moments[1]}
+        optimizer.state[target] = adam_entry(optimizer, target, count,
+                                             *moments)
     return count
+
+
+def adam_entry(optimizer, param, count, exp_avg, exp_avg_sq):
+    """``torch.optim.Adam``'s state of ``param`` at update ``count``: the
+    step on the parameter's device when its group is ``capturable`` (as
+    Adam makes it), else on the CPU."""
+    group = next(g for g in optimizer.param_groups
+                 if any(p is param for p in g["params"]))
+    device = param.device if group.get("capturable") else "cpu"
+    return {"step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=device),
+            "exp_avg": exp_avg, "exp_avg_sq": exp_avg_sq}
 
 
 @torch.no_grad()

@@ -1,7 +1,9 @@
-"""CUDA-graph capture and replay of the generation cascade (the port's own
-module: the JAX package jits the cascade into one XLA program,
-``qaig_tpu/infer/generate.py::_run_fused``; on the card the counterpart is
-a ``torch.cuda.CUDAGraph``, captured once per key and replayed).
+"""CUDA-graph capture and replay of the generation cascade and of the
+trainers' steps (the port's own module: the JAX package jits the cascade
+into one XLA program, ``qaig_tpu/infer/generate.py::_run_fused``, and each
+train step into another; on the card the counterpart is a
+``torch.cuda.CUDAGraph``, captured once per key and replayed; the train
+steps come through ``qaig_tpu_torch/train/common.py::graph_train_step``).
 
 A :class:`GraphRunner` captures a function the first time it is called
 with a key and replays the graph on every later call with that key:
@@ -20,10 +22,15 @@ with a key and replays the graph on every later call with that key:
   allocating device memory, which a capture forbids: before a thread's
   first capture the runner runs its ``warmup`` (a few small eager calls
   of those libraries, from the caller) in that thread;
+* a train step's backward runs on autograd's device thread, on the
+  capture's stream, so its kernels (kernel A's backward among them) land
+  in the graph too; a train step's warm-up (``prepare``: a forward and a
+  backward that update nothing) runs eagerly on that stream just before
+  its capture;
 * the kernel wrappers count a launch when they are called, which a capture
-  does once and a replay never: the runner takes a capture's counts back
-  out and adds them again at every replay, so a replay counts the kernels
-  it ran, as the eager call would.
+  does once and a replay never: the runner takes a capture's counts (and
+  a warm-up's) back out and adds the capture's again at every replay, so
+  a replay counts the kernels it ran, as the eager call would.
 
 A capture or a replay that fails raises; nothing falls back to the eager
 function.
@@ -48,8 +55,11 @@ _CAPTURE_LOCK = threading.Lock()
 
 def launch_counters():
     """(name, wrapper, attribute) of every kernel launch count of the
-    port."""
+    port, and of the backward passes of kernel A that reached the CUDA
+    backward (``flash_attention.backward_calls``)."""
     return [("flash_attention", fa.flash_attention, "launches"),
+            ("flash_attention_backward_calls", fa.flash_attention,
+             "backward_calls"),
             ("flash_attention_backward", fa.fused_flash_attention_backward,
              "launches"),
             ("shared_prefix_attention_fused_t",
@@ -123,17 +133,21 @@ class GraphRunner:
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = {}
 
-    def __call__(self, key, fn, inputs=(), generator=None):
+    def __call__(self, key, fn, inputs=(), generator=None, prepare=None):
         """``fn(*inputs)`` (a tree of tuples, lists and tensors) from the
         graph of ``key``, captured at the key's first call."""
         graph = self.graphs.get(key)
         if graph is None:
-            graph = self.graphs[key] = self.capture(fn, inputs, generator)
+            graph = self.graphs[key] = self.capture(fn, inputs, generator,
+                                                    prepare)
         return graph.replay(*inputs)
 
-    def capture(self, fn, inputs, generator=None):
+    def capture(self, fn, inputs, generator=None, prepare=None):
         """Capture ``fn`` over static copies of ``inputs``; raises if the
-        capture fails (the counts stay as they were)."""
+        capture fails (the counts stay as they were).  ``prepare(*static)``
+        runs eagerly on the runner's stream just before the capture (a
+        train step's warm-up: a forward and backward that update
+        nothing); its launches are taken out of the counts too."""
         if self.warmup is not None and \
                 threading.get_ident() not in self._warm_threads:
             with torch.cuda.device(self.device):
@@ -150,6 +164,9 @@ class GraphRunner:
             self.stream.wait_stream(caller)
             try:
                 with torch.cuda.stream(self.stream):
+                    if prepare is not None:
+                        prepare(*static)
+                    prepared = read_counts()
                     t0 = time.perf_counter()
                     graph.capture_begin(pool=self.pool,
                                         capture_error_mode="thread_local")
@@ -162,7 +179,7 @@ class GraphRunner:
                         raise
                     t2 = time.perf_counter()
                 caller.wait_stream(self.stream)
-                launches = [a - b for a, b in zip(read_counts(), before)]
+                launches = [a - b for a, b in zip(read_counts(), prepared)]
             finally:
                 add_counts([b - a for a, b in zip(read_counts(), before)])
         return CapturedGraph(graph, static, outputs, launches,

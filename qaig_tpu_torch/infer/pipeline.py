@@ -14,7 +14,7 @@ temperature) (``fused``, row-keyed only, as in ``qaig_tpu``): on CUDA, the
 default, from a CUDA graph captured at the key's first call
 (``infer/graphs.py``); on the CPU, where the dispatched loop stays the
 default, eagerly.  Not ported: the ``mesh`` argument (sharded and
-tensor-parallel generation, ``ROADMAP.md`` queue 1 item 10).
+tensor-parallel generation, ``ROADMAP.md`` queue 1's "Parallelism" item).
 """
 
 import dataclasses

@@ -128,11 +128,14 @@ class Transformer(nn.Module):
         """``blocks.transformer_block``, recomputed in the backward under
         ``use_remat``.  The recompute gets the parameter tensors this call
         sees (under ``functional_call``, the caller's copies), not the
-        module's own."""
+        module's own.  A block draws no random numbers, so no generator
+        state is kept for the recompute (reading the card's generator
+        state is not allowed while a train step is captured as a CUDA
+        graph)."""
         if self.cfg.use_remat and torch.is_grad_enabled():
             return checkpoint(functional_call, layer,
                               dict(layer.named_parameters()), (cfg, *args),
-                              use_reentrant=False)
+                              use_reentrant=False, preserve_rng_state=False)
         return blocks.transformer_block(layer, cfg, *args)
 
     def encode(self, x_enc):

@@ -9,7 +9,9 @@ reconstruction grids; a NaN guard.  ``bf16`` runs the forward and backward
 on a bfloat16 copy of every parameter (``torch.func.functional_call``)
 while the master weights, Adam moments and loss stay float32, as the JAX
 package casts its parameter tree.  Float32 convolutions on the card run in
-full float32 (``common.select_device`` turns TF32 off).
+full float32 (``common.select_device`` turns TF32 off).  On CUDA the step
+(forward, backward, Adam) replays from a CUDA graph, the counterpart of
+the JAX trainer's one jitted step.
 """
 
 import torch
@@ -52,11 +54,16 @@ def build_autoencoder(config_dict, device=None):
 
 
 def make_train_step(model, optimizer, bf16=False, grad_accum=1,
-                    scheduler=None, debug_nans=False):
+                    scheduler=None, debug_nans=False, graphed=None):
     """``step(batch) -> loss``: forward, MSE, backward and one
     ``optimizer`` update of ``model`` in place (then ``scheduler``).
     ``grad_accum``: the batch in that many equal chunks, gradients summed,
-    one update.  ``debug_nans``: autograd anomaly detection."""
+    one update.  ``debug_nans``: autograd anomaly detection (eager).
+    ``graphed`` (None: on CUDA unless ``debug_nans``): the device work
+    replays from a CUDA graph (``common.train_step``); the step's
+    ``runner`` then holds it (None when eager)."""
+    device = next(model.parameters()).device
+
     def loss_fn(batch):
         if bf16:
             cast = {name: p.to(torch.bfloat16)
@@ -68,20 +75,16 @@ def make_train_step(model, optimizer, bf16=False, grad_accum=1,
             recon = model(batch)
         return torch.mean((recon - batch) ** 2)
 
-    def step(batch):
-        optimizer.zero_grad(set_to_none=True)
+    def forward_backward(batch):
         loss = 0.0
-        with torch.autograd.set_detect_anomaly(debug_nans):
-            for chunk in batch.chunk(grad_accum):
-                chunk_loss = loss_fn(chunk)
-                (chunk_loss / grad_accum).backward()
-                loss = loss + chunk_loss.detach()
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+        for chunk in batch.chunk(grad_accum):
+            chunk_loss = loss_fn(chunk)
+            (chunk_loss / grad_accum).backward()
+            loss = loss + chunk_loss.detach()
         return loss / grad_accum
 
-    return step
+    return common.train_step(forward_backward, optimizer.step, optimizer,
+                             scheduler, device, graphed, debug_nans)
 
 
 def checkpoint_dict(cfg, model, optimizer, scheduled=True, global_steps=0):
@@ -166,6 +169,8 @@ def run(args):
     log.info(PROJECT_NAME)
     log.info(f"Output Dir: {out_dir}")
     log.info(f"Device: {device}")
+    log.info("Train step: " + ("CUDA graph" if common.use_graphs(
+        None, device, bool(args.get("debug_nans"))) else "eager"))
     log.info(f"Model size: {n_params:,}")
     log.info("#" * 100)
     log.info("Autoencoder Parameters.")

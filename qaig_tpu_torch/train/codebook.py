@@ -10,7 +10,9 @@ decoder's previews of the batch and of its quantization (``image_plot_<n>``
 / ``quant_image_plot_<n>``) and a checkpoint in ``qaig_tpu``'s schema
 (with the neighbourhood range, the step counter and the optax-form
 optimizer state).  ``--auto-resume`` continues at the step after the
-newest checkpoint and replays the range decrement that followed it.
+newest checkpoint and replays the range decrement that followed it.  On
+CUDA the step replays from a CUDA graph, the counterpart of the JAX
+trainer's one jitted step, with the range as its input.
 """
 
 import torch
@@ -27,22 +29,32 @@ from qaig_tpu_torch.utils.logging_utils import setup_logging
 PROJECT_NAME = "Codebook"
 
 
-def make_train_step(model, optimizer, scheduler=None, debug_nans=False):
+def make_train_step(model, optimizer, scheduler=None, debug_nans=False,
+                    graphed=None):
     """``step(batch, neighbourhood_range) -> loss``: quantize, MSE,
     backward and one ``optimizer`` update of the codebook in place (then
-    ``scheduler``)."""
-    def step(batch, neighbourhood_range):
-        optimizer.zero_grad(set_to_none=True)
-        with torch.autograd.set_detect_anomaly(debug_nans):
-            quant = model(batch, use_gaussian=True,
-                          neighbourhood_range=neighbourhood_range)
-            loss = torch.mean((quant - batch) ** 2)
-            loss.backward()
-        optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
+    ``scheduler``).  The range enters the device work as a float32 0-d
+    tensor, as it is a traced argument of the JAX step, so one graph serves
+    every range.  ``debug_nans``: autograd anomaly detection (eager).
+    ``graphed`` (None: on CUDA unless ``debug_nans``): the device work
+    replays from a CUDA graph (``common.train_step``); the step's
+    ``runner`` then holds it (None when eager)."""
+    def forward_backward(batch, neighbourhood_range):
+        quant = model(batch, use_gaussian=True,
+                      neighbourhood_range=neighbourhood_range)
+        loss = torch.mean((quant - batch) ** 2)
+        loss.backward()
         return loss.detach()
 
+    run = common.train_step(forward_backward, optimizer.step, optimizer,
+                            scheduler, model.codebook.device, graphed,
+                            debug_nans)
+
+    def step(batch, neighbourhood_range):
+        return run(batch, torch.as_tensor(neighbourhood_range,
+                                          dtype=torch.float32))
+
+    step.runner = run.runner
     return step
 
 
@@ -143,6 +155,8 @@ def run(args):
     log.info(PROJECT_NAME)
     log.info(f"Output Dir: {out_dir}")
     log.info(f"Device: {device}")
+    log.info("Train step: " + ("CUDA graph" if common.use_graphs(
+        None, device, bool(args.get("debug_nans"))) else "eager"))
     log.info("#" * 100)
     log.info("Codebook Parameters.")
     log.info(f"Image dim: {model.image_dim}")

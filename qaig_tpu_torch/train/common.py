@@ -5,7 +5,9 @@ rebuilding the FC decoder, the autoencoder and codebooks from their
 checkpoints, checkpoint discovery and retention (pickle checkpoints only),
 throughput and metrics logs, a ``torch.profiler`` window, and the NaN
 guard.  Model and optimizer states cross to and from ``qaig_tpu``'s
-checkpoint schema through ``qaig_tpu_torch.convert``.
+checkpoint schema through ``qaig_tpu_torch.convert``; reference torch
+state dicts and Adam states are read through ``utils/torch_compat.py``
+and ``utils/torch_optim.py``.
 """
 
 import json
@@ -19,6 +21,7 @@ import torch
 
 from qaig_tpu_torch.convert import load_jax_state, load_optax_state
 from qaig_tpu_torch.models import core
+from qaig_tpu_torch.utils import torch_compat, torch_optim
 from qaig_tpu_torch.utils.checkpoint import load_model
 
 
@@ -67,13 +70,13 @@ def looks_like_torch_state(state):
 
 
 def restore_model_state(model, state, logging=print, key_map=None):
-    """Tolerantly restore a checkpoint's flat ``qaig_tpu`` state into
-    ``model`` in place (layouts converted by ``qaig_tpu_torch.convert``).
-    Reference torch state dicts are not read by the port."""
+    """Tolerantly restore a checkpoint's model entry into ``model`` in
+    place: ``qaig_tpu``'s flat state (layouts converted by
+    ``qaig_tpu_torch.convert``) or a reference torch state dict
+    (``utils/torch_compat.py``).  ``key_map`` applies to the flat state
+    only; a reference state dict carries its own prefix rules."""
     if looks_like_torch_state(state):
-        raise ValueError("reference torch state dicts are not supported by "
-                         "the port; convert the checkpoint with qaig_tpu "
-                         "first")
+        return torch_compat.load_torch_into(model, state, logging=logging)
     return load_jax_state(model, state, key_map=key_map, logging=logging)
 
 
@@ -88,15 +91,105 @@ def load_checkpoint(path, what, log):
 
 def restore_optimizer(model, optimizer, scheduler, state, logging=print):
     """Fill ``optimizer`` (Adam over ``model``) from a ``qaig_tpu`` optax
-    state and put ``scheduler`` at its update count; a state that does
-    not fit is logged and the optimizer stays fresh."""
+    state or a reference torch Adam state and put ``scheduler`` at its
+    update count; a state that does not fit is logged and the optimizer
+    stays fresh.  Only the per-parameter state is written: the group
+    settings (``capturable``, the learning-rate tensor) stay the port's."""
     from qaig_tpu_torch.train import optim
     try:
-        count = load_optax_state(model, optimizer, state, logging=logging)
+        if torch_optim.is_torch_adam_state(state):
+            count = torch_optim.import_adam_state(model, optimizer, state,
+                                                  logging=logging)
+        else:
+            count = load_optax_state(model, optimizer, state,
+                                     logging=logging)
     except Exception as e:
         logging(f"Could not restore optimizer state: {e}")
         return
     optim.set_update_count(optimizer, scheduler, count)
+
+
+def use_graphs(graphed, device, debug_nans=False):
+    """Whether a trainer's step replays from a CUDA graph: ``graphed``
+    when given, else on CUDA, where ``--debug-nans`` (autograd's anomaly
+    mode, which cannot run inside a capture) runs the eager step instead.
+    On the CPU the step is eager."""
+    device = torch.device(device)
+    if graphed is None:
+        return device.type == "cuda" and not debug_nans
+    if graphed and device.type != "cuda":
+        raise ValueError("a train step runs as a CUDA graph on CUDA only")
+    if graphed and debug_nans:
+        raise ValueError("--debug-nans runs the eager step: anomaly "
+                         "detection cannot run inside a CUDA graph capture")
+    return bool(graphed)
+
+
+def graph_train_step(device_step, warmup, optimizer, device):
+    """``device_step(*tensors) -> loss`` (one update of the parameters,
+    optimizer state and EMA in place) replayed from a CUDA graph captured
+    at the first call of each shape and dtype of its inputs (the
+    counterpart of the JAX trainers' one jitted program per step).  The
+    inputs are copied into the graph's static buffers; the parameters,
+    their gradients (allocated by the capture, then rewritten in place by
+    every replay) and the optimizer's state keep their addresses.  Before
+    a capture the optimizer's state is created (``optim.init_adam_state``)
+    and ``warmup(*static inputs)`` runs the step's forward and backward
+    once, updating nothing, on the capture's stream: cuBLAS and cuDNN set
+    up in the capturing thread and in autograd's device thread there.  A
+    capture that fails raises.  The returned function's ``runner`` holds
+    the graphs (``infer/graphs.py::GraphRunner``)."""
+    from qaig_tpu_torch.infer.graphs import GraphRunner
+    from qaig_tpu_torch.train import optim
+    runner = GraphRunner(device)
+
+    def run(*inputs):
+        key = tuple((tuple(x.shape), x.dtype) for x in inputs)
+        if key not in runner.graphs:
+            optim.init_adam_state(optimizer)
+        return runner(key, device_step, inputs, prepare=warmup)
+
+    run.runner = runner
+    return run
+
+
+def train_step(forward_backward, update, optimizer, scheduler, device,
+               graphed=None, debug_nans=False):
+    """A trainer's step over tensor inputs: zero the gradients,
+    ``forward_backward(*inputs) -> loss`` (detached), ``update()`` (the
+    optimizer's step and what goes with it), then, outside the device
+    work, ``scheduler.step()``.  The device work replays from a CUDA graph
+    when :func:`use_graphs` says so (:func:`graph_train_step`), else runs
+    eagerly, under autograd's anomaly mode with ``debug_nans``.  Returns
+    ``step(*inputs) -> loss``; its ``runner`` holds the graphs (None when
+    eager)."""
+    graphed = use_graphs(graphed, device, debug_nans)
+
+    def device_step(*inputs):
+        optimizer.zero_grad(set_to_none=True)
+        loss = forward_backward(*inputs)
+        update()
+        return loss
+
+    def warmup(*inputs):
+        forward_backward(*inputs)
+        optimizer.zero_grad(set_to_none=True)
+
+    replay = (graph_train_step(device_step, warmup, optimizer, device)
+              if graphed else None)
+
+    def step(*inputs):
+        if replay is not None:
+            loss = replay(*inputs)
+        else:
+            with torch.autograd.set_detect_anomaly(debug_nans):
+                loss = device_step(*(x.to(device) for x in inputs))
+        if scheduler is not None:
+            scheduler.step()
+        return loss
+
+    step.runner = None if replay is None else replay.runner
+    return step
 
 
 def submodule_key_map(keep_prefix, drop_prefixes=()):

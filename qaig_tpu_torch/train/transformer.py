@@ -12,7 +12,11 @@ Checkpoints use ``qaig_tpu``'s schema (model, optax-form optimizer state,
 EMA, step counter) and come with the autoregressive image preview.
 
 The window starts are drawn on the host from a CPU ``torch.Generator``, so
-a seed gives the same windows on the card and on the CPU.  ``bf16`` runs
+a seed gives the same windows on the card and on the CPU, and enter the
+step as a tensor.  On CUDA the step's device work (tokenization, forward,
+backward, clip, Adam and EMA) replays from a CUDA graph, the counterpart
+of the JAX trainer's one jitted step; previews, logging and saves stay
+outside it.  ``bf16`` runs
 the forward and backward on a bfloat16 copy of every parameter
 (``torch.func.functional_call``) while the master weights, Adam moments
 and loss stay float32, as the JAX package casts its parameter tree; the
@@ -71,10 +75,18 @@ def build_transformer_config(config_dict, train_base_model, lr_num_embeddings,
         use_remat=use_remat)
 
 
+def input_length(lr_tokens, hr_tokens, train_base_model):
+    """Length of :func:`assemble_sequences`' ``hr_input`` from the number
+    of LR and HR tokens per sample: the HR tokens after the LR ones (base)
+    or after <start> (cascade)."""
+    return hr_tokens + (lr_tokens if train_base_model else 1)
+
+
 def assemble_sequences(lr_indices, hr_indices, train_base_model,
                        lr_num_embeddings, hr_num_embeddings):
     """(hr_input, lr_input, hr_target) from the (N, Seq) BMU token grids;
-    ``lr_input`` is None in base mode."""
+    ``lr_input`` is None in base mode.  ``hr_input`` is
+    :func:`input_length` long."""
     n = hr_indices.shape[0]
     end = torch.full((n, 1), hr_num_embeddings, dtype=hr_indices.dtype,
                      device=hr_indices.device)
@@ -94,22 +106,28 @@ def slice_windows(hr_input, hr_target, starts, window):
     return hr_input.gather(1, pos), hr_target.gather(1, pos), pos
 
 
-def sample_windows(generator, hr_input, hr_target, window):
-    """One uniformly drawn window per sample: starts from ``generator``
-    (drawn on its device, moved to the sequences'), then
-    :func:`slice_windows`."""
-    n, seq_in = hr_input.shape
-    starts = torch.randint(0, seq_in - window + 1, (n,), generator=generator,
-                           device=generator.device)
-    return slice_windows(hr_input, hr_target, starts.to(hr_input.device),
-                         window)
+def draw_window_starts(generator, n, seq_in, window):
+    """``n`` uniformly drawn window starts in ``[0, seq_in - window]`` from
+    ``generator``, on its device."""
+    return torch.randint(0, seq_in - window + 1, (n,), generator=generator,
+                         device=generator.device)
 
 
-def tokenize_batch(batch, generator, lr_codebook, hr_codebook,
+def sequence_length(batch, lr_codebook, hr_codebook, train_base_model):
+    """:func:`input_length` of a feature-map batch (N, C, H, W)."""
+    def tokens(codebook):
+        ph, pw = codebook.patch_dim
+        return (batch.shape[2] // ph) * (batch.shape[3] // pw)
+    return input_length(tokens(lr_codebook), tokens(hr_codebook),
+                        train_base_model)
+
+
+def tokenize_batch(batch, starts, lr_codebook, hr_codebook,
                    train_base_model, lr_num_embeddings, hr_num_embeddings,
                    sliding_window=None):
     """Feature maps (N, C, H, W) float32 -> (hr_input, lr_input, hr_target,
-    pos_cond): BMU tokens, assembled, windowed when the model slides."""
+    pos_cond): BMU tokens, assembled, and when the model slides cut to the
+    windows from ``starts`` (N,) on the batch's device."""
     lr_idx = lr_codebook.get_patches_bmu(batch, reshape=True)
     hr_idx = hr_codebook.get_patches_bmu(batch, reshape=True)
     hr_input, lr_input, hr_target = assemble_sequences(
@@ -117,25 +135,37 @@ def tokenize_batch(batch, generator, lr_codebook, hr_codebook,
         hr_num_embeddings)
     pos_cond = None
     if sliding_window is not None:
-        hr_input, hr_target, pos_cond = sample_windows(
-            generator, hr_input, hr_target, sliding_window)
+        hr_input, hr_target, pos_cond = slice_windows(
+            hr_input, hr_target, starts, sliding_window)
     return hr_input, lr_input, hr_target, pos_cond
 
 
 def make_train_step(model, optimizer, lr_codebook, hr_codebook,
                     train_base_model, lr_num_embeddings, hr_num_embeddings,
                     sliding_window=None, bf16=False, grad_accum=1,
-                    grad_clip=None, scheduler=None, debug_nans=False):
+                    grad_clip=None, scheduler=None, debug_nans=False,
+                    ema_model=None, ema_decay=None, graphed=None):
     """``step(batch, generator) -> loss``: tokenize, forward, backward and
     one ``optimizer`` update of ``model`` in place (then ``scheduler``).
+    The window starts are drawn from ``generator`` on the host before the
+    device work.
 
     ``bf16``: forward and backward on bfloat16 copies of the parameters,
     float32 master weights, gradients, moments and loss.  ``grad_accum``:
     the batch in that many equal chunks, gradients summed, one update (the
     mean of chunk means is the full mean).  ``grad_clip``: scale the
     gradients to that global norm at most before the update.
-    ``debug_nans``: autograd anomaly detection over forward and backward."""
+    ``ema_model``: after the update, its parameters move to ``ema_decay``
+    times themselves plus the rest of the live ones.  ``debug_nans``:
+    autograd anomaly detection over forward and backward (eager).
+    ``graphed`` (None: on CUDA unless ``debug_nans``): the device work
+    replays from a CUDA graph (``common.train_step``); the step's
+    ``runner`` then holds it (None when eager)."""
     params = [p for p in model.parameters() if p.requires_grad]
+    device = params[0].device
+    ema_pairs = None
+    if ema_model is not None:
+        ema_pairs = (list(ema_model.parameters()), list(model.parameters()))
 
     def loss_fn(hr_in, lr_in, hr_tgt, pos_cond):
         kwargs = {"x_enc": lr_in, "pos_cond": pos_cond}
@@ -149,20 +179,20 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
             logits.to(torch.float32).reshape(-1, logits.shape[-1]),
             hr_tgt.reshape(-1))
 
-    def step(batch, generator):
-        parts = tokenize_batch(batch, generator, lr_codebook, hr_codebook,
+    def forward_backward(batch, starts=None):
+        parts = tokenize_batch(batch, starts, lr_codebook, hr_codebook,
                                train_base_model, lr_num_embeddings,
                                hr_num_embeddings, sliding_window)
-        optimizer.zero_grad(set_to_none=True)
         chunks = [[None] * grad_accum if x is None else x.chunk(grad_accum)
                   for x in parts]
         loss = 0.0
-        with torch.autograd.set_detect_anomaly(debug_nans):
-            for chunk in zip(*chunks):
-                chunk_loss = loss_fn(*chunk)
-                (chunk_loss / grad_accum).backward()
-                loss = loss + chunk_loss.detach()
-        loss = loss / grad_accum
+        for chunk in zip(*chunks):
+            chunk_loss = loss_fn(*chunk)
+            (chunk_loss / grad_accum).backward()
+            loss = loss + chunk_loss.detach()
+        return loss / grad_accum
+
+    def update():
         if grad_clip is not None:
             grads = [p.grad for p in params if p.grad is not None]
             gnorm = torch.linalg.vector_norm(
@@ -172,10 +202,25 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
             for g in grads:
                 g.mul_(scale)
         optimizer.step()
-        if scheduler is not None:
-            scheduler.step()
-        return loss.detach()
+        if ema_pairs is not None:
+            with torch.no_grad():
+                torch._foreach_mul_(ema_pairs[0], ema_decay)
+                torch._foreach_add_(ema_pairs[0], ema_pairs[1],
+                                    alpha=1.0 - ema_decay)
 
+    run = common.train_step(forward_backward, update, optimizer, scheduler,
+                            device, graphed, debug_nans)
+
+    def step(batch, generator):
+        inputs = [batch]
+        if sliding_window is not None:
+            inputs.append(draw_window_starts(
+                generator, batch.shape[0], sequence_length(
+                    batch, lr_codebook, hr_codebook, train_base_model),
+                sliding_window))
+        return run(*inputs)
+
+    step.runner = run.runner
     return step
 
 
@@ -321,8 +366,6 @@ def run(args):
         ema_model = copy.deepcopy(model)
     if ema_model is not None:
         ema_model.requires_grad_(False)
-        ema_params = list(ema_model.parameters())
-        live_params = list(model.parameters())
 
     dataset = FeatureMapDataset(args["dataset_path"])
     loader = DataLoader(dataset, batch_size=batch_size, seed=seed)
@@ -336,13 +379,16 @@ def run(args):
         lr_num_embeddings, hr_num_embeddings, sliding_window,
         bf16=bool(args.get("bf16")), grad_accum=grad_accum,
         grad_clip=grad_clip, scheduler=scheduler,
-        debug_nans=bool(args.get("debug_nans")))
+        debug_nans=bool(args.get("debug_nans")), ema_model=ema_model,
+        ema_decay=ema_decay)
     engine = DecodeEngine(model)
 
     n_params = sum(p.numel() for p in model.parameters())
     log.info(PROJECT_NAME)
     log.info(f"Output Dir: {out_dir}")
     log.info(f"Device: {device}")
+    log.info("Train step: " + ("CUDA graph" if common.use_graphs(
+        None, device, bool(args.get("debug_nans"))) else "eager"))
     log.info(f"Model size: {n_params:,}")
     log.info("#" * 100)
     log.info("Codebook Parameters.")
@@ -418,11 +464,6 @@ def run(args):
             profiler.step(global_steps)
             batch = torch.from_numpy(feature_map).to(device)
             loss = train_step(batch, window_generator)
-            if ema_model is not None:
-                with torch.no_grad():
-                    torch._foreach_mul_(ema_params, ema_decay)
-                    torch._foreach_add_(ema_params, live_params,
-                                        alpha=1.0 - ema_decay)
             iteration_count += 1
             loss_acc += loss
             should_sync = (log_every <= 1

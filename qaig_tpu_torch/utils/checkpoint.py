@@ -8,8 +8,14 @@ other writes.
 
 Reading needs no JAX: classes from packages other than numpy and the
 standard library (e.g. the optimizer state's named tuples) load as plain
-tuples.  Orbax directories and reference torch ``.pt`` archives are not
-read by the port.
+tuples.  ``load_model`` also reads the reference's torch ``.pt`` zip
+archives (``torch.load``, tensors to numpy), as ``qaig_tpu`` does, so a
+caller sees the same dict from either package; unlike ``qaig_tpu`` it
+loads them with ``weights_only=True``, which builds tensors, numpy
+values and plain containers and runs no other pickled code;
+``qaig_tpu_torch.train.common`` restores the reference state dicts and
+Adam states they hold.  Not applicable: ``qaig_tpu``'s ``.orbax``
+checkpoint directories (orbax imports JAX).
 """
 
 import os
@@ -17,6 +23,24 @@ import pickle
 
 _TRUSTED_MODULES = ("builtins", "collections", "copyreg", "_codecs",
                     "numpy", "ml_dtypes")
+
+
+def _numpy_globals():
+    """The numpy objects a torch archive may pickle beside its tensors
+    (scalars and arrays among the hyperparameters), under numpy 1's and
+    numpy 2's module names: all that ``torch.load(weights_only=True)`` is
+    allowed to build besides tensors and plain containers."""
+    import numpy as np
+    try:
+        from numpy._core import multiarray
+    except ImportError:  # numpy 1
+        from numpy.core import multiarray
+    dtypes = {type(np.dtype(c)) for c in np.typecodes["All"]}
+    names = [np.dtype, np.ndarray, *sorted(dtypes - {np.dtype}, key=str)]
+    for fn in (multiarray.scalar, multiarray._reconstruct):
+        for module in ("numpy.core.multiarray", "numpy._core.multiarray"):
+            names.append((fn, f"{module}.{fn.__name__}"))
+    return names
 
 
 def _to_numpy(obj):
@@ -64,17 +88,20 @@ class _Unpickler(pickle.Unpickler):
 
 
 def load_model(checkpoint_path, logging=print):
-    """Load a pickle checkpoint; returns (status, dict)."""
+    """Load a pickle checkpoint or a reference torch ``.pt`` archive
+    (tensors become numpy); returns (status, dict)."""
     checkpoint_path = str(checkpoint_path)
     if not os.path.isfile(checkpoint_path):
         logging("Checkpoint does not exist.")
         return False, None
     try:
         with open(checkpoint_path, "rb") as f:
-            if f.read(2) == b"PK":
-                logging(f"{checkpoint_path} is a torch archive; the port "
-                        "reads qaig_tpu pickle checkpoints only.")
-                return False, None
+            if f.read(2) == b"PK":   # torch zip archive
+                import torch
+                with torch.serialization.safe_globals(_numpy_globals()):
+                    return True, _to_numpy(torch.load(
+                        checkpoint_path, map_location="cpu",
+                        weights_only=True))
             f.seek(0)
             return True, _Unpickler(f).load()
     except Exception as e:

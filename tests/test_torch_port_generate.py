@@ -299,5 +299,7 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
                  "data.image_dataset", "train.autoencoder", "train.fmap",
                  "train.codebook", "train.prune", "cli.train_autoencoder",
                  "cli.generate_fmap_dataset", "cli.train_codebook",
-                 "cli.prune_codebook"):
+                 "cli.prune_codebook", "utils.torch_compat",
+                 "utils.torch_export", "utils.torch_optim",
+                 "cli.export_torch"):
         assert f"'qaig_tpu_torch.{name}'" in proc.stdout, name

@@ -17,6 +17,7 @@ import base64
 import importlib
 import io
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -533,7 +534,9 @@ REFUSED = ("--shard-batch", "--num-model-shards", "--compilation-cache-dir",
 def test_serve_cli_flags_match_jax_cli(monkeypatch, capsys, tmp_path):
     """Every flag has the JAX CLI's name, type, default and required-ness
     (``--device`` narrows its choices); the multi-card and XLA flags are
-    refused with an error naming the roadmap item; ``--device cuda`` (the
+    refused with an error naming the roadmap item (the parallel ones) or
+    XLA (the compiler ones), and that item is in the roadmap's queue 1;
+    ``--device cuda`` (the
     default) raises where no GPU is visible."""
     import argparse
     from qaig_tpu.cli import serve_generation as jax_cli
@@ -571,10 +574,15 @@ def test_serve_cli_flags_match_jax_cli(monkeypatch, capsys, tmp_path):
     config = tmp_path / "gen.json"
     config.write_text("{}")
     required = ["--config-path", str(config), "--decoder-path", "d.pt"]
-    for flag, value in zip(REFUSED, ([], ["2"], ["cache"], ["a=1"])):
+    reasons = ('ROADMAP.md queue 1, "Parallelism"',) * 2 + ("XLA-only",) * 2
+    for flag, value, reason in zip(REFUSED, ([], ["2"], ["cache"], ["a=1"]),
+                                   reasons):
         with pytest.raises(SystemExit):
             cli.main(required + [flag] + value)
-        assert "ROADMAP.md queue 1 item 10" in capsys.readouterr().err, flag
+        err = capsys.readouterr().err
+        assert f"{flag}: " in err and reason in err, (flag, err)
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    assert re.search(r"^\d+\. \*\*Parallelism\.\*\*", roadmap, re.M)
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -256,7 +256,8 @@ def test_flash_attention_gradient_matches_jax(heads, dh, s, causal):
 def test_assemble_sequences_is_exact(base):
     from qaig_tpu.train.transformer import (
         assemble_sequences as jax_assemble)
-    from qaig_tpu_torch.train.transformer import assemble_sequences
+    from qaig_tpu_torch.train.transformer import (
+        assemble_sequences, input_length)
 
     rng = np.random.default_rng(6)
     lr_idx = rng.integers(0, LR_K, (3, 1 if base else 4))
@@ -267,11 +268,13 @@ def test_assemble_sequences_is_exact(base):
         assert (g is None) == (w is None)
         if g is not None:
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert input_length(lr_idx.shape[1], 16, base) == got[0].shape[1]
 
 
 def test_slice_windows_matches_jax_sample_windows():
     from qaig_tpu.train.transformer import sample_windows as jax_windows
-    from qaig_tpu_torch.train.transformer import sample_windows, slice_windows
+    from qaig_tpu_torch.train.transformer import (
+        draw_window_starts, slice_windows)
 
     rng = np.random.default_rng(7)
     hr_in, hr_tgt = (rng.integers(0, 12, (5, 17)) for _ in range(2))
@@ -280,8 +283,8 @@ def test_slice_windows_matches_jax_sample_windows():
     got = slice_windows(_t(hr_in), _t(hr_tgt), starts, 8)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    _, _, pos = sample_windows(torch.Generator().manual_seed(0), _t(hr_in),
-                               _t(hr_tgt), 8)
+    starts = draw_window_starts(torch.Generator().manual_seed(0), 5, 17, 8)
+    _, _, pos = slice_windows(_t(hr_in), _t(hr_tgt), starts, 8)
     assert int(pos.min()) >= 0 and int(pos.max()) <= 16
     assert bool((pos[:, 1:] - pos[:, :-1] == 1).all())
 
@@ -328,9 +331,8 @@ def _port_sgd_step(setup, base, starts, monkeypatch, bf16=False, **kw):
 
     (_, _, lt), (_, _, ht), _, _, tm = setup
     if starts is not None:
-        monkeypatch.setattr(
-            port, "sample_windows",
-            lambda gen, hi, ht_, w: port.slice_windows(hi, ht_, starts, w))
+        monkeypatch.setattr(port, "draw_window_starts",
+                            lambda gen, n, seq_in, w: starts)
     before = to_jax_state(tm)
     loss = port.make_train_step(
         tm, torch.optim.SGD(tm.parameters(), lr=1.0), lt, ht, base, LR_K,
