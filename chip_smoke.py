@@ -128,7 +128,19 @@ Phases (any failure exits non-zero and prints no result line):
    fused from the archives at phase 5f's seed (tokens and grids bit-equal
    to phase 5f's from the pickles); 2 graphed bf16 train steps resumed
    from the exported ``model_3.pt`` and its reference Adam state, the
-   Adam step count and learning rate held to the ones the state implies.
+   Adam step count and learning rate held to the ones the state implies;
+11. parallel -- the port's multi-process forms (``qaig_tpu_torch/
+   parallel``): (a) phase 6's bf16 run through ``--multihost
+   --num-processes 1`` (NCCL, groups of one rank), plain and with
+   ``--zero-opt``, bit-equal to phase 6, the train step's graph holding
+   NCCL's nodes as predicted; (b) DP 2, TP 2 and DP 2 + ZeRO-1 training
+   in 2 processes sharing the card (gloo over CUDA tensors, eager steps),
+   float32, 3 steps, against a 1-process eager run (PP 2, at 6 decoder
+   layers, is left out: gloo's send/recv cannot take CUDA tensors; its
+   refusal is checked); (c) ``generate.run`` in 2 processes, data 2
+   (tokens equal to 1 process) and ``--num-model-shards 2`` at greedy;
+   (d) phase 6's run with ``--checkpoint-backend pickle-async``: save
+   seconds, overlapping steps, files byte-equal, a resume.
 
 The kernels' launch counts are set to 0 before each main path's run and
 read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
@@ -2402,6 +2414,7 @@ def time_pipeline_request(torch, pipe, device, seed=9, turns=2):
 
 TRAIN = dict(latents=64, batch=8, steps=6, checkpoint_step=3, previews=4,
              config="examples/configs/transformer_cascade.json")
+TRAINED = {}   # phase 6's runs by precision: losses, output, parameters
 
 
 def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
@@ -2457,13 +2470,23 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
         return timed
 
     train.make_train_step = timed_make_train_step
+    save_checkpoint, save_s = train.save_checkpoint, []
+
+    def timed_save(*a, **kw):   # the checkpoint step: gather, snapshot, save
+        synchronize(torch, device)
+        t0 = time.perf_counter()
+        status = save_checkpoint(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return status
+
+    train.save_checkpoint = timed_save
     out_dir = root / "out"
     try:
         synchronize(torch, device)
         reset_launches()
         t0 = time.perf_counter()
         with dumpable_graphs(torch):
-            train.run({
+            model = train.run({
                 "device": device, "dataset_path": manifest,
                 "decoder_path": str(ckpt / "decoder.pt"),
                 "lr_codebook_path": str(ckpt / "codebook_2.pt"),
@@ -2478,14 +2501,22 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
         launches = read_launches()
     finally:
         train.make_train_step = make_train_step
+        train.save_checkpoint = save_checkpoint
     log(f"[train] train.run: {t['steps']} {kind} steps at batch "
-        f"{t['batch']} in {run_s:.3f} s; launches {launches}")
+        f"{t['batch']} in {run_s:.3f} s; launches {launches}; checkpoint "
+        f"steps (gather, snapshot and synchronous save) "
+        f"{[round(x, 3) for x in save_s]} s")
 
     losses = [json.loads(line)["ce_loss"] for line in
               (out_dir / "metrics.jsonl").read_text().splitlines()]
     if len(losses) != t["steps"] or not np.isfinite(losses).all():
         raise SystemExit(f"training losses not all finite: {losses}")
     log(f"[train] losses {[round(x, 4) for x in losses]}")
+    # phase 11 holds its runs to this one's losses and parameters
+    TRAINED[kind] = {"losses": losses, "out_dir": out_dir,
+                     "manifest": manifest, "step_mean_s": None,
+                     "save_s": save_s, "params": [
+                         p.detach().clone() for p in model.parameters()]}
     checkpoints = list(range(0, t["steps"], t["checkpoint_step"]))
     for n in checkpoints:
         status, state = load_model(out_dir / "models_checkpoint"
@@ -2539,6 +2570,7 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
                              f"{graph['kernel_nodes'][name]} {name} kernel "
                              f"nodes, a replay counts {per_replay[name]}")
     per_step = sum(step_s[1:]) / len(step_s[1:])
+    TRAINED[kind]["step_mean_s"] = per_step
     log(f"[train] {kind}: seconds per step, graphed (step 0, with its "
         f"warm-up, capture and instantiation, left out): {per_step:.4f} "
         f"(steps {[round(x, 4) for x in step_s]}); capture "
@@ -2547,7 +2579,7 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
         f"{ {k: graph['launches'][k] for k in per_replay} }, the graph "
         f"holds as many kernel nodes of each")
     timings = {"run_s": run_s, "step_s": step_s, "step_mean_s": per_step,
-               "losses": losses, "graph": graph}
+               "losses": losses, "graph": graph, "save_s": save_s}
     if profile:
         wall = sum(tr["wall_ms"] for tr in traces)
         busy = sum(tr["device_busy_ms"] for tr in traces)
@@ -3400,6 +3432,548 @@ def check_front_reference(torch, paths, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the parallel forms over torch.distributed
+# ---------------------------------------------------------------------------
+
+# a rank of a phase 11 (b) / (c) world: train.run (its steps timed, the
+# full parameters saved by rank 0 after the run) or generate.run (the
+# tokens saved by rank 0), the launch counts printed last
+PARALLEL_RUNNER = """
+import json, sys, time
+import torch
+import chip_smoke
+kind, args, out_path = sys.argv[1], json.loads(sys.argv[2]), sys.argv[3]
+steps, made = [], {}
+def sync():
+    chip_smoke.synchronize(torch, args["device"])
+if kind == "train":
+    from qaig_tpu_torch.train import transformer as train
+    make = train.make_train_step
+    def timed_make(*a, **kw):
+        made["parallel"] = kw.get("parallel")
+        step = make(*a, **kw)
+        def timed(*s):
+            sync()
+            t0 = time.perf_counter()
+            out = step(*s)
+            sync()
+            steps.append(time.perf_counter() - t0)
+            return out
+        return timed
+    train.make_train_step = timed_make
+else:
+    from qaig_tpu_torch.infer import decode, generate
+    if args.pop("greedy", False):
+        decode._categorical = lambda logits, draw: logits.argmax(dim=-1)
+sync()
+chip_smoke.reset_launches()
+t0 = time.perf_counter()
+try:
+    result = (train.run(args) if kind == "train" else generate.run(args))
+except ValueError as e:
+    print("REFUSED " + str(e), flush=True)
+    sys.exit(3)
+sync()
+seconds = time.perf_counter() - t0
+launches = chip_smoke.read_launches()
+if kind == "train":
+    result = made["parallel"].full_params(result)
+if args["process_id"] == 0:
+    torch.save(result, out_path)
+from qaig_tpu_torch.parallel import comm
+comm.shutdown()
+print("PARALLEL " + json.dumps({"launches": launches, "step_s": steps,
+                                "seconds": seconds}), flush=True)
+"""
+
+# the forms of 11 (b) left out, each with the collective gloo refuses on
+# CUDA tensors
+LEFT_OUT_SHARED_CARD = {
+    "pp2": "send/recv: gloo's TCP transport aborts the process on a CUDA "
+           "tensor (\"writev ... Bad address\"); the pipeline raises when "
+           "ranks share a card"}
+
+
+def free_address():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return f"127.0.0.1:{sock.getsockname()[1]}"
+
+
+def phase6_args(workdir, kind, out_dir, **extra):
+    """Phase 6's ``train.run`` arguments (``kind``: bf16 or float32)."""
+    ckpt = Path(workdir) / "models_checkpoint"
+    # both precisions' runs read the same seeded latents
+    args = {"device": "cuda",
+            "dataset_path": str(TRAINED["bf16"]["manifest"]),
+            "decoder_path": str(ckpt / "decoder.pt"),
+            "lr_codebook_path": str(ckpt / "codebook_2.pt"),
+            "hr_codebook_path": str(ckpt / "codebook_3.pt"),
+            "config_path": str(Path(__file__).resolve().parent
+                               / TRAIN["config"]),
+            "out_dir": str(out_dir), "bf16": kind == "bf16",
+            "batch_size": TRAIN["batch"], "max_steps": TRAIN["steps"],
+            "checkpoint_step": TRAIN["checkpoint_step"],
+            "test_num_sample": TRAIN["previews"], "seed": 0}
+    args.update(extra)
+    return args
+
+
+def _metrics_losses(out_dir):
+    return [json.loads(line)["ce_loss"] for line in
+            (Path(out_dir) / "metrics.jsonl").read_text().splitlines()]
+
+
+def graph_statements(runner):
+    """The DOT statements of ``runner``'s one graph (captured under
+    :func:`dumpable_graphs`)."""
+    graph, = runner.graphs.values()
+    with tempfile.TemporaryDirectory(prefix="qaig_graph_") as tmp:
+        path = Path(tmp) / "graph.dot"
+        graph.graph.debug_dump(str(path))
+        return path.read_text().split("];")
+
+
+def _memcpy_nodes(statements, src, dst):
+    """MEMCPY nodes from ``src`` to ``dst`` (device pointers)."""
+    s, d = f"0x{src:016X}", f"0x{dst:016X}"
+    return sum("MEMCPY" in st and s in st and d in st
+               and st.index(s) < st.index(d) for st in statements)
+
+
+# phase 11 (a)'s clip: far above the global norm of the gradients of a
+# cross-entropy near log(513) (well under 100 at phase 6's widths)
+GRAD_CLIP = 1e6
+
+
+def run_nccl_one_rank(torch, workdir, device="cuda"):
+    """Phase 11 (a): phase 6's bf16 run through ``--multihost
+    --num-processes 1`` (NCCL, groups of one rank), plain and with
+    ``--zero-opt --grad-clip``; previews off and one checkpoint (step 0,
+    written in the background), which change no step, and a clip far
+    above the gradients' global norm, which scales them by exactly 1 but
+    puts the clip's all-reduce over all ranks in the captured step.
+    Losses and parameters must be bit-equal to phase 6's; the train
+    step's graph must hold NCCL's nodes as predicted for one rank: NCCL
+    runs an in-place all-reduce as no node unless it scales, so the
+    gradients' mean (ReduceOp.AVG) is its ``oneRankReduce`` kernel and
+    the clip's sum is none; a reduce-scatter and an all-gather are copies
+    (MEMCPY nodes between the ZeRO buffers).  Leaves the process group
+    at the end."""
+    from qaig_tpu_torch.parallel import comm
+    from qaig_tpu_torch.train import transformer as train
+    ref = TRAINED["bf16"]
+    address = free_address()
+    enc_dec = _enc_dec()
+    out = {}
+    for zero in (False, True):
+        name = "zero" if zero else "plain"
+        made, step_s = [], []
+        make = train.make_train_step
+
+        def timed_make(*a, **kw):
+            step = make(*a, **kw)
+            made.append((step, kw["parallel"]))
+
+            def timed(*args):
+                synchronize(torch, device)
+                t0 = time.perf_counter()
+                loss = step(*args)
+                synchronize(torch, device)
+                step_s.append(time.perf_counter() - t0)
+                return loss
+            timed.runner = step.runner
+            return timed
+
+        out_dir = Path(workdir) / "parallel" / f"nccl_{name}"
+        train.make_train_step = timed_make
+        try:
+            synchronize(torch, device)
+            reset_launches()
+            with dumpable_graphs(torch):
+                model = train.run(phase6_args(
+                    workdir, "bf16", out_dir, multihost=True,
+                    coordinator_address=address, num_processes=1,
+                    process_id=0, zero_opt=zero, skip_preview=True,
+                    checkpoint_step=1000, grad_clip=GRAD_CLIP if zero
+                    else None,
+                    checkpoint_backend="pickle-async"))
+            synchronize(torch, device)
+            launches = read_launches()
+        finally:
+            train.make_train_step = make
+        losses = _metrics_losses(out_dir)
+        diff = max((a - b).abs().max().item()
+                   for a, b in zip(model.parameters(), ref["params"]))
+        if losses != ref["losses"] or diff != 0:
+            raise SystemExit(f"11 (a) {name}: NCCL at one rank is not "
+                             f"bit-equal to phase 6: losses {losses} "
+                             f"against {ref['losses']}, max |param diff| "
+                             f"{diff:.3e}")
+        (step, par), = made
+        statements = graph_statements(step.runner)
+        nodes = {"one_rank_reduce": sum("oneRankReduce" in st
+                                        for st in statements)}
+        want = {"one_rank_reduce": 0 if zero else 1}
+        if zero:
+            nodes["reduce_scatter_memcpy"] = _memcpy_nodes(
+                statements, par.send.data_ptr(), par.shard_grad.data_ptr())
+            nodes["all_gather_memcpy"] = _memcpy_nodes(
+                statements, par.master.data_ptr(), par.gathered.data_ptr())
+            want.update(reduce_scatter_memcpy=1, all_gather_memcpy=1)
+        if nodes != want:
+            raise SystemExit(f"11 (a) {name}: the train step's graph holds "
+                             f"NCCL nodes {nodes}, predicted {want}")
+        steps = TRAIN["steps"]
+        predicted = {"flash_attention": enc_dec * steps,
+                     "flash_attention_backward": enc_dec * steps,
+                     "fused_bmu": 2 * steps}
+        _check_launches(f"11 (a) {name}", launches, predicted)
+        mean = _step_mean(step_s)
+        out[name] = {"step_s": step_s, "step_mean_s": mean,
+                     "phase6_step_mean_s": ref["step_mean_s"],
+                     "graph_nccl_nodes": nodes, "launches": launches}
+        log(f"[parallel] 11 (a) {name}: NCCL at one rank (groups of one "
+            f"rank), {steps} graphed bf16 steps"
+            + (f" with --grad-clip {GRAD_CLIP:g}" if zero else "")
+            + " bit-equal to phase 6 "
+            f"(losses and parameters); the graph's NCCL nodes {nodes}; "
+            f"seconds per step {mean:.4f} against phase 6's "
+            f"{ref['step_mean_s']:.4f}; launches {launches}")
+    comm.shutdown()
+    return out
+
+
+def _enc_dec():
+    cfg = json.loads((Path(__file__).resolve().parent
+                      / TRAIN["config"]).read_text())
+    return cfg["num_enc_layers"] + cfg["num_dec_layers"]
+
+
+def _check_launches(what, launches, predicted):
+    for name, n in predicted.items():
+        if launches[name] != n:
+            raise SystemExit(f"{what}: launched {name} {launches[name]} "
+                             f"times, predicted {n}")
+
+
+def _start_world(workdir, name, kind, args):
+    """The 2 processes of one phase 11 world (``PARALLEL_RUNNER``)."""
+    import os
+    repo = Path(__file__).resolve().parent
+    address = free_address()
+    out_path = Path(workdir) / "parallel" / f"{name}.pt"
+    return [subprocess.Popen(
+        [sys.executable, "-c", PARALLEL_RUNNER, kind, json.dumps(dict(
+            args, multihost=True, coordinator_address=address,
+            num_processes=2, process_id=rank)), str(out_path)],
+        cwd=repo, env=dict(os.environ), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for rank in range(2)], out_path
+
+
+def _finish_world(name, procs, refused=False):
+    """Each rank's printed result; ``refused``: both ranks must exit with
+    the runner's refusal (a ValueError) instead."""
+    results = []
+    for proc in procs:
+        text, _ = proc.communicate(timeout=900)
+        lines = [ln for ln in text.splitlines()
+                 if ln.startswith(("PARALLEL ", "REFUSED "))]
+        if refused:
+            if proc.returncode != 3 or not lines:
+                raise SystemExit(f"{name}: expected a refusal, got exit "
+                                 f"{proc.returncode}:\n{text[-4000:]}")
+            results.append(lines[-1][len("REFUSED "):])
+            continue
+        if proc.returncode != 0 or not lines or \
+                not lines[-1].startswith("PARALLEL "):
+            raise SystemExit(f"{name} failed (exit {proc.returncode}):\n"
+                             + text[-4000:])
+        if "gloo over CUDA tensors" not in text or \
+                "Train step: eager" not in text and "train" in name:
+            raise SystemExit(f"{name}: the shared-card mode was not logged")
+        results.append(json.loads(lines[-1][len("PARALLEL "):]))
+    return results
+
+
+def run_shared_card_training(torch, workdir, device="cuda"):
+    """Phase 11 (b): DP 2, TP 2 and DP 2 with ``--zero-opt`` in 2
+    processes sharing the card (gloo over CUDA tensors, eager steps), at
+    phase 6's widths in float32, batch 8, 3 steps, previews off, one
+    checkpoint written in the background; against a 1-process eager
+    float32 run of the same steps (losses rtol 1e-5, parameters atol
+    1e-5: the CPU tests' tolerances).  PP 2 (at 6 decoder layers, since 7
+    do not split in 2) is left out (``LEFT_OUT_SHARED_CARD``); its
+    refusal is checked.  Launches of A, A' and BMU per rank predicted from
+    the control flow."""
+    import numpy as np
+    from qaig_tpu_torch.train import transformer as train
+    steps = 3
+    extra = dict(max_steps=steps, skip_preview=True, checkpoint_step=1000,
+                 checkpoint_backend="pickle-async")
+    forms = {"dp2": {}, "tp2": {"num_model_shards": 2},
+             "zero2": {"zero_opt": True}}
+    root = Path(workdir) / "parallel"
+    worlds = {name: _start_world(workdir, f"b_{name}", "train", phase6_args(
+        workdir, "float32", root / f"b_{name}", **extra, **opts))
+        for name, opts in forms.items()}
+    config = json.loads((Path(__file__).resolve().parent
+                         / TRAIN["config"]).read_text())
+    pp_config = root / "transformer_cascade_6_layers.json"
+    pp_config.write_text(json.dumps(dict(config, num_dec_layers=6)))
+    pp = _start_world(workdir, "b_pp2", "train", phase6_args(
+        workdir, "float32", root / "b_pp2", config_path=str(pp_config),
+        num_pipeline_stages=2, **extra))
+    for name, reason in LEFT_OUT_SHARED_CARD.items():
+        log(f"[parallel] 11 (b) left out: {name} ({reason})")
+
+    # the 1-process eager reference, while the worlds run
+    make = train.make_train_step
+    train.make_train_step = lambda *a, **kw: make(*a, graphed=False, **kw)
+    try:
+        ref_dir = root / "b_reference"
+        model = train.run(phase6_args(workdir, "float32", ref_dir, **extra))
+    finally:
+        train.make_train_step = make
+    ref_losses = _metrics_losses(ref_dir)
+    ref_params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    del model
+
+    refusal = _finish_world("b_pp2", pp[0], refused=True)
+    if not all("share a card" in r for r in refusal):
+        raise SystemExit(f"11 (b) pp2: unexpected refusal {refusal}")
+    out = {"left_out": LEFT_OUT_SHARED_CARD, "pp2_refusal": refusal[0],
+           "reference_losses": ref_losses}
+    enc_dec = _enc_dec()
+    predicted = {"flash_attention": enc_dec * steps,
+                 "flash_attention_backward": enc_dec * steps,
+                 "flash_attention_backward_calls": enc_dec * steps,
+                 "fused_bmu": 2 * steps, "fused_bmu_small_m": 0}
+    for name, (procs, out_path) in worlds.items():
+        ranks = _finish_world(f"b_{name}", procs)
+        for rank, result in enumerate(ranks):
+            _check_launches(f"11 (b) {name} rank {rank}",
+                            result["launches"], predicted)
+        losses = _metrics_losses(root / f"b_{name}")
+        if not np.allclose(losses, ref_losses, rtol=1e-5, atol=0):
+            raise SystemExit(f"11 (b) {name}: losses {losses} against the "
+                             f"1-process run's {ref_losses}")
+        full = torch.load(out_path, map_location="cpu")
+        diffs = {n: (full[n] - p).abs().max().item()
+                 for n, p in ref_params.items()}
+        worst = max(diffs, key=diffs.get)
+        over = sum(int(((full[n] - p).abs() > 1e-5).sum())
+                   for n, p in ref_params.items())
+        out[name] = {"losses": losses, "max_param_diff": diffs[worst],
+                     "worst_param": worst, "elements_over_1e-5": over,
+                     "step_s": [r["step_s"] for r in ranks],
+                     "launches": ranks[0]["launches"]}
+        log(f"[parallel] 11 (b) {name}: 2 ranks on one card (gloo, eager "
+            f"float32; the three worlds, the refused pp2 world and the "
+            f"reference ran at the same time): losses {[round(x, 6) for x in losses]} against "
+            f"{[round(x, 6) for x in ref_losses]}; max |param diff| "
+            f"{diffs[worst]:.3e} ({worst}; {over} elements over 1e-5); "
+            f"seconds per step by rank "
+            f"{[[round(x, 3) for x in r['step_s']] for r in ranks]}; "
+            f"launches per rank as predicted {predicted}")
+        if diffs[worst] > 1e-5:
+            raise SystemExit(f"11 (b) {name}: parameters {diffs[worst]:.3e} "
+                             f"from the 1-process run's ({worst})")
+    return out
+
+
+def run_sharded_generation(torch, workdir, paths, device="cuda"):
+    """Phase 11 (c): ``generate.run`` on phase 5's checkpoints, 8 images,
+    dispatched, in 2 processes sharing the card: data 2 (each rank 4
+    images, its rows of every draw), whose tokens must equal the
+    1-process dispatched run's; and ``--num-model-shards 2`` at greedy,
+    whose tokens are held to the 1-process greedy run's (equal, or the
+    first token that differs reported).  Float32: bf16 products change
+    with the batch's composition (phase 7 reports it), float32 ones do
+    not."""
+    from qaig_tpu_torch.infer import decode, generate
+    config_path, decoder_path, _ = paths
+    root = Path(workdir) / "parallel"
+    args = {"device": device, "config_path": str(config_path),
+            "decoder_path": str(decoder_path), "num_images": 8, "seed": 0,
+            "fused": False}
+    worlds = {
+        "data2": _start_world(workdir, "c_data2", "generate", dict(
+            args, out_dir=str(root / "c_data2"))),
+        "tp2": _start_world(workdir, "c_tp2", "generate", dict(
+            args, out_dir=str(root / "c_tp2"), num_model_shards=2,
+            greedy=True))}
+    ref = {}
+    categorical = decode._categorical
+    for name, greedy in (("sampled", False), ("greedy", True)):
+        if greedy:
+            decode._categorical = lambda logits, draw: logits.argmax(dim=-1)
+        try:
+            ref[name] = generate.run(dict(
+                args, out_dir=str(root / f"c_reference_{name}"))).cpu()
+        finally:
+            decode._categorical = categorical
+    out = {}
+    for name, (procs, out_path) in worlds.items():
+        ranks = _finish_world(f"c_{name}", procs)
+        tokens = torch.load(out_path, map_location="cpu")
+        want = ref["greedy" if name == "tp2" else "sampled"]
+        differ = (tokens != want).nonzero()
+        first = None if len(differ) == 0 else [int(i) for i in differ[0]]
+        for rank, result in enumerate(ranks):
+            if result["launches"]["shared_prefix_attention_fused_t"] <= 0 \
+                    or result["launches"]["flash_attention"] <= 0:
+                raise SystemExit(f"11 (c) {name} rank {rank} launched no "
+                                 f"decode or full-sequence attention")
+        out[name] = {"equal": first is None, "first_difference": first,
+                     "differing_tokens": len(differ),
+                     "seconds": [r["seconds"] for r in ranks],
+                     "launches": ranks[0]["launches"]}
+        log(f"[parallel] 11 (c) {name}: 2 ranks on one card (both worlds "
+            f"and the references ran at the same time), 8 images "
+            f"dispatched in {[round(r['seconds'], 3) for r in ranks]} s; "
+            f"tokens {'equal to' if first is None else 'differ from'} the "
+            f"1-process run's"
+            + ("" if first is None else
+               f" ({len(differ)} tokens; first at image {first[0]}, "
+               f"position {first[1]})")
+            + f"; launches rank 0 {ranks[0]['launches']}")
+        if name == "data2" and first is not None:
+            raise SystemExit("11 (c): data-sharded tokens differ from the "
+                             "1-process run's")
+    return out
+
+
+def run_async_checkpoint(torch, workdir, device="cuda"):
+    """Phase 11 (d): phase 6's bf16 run with ``--checkpoint-backend
+    pickle-async``: the checkpoint steps' seconds (snapshot and return;
+    the first also allocates the pinned buffers, and the second starts
+    after the first write ended, as when checkpoints lie further apart
+    than a write takes) against phase 6's synchronous ones, the seconds
+    of the steps that overlap a write, the files byte-equal to phase 6's,
+    and a resume from the background-written ``model_3.pt``."""
+    import shutil
+    from qaig_tpu_torch.train import transformer as train
+    from qaig_tpu_torch.utils import checkpoint
+    ref = TRAINED["bf16"]
+    root = Path(workdir) / "parallel" / "d_async"
+    step_s, overlap, save_s, join_s, write_wait_s = [], [], [], [], []
+    make, save = train.make_train_step, train.save_checkpoint
+    wait = checkpoint.wait_pending_saves
+
+    def timed_wait(*a, **kw):   # a save joining the write in flight
+        t0 = time.perf_counter()
+        ok = wait(*a, **kw)
+        join_s[-1] += time.perf_counter() - t0
+        return ok
+
+    def timed_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(*args):
+            overlap.append(bool(checkpoint.pending_paths()))
+            synchronize(torch, device)
+            t0 = time.perf_counter()
+            loss = step(*args)
+            synchronize(torch, device)
+            step_s.append(time.perf_counter() - t0)
+            return loss
+        timed.runner = step.runner
+        return timed
+
+    def timed_save(*a, **kw):
+        if save_s:
+            # as in a run whose checkpoints lie further apart than a write
+            # takes: the write in flight ends before the next save starts
+            t0 = time.perf_counter()
+            wait()
+            write_wait_s.append(time.perf_counter() - t0)
+        synchronize(torch, device)
+        join_s.append(0.0)
+        t0 = time.perf_counter()
+        status = save(*a, **kw)
+        save_s.append(time.perf_counter() - t0)
+        return status
+
+    train.make_train_step, train.save_checkpoint = timed_make, timed_save
+    checkpoint.wait_pending_saves = timed_wait
+    try:
+        train.run(phase6_args(workdir, "bf16", root,
+                              checkpoint_backend="pickle-async"))
+    finally:
+        train.make_train_step, train.save_checkpoint = make, save
+        checkpoint.wait_pending_saves = wait
+    if _metrics_losses(root) != ref["losses"]:
+        raise SystemExit("11 (d): the pickle-async run's losses differ "
+                         "from phase 6's")
+    for n in range(0, TRAIN["steps"], TRAIN["checkpoint_step"]):
+        name = f"models_checkpoint/model_{n}.pt"
+        if (root / name).read_bytes() != \
+                (ref["out_dir"] / name).read_bytes():
+            raise SystemExit(f"11 (d): {name} written in the background "
+                             f"differs from phase 6's synchronous file")
+    overlapped = [s for s, o in zip(step_s, overlap) if o]
+    if not overlapped:
+        raise SystemExit("11 (d): no step overlapped a background write")
+    resumed = root.parent / "d_resumed"
+    shutil.copytree(root / "models_checkpoint",
+                    resumed / "models_checkpoint")
+    (resumed / "models_checkpoint" / "model_0.pt").unlink()
+    train.run(phase6_args(workdir, "bf16", resumed, auto_resume=True,
+                          max_steps=TRAIN["steps"] + 2, skip_preview=True))
+    log_text = (resumed / "Quantized Transformer.log").read_text()
+    resumed_losses = _metrics_losses(resumed)
+    if "Resuming at global step 4." not in log_text or \
+            "Could not restore" in log_text or len(resumed_losses) != 4:
+        raise SystemExit("11 (d): the resume from the background-written "
+                         "model_3.pt failed")
+    sync_s = TRAINED["bf16"]["save_s"]
+    out = {"save_s": save_s, "join_s": join_s, "sync_save_s": sync_s,
+           "write_wait_s": write_wait_s, "step_s": step_s,
+           "overlapping_step_s": overlapped,
+           "other_step_s": [s for s, o in zip(step_s[1:], overlap[1:])
+                            if not o],
+           "resumed_losses": resumed_losses}
+    log(f"[parallel] 11 (d) pickle-async: checkpoint steps "
+        f"{[round(x, 3) for x in save_s]} s (the first allocates the pinned "
+        f"buffers; joining a write in flight "
+        f"{[round(x, 3) for x in join_s]} s) against phase 6's synchronous "
+        f"{[round(x, 3) for x in sync_s]} s; the first write went on "
+        f"{[round(x, 3) for x in write_wait_s]} s past step "
+        f"{TRAIN['checkpoint_step'] - 1}; "
+        f"steps overlapping a write {[round(x, 4) for x in overlapped]} s, "
+        f"the others (after step 0) "
+        f"{[round(x, 4) for x in out['other_step_s']]} s, phase 6's "
+        f"(synchronous saves) {ref['step_mean_s']:.4f} s a step; the files "
+        f"byte-equal to phase 6's; resumed at step 4 from model_3.pt, "
+        f"losses {[round(x, 4) for x in resumed_losses]}")
+    return out
+
+
+def run_parallel_path(torch, workdir, paths, device="cuda"):
+    """Phase 11: (a) NCCL at one rank, (b) 2 ranks sharing the card in
+    training, (c) in generation, (d) the background checkpoint write.
+    Returns (launches by path, timings)."""
+    (Path(workdir) / "parallel").mkdir()
+    timings = {"nccl_one_rank": run_nccl_one_rank(torch, workdir, device)}
+    timings["shared_card_training"] = run_shared_card_training(
+        torch, workdir, device)
+    timings["sharded_generation"] = run_sharded_generation(
+        torch, workdir, paths, device)
+    timings["async_checkpoint"] = run_async_checkpoint(torch, workdir,
+                                                       device)
+    launches = {f"parallel_nccl_{k}": v["launches"]
+                for k, v in timings["nccl_one_rank"].items()}
+    for key, form in (("shared_card_training", "train"),
+                      ("sharded_generation", "generate")):
+        for name, v in timings[key].items():
+            if isinstance(v, dict) and "launches" in v:
+                launches[f"parallel_{form}_{name}"] = v["launches"]
+    return launches, timings
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3513,12 +4087,24 @@ def main():
                              "paths, N runs of each in turns, and print "
                              "their seconds (no kernel checks, no result "
                              "line); run from two checkouts to compare them")
+    parser.add_argument("--parallel-only", action="store_true",
+                        help="phases 1-2, phase 5's cascade and phase 6's "
+                             "bf16 run, then phase 11 (the parallel forms) "
+                             "only; prints its timings, no result line")
     args = parser.parse_args()
 
     import torch
     name, smi = phase_device(torch)
     if args.repeat_paths:
         repeat_paths(torch, args.repeat_paths)
+        return 0
+    if args.parallel_only:
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as wd:
+            paths = write_full_cascade(torch, wd, 0)
+            run_train_path(torch, wd)
+            _, timings = run_parallel_path(torch, wd, paths)
+        print(json.dumps({"parallel": timings}))
         return 0
 
     phase_build()
@@ -3570,6 +4156,9 @@ def main():
         timings["front"]["traced_alone"] = traced_replays_alone(workdir)
         launches["interchange"], timings["interchange"] = \
             run_interchange_path(torch, workdir, paths, fused_ref)
+        parallel_launches, timings["parallel"] = run_parallel_path(
+            torch, workdir, paths)
+        launches.update(parallel_launches)
 
     line = kernels_line(records, launches)
     if args.json_out:

@@ -5,12 +5,15 @@
         --dataset-path images.json --model-path ae.pt --out-dir fmaps \
         [--device cuda]
 
-Not part of the port (yet): ``--compiler-options``,
-``--compilation-cache-dir`` and the multihost runtime flags.
+With ``--multihost`` (2-4 processes; see ``parallel/comm.py``) rank 0
+writes and the others wait at a barrier.  Not part of the port: the
+XLA-only ``--compiler-options`` and ``--compilation-cache-dir``.
 """
 
 import argparse
 import pathlib
+
+from qaig_tpu_torch.cli._args import add_runtime_args
 
 
 def main(argv=None):
@@ -26,6 +29,7 @@ def main(argv=None):
     parser.add_argument("--num-files-folder", type=int, default=1_000)
     parser.add_argument("--dataset-path", required=True, type=pathlib.Path)
     parser.add_argument("--model-path", required=True, type=pathlib.Path)
+    add_runtime_args(parser)
     parser.add_argument("--out-dir", required=True, type=pathlib.Path)
     args = vars(parser.parse_args(argv))
     fmap.run(args)

@@ -9,6 +9,8 @@ counterpart of ``qaig_tpu/cli/generate_images.py``).
 import argparse
 import pathlib
 
+from qaig_tpu_torch.cli._args import add_runtime_args
+
 from qaig_tpu_torch.infer import generate
 
 
@@ -40,6 +42,11 @@ def main(argv=None):
     fused.add_argument("--no-fused", dest="fused", action="store_false",
                        help="Run the dispatched per-step loop (the default "
                             "on the CPU).")
+    parser.add_argument("--num-model-shards", type=int, default=1,
+                        help="Tensor-parallel shards for each stage "
+                             "transformer's weights (Megatron MLP sharding "
+                             "over the mesh's model axis).")
+    add_runtime_args(parser)
     parser.add_argument("--out-dir", required=True, type=pathlib.Path)
     args = vars(parser.parse_args(argv))
     generate.run(args)

@@ -5,13 +5,16 @@
         --dataset-path fmaps/all_dataset.json --codebook-path cb.pt \
         --out-dir out [--device cuda]
 
-Not part of the port (yet): ``--checkpoint-backend`` (the port writes
-reference-compatible pickle files only), ``--compiler-options``,
-``--compilation-cache-dir`` and the multihost runtime flags.
+With ``--multihost`` rank 0 writes and the others wait at a barrier;
+``--checkpoint-backend`` takes ``pickle`` and ``pickle-async`` (``orbax``
+imports JAX).  Not part of the port: the XLA-only ``--compiler-options``
+and ``--compilation-cache-dir``.
 """
 
 import argparse
 import pathlib
+
+from qaig_tpu_torch.cli._args import add_checkpoint_backend, add_runtime_args
 
 
 def main(argv=None):
@@ -27,6 +30,8 @@ def main(argv=None):
     parser.add_argument("--batch-size", type=int, default=8)
     parser.add_argument("--prune-threshold", type=int, default=10)
     parser.add_argument("--seed", type=int, default=0)
+    add_checkpoint_backend(parser)
+    add_runtime_args(parser)
     parser.add_argument("--out-dir", required=True, type=pathlib.Path)
     args = vars(parser.parse_args(argv))
     prune.run(args)

@@ -12,8 +12,9 @@ port), and on SIGTERM or SIGINT drains every accepted request and exits 0
 after ``drained; bye.``.
 
 Accepted for flag parity and refused with an error: ``--shard-batch`` and
-``--num-model-shards`` above 1 (the port serves one card until
-``ROADMAP.md`` queue 1's "Parallelism" item), and
+``--num-model-shards`` above 1 (one server process drives one card until
+``ROADMAP.md`` queue 1's "Serving over several cards in one process"
+item), and
 ``--compilation-cache-dir`` and ``--compiler-options`` (XLA's, with no
 counterpart in PyTorch).
 """
@@ -24,8 +25,9 @@ import pathlib
 import signal
 import time
 
-ONE_CARD = "not in the port yet: it serves one card (ROADMAP.md queue 1, " \
-           "\"Parallelism\")"
+ONE_CARD = "not in the port yet: one server process drives one card " \
+           "(ROADMAP.md queue 1, \"Serving over several cards in one " \
+           "process\")"
 XLA_ONLY = "XLA-only: the port compiles nothing through XLA"
 
 

@@ -6,14 +6,16 @@ defaults):
         --dataset-path images.json --config-path ae.json --out-dir out \
         [--device cuda] [--bf16]
 
-Not part of the port (yet): ``--num-model-shards`` and ``--zero-opt``,
-``--checkpoint-backend`` (the port writes reference-compatible pickle
-files only), ``--compiler-options``, ``--compilation-cache-dir`` and the
-multihost runtime flags.
+With ``--multihost`` the processes train data-parallel (``--zero-opt``:
+ZeRO-1); ``--checkpoint-backend`` takes ``pickle`` and ``pickle-async``
+(``orbax`` imports JAX).  Not part of the port: the XLA-only
+``--compiler-options`` and ``--compilation-cache-dir``.
 """
 
 import argparse
 import pathlib
+
+from qaig_tpu_torch.cli._args import add_checkpoint_backend, add_runtime_args
 
 
 def main(argv=None):
@@ -65,6 +67,14 @@ def main(argv=None):
     parser.add_argument("--keep-checkpoints", type=int, default=None,
                         help="Retention: keep only the N newest checkpoints "
                              "in --out-dir.")
+    parser.add_argument("--num-model-shards", type=int, default=1,
+                        help="Shapes the mesh (its data axis shrinks); the "
+                             "conv nets stay replicated.")
+    parser.add_argument("--zero-opt", action="store_true",
+                        help="ZeRO-1: shard Adam moments over the data "
+                             "axis.")
+    add_checkpoint_backend(parser)
+    add_runtime_args(parser)
     parser.add_argument("--out-dir", required=True, type=pathlib.Path)
     args = vars(parser.parse_args(argv))
     autoencoder.run(args)

@@ -5,14 +5,16 @@
         --dataset-path fmaps/all_dataset.json --decoder-path ae.pt \
         -c codebook.json --out-dir out [--device cuda]
 
-Not part of the port (yet): ``--num-model-shards``,
-``--checkpoint-backend`` (the port writes reference-compatible pickle
-files only), ``--compiler-options``, ``--compilation-cache-dir`` and the
-multihost runtime flags.
+With ``--multihost`` the processes train data-parallel;
+``--checkpoint-backend`` takes ``pickle`` and ``pickle-async`` (``orbax``
+imports JAX).  Not part of the port: the XLA-only ``--compiler-options``
+and ``--compilation-cache-dir``.
 """
 
 import argparse
 import pathlib
+
+from qaig_tpu_torch.cli._args import add_checkpoint_backend, add_runtime_args
 
 
 def main(argv=None):
@@ -55,6 +57,11 @@ def main(argv=None):
     parser.add_argument("--keep-checkpoints", type=int, default=None,
                         help="Retention: keep only the N newest checkpoints "
                              "in --out-dir.")
+    parser.add_argument("--num-model-shards", type=int, default=1,
+                        help="Shapes the mesh (its data axis shrinks); the "
+                             "codebook stays replicated.")
+    add_checkpoint_backend(parser)
+    add_runtime_args(parser)
     parser.add_argument("--out-dir", required=True, type=pathlib.Path)
     args = vars(parser.parse_args(argv))
     codebook.run(args)

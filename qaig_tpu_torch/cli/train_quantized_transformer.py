@@ -1,4 +1,4 @@
-"""Train the quantized transformer on one GPU (the port's counterpart of
+"""Train the quantized transformer on the GPU (the port's counterpart of
 ``qaig_tpu/cli/train_quantized_transformer.py``, same flags and defaults):
 
     python -m qaig_tpu_torch.cli.train_quantized_transformer \
@@ -6,16 +6,20 @@
         --lr-codebook-path lr.pt --hr-codebook-path hr.pt \
         --config-path tf.json --out-dir out [--device cuda] [--bf16]
 
-Not part of the port (yet): the parallel flags (``--num-model-shards``,
-``--num-pipeline-stages``, ``--num-microbatches``, ``--zero-opt``),
-``--checkpoint-backend`` (the port writes reference-compatible pickle
-files only), ``--compiler-options``,
-``--compilation-cache-dir`` (eager PyTorch compiles nothing to cache) and
-the multihost runtime flags.
+With ``--multihost`` (one process per card, or gloo ranks on the CPU:
+``parallel/comm.py``) the processes form a data x pipe x model mesh:
+``--num-model-shards``, ``--num-pipeline-stages`` /
+``--num-microbatches`` and ``--zero-opt`` as in ``qaig_tpu``;
+``--checkpoint-backend`` takes ``pickle`` and ``pickle-async`` (``orbax``
+imports JAX).  Not part of the port: the XLA-only ``--compiler-options``
+and ``--compilation-cache-dir`` (eager PyTorch compiles nothing to
+cache).
 """
 
 import argparse
 import pathlib
+
+from qaig_tpu_torch.cli._args import add_checkpoint_backend, add_runtime_args
 
 
 def restricted_float(x):
@@ -94,6 +98,24 @@ def main(argv=None):
     parser.add_argument("--keep-checkpoints", type=int, default=None,
                         help="Retention: keep only the N newest checkpoints "
                              "in --out-dir.")
+    parser.add_argument("--num-model-shards", type=int, default=1,
+                        help="Tensor-parallel shards over the mesh's model "
+                             "axis (1 = pure data parallel).")
+    parser.add_argument("--num-pipeline-stages", type=int, default=1,
+                        help="Pipeline-parallel stages over the mesh's "
+                             "pipe axis (GPipe over the decoder layers; 1 "
+                             "= off; composes with --num-model-shards).")
+    parser.add_argument("--zero-opt", action="store_true",
+                        help="ZeRO-1: shard Adam moments over the data "
+                             "axis (grads reduce-scatter, params "
+                             "all-gather). Not combinable with "
+                             "--num-pipeline-stages.")
+    parser.add_argument("--num-microbatches", type=int, default=None,
+                        help="Microbatches per step under "
+                             "--num-pipeline-stages (default = the stage "
+                             "count).")
+    add_checkpoint_backend(parser)
+    add_runtime_args(parser)
     parser.add_argument("--out-dir", required=True, type=pathlib.Path)
     args = vars(parser.parse_args(argv))
     transformer.run(args)

@@ -119,10 +119,13 @@ def load_jax_state(module, state, key_map=None, logging=print):
 
 
 @torch.no_grad()
-def to_jax_state(module):
+def to_jax_state(module, params=None):
     """``module``'s parameters as a flat ``qaig_tpu`` state:
-    ``{dotted.path: float32 ndarray}`` in JAX layouts."""
-    params = dict(module.named_parameters())
+    ``{dotted.path: float32 ndarray}`` in JAX layouts.  ``params``
+    ({torch name: tensor}) stands in for the module's own (the full
+    tensors of a sharded model, or host copies of them)."""
+    params = params if params is not None else dict(
+        module.named_parameters())
     out = {}
     for jax_path, (torch_name, kind) in mapping(module).items():
         value = params[torch_name].detach().to("cpu", torch.float32).numpy()
@@ -172,15 +175,18 @@ def adam_entry(optimizer, param, count, exp_avg, exp_avg_sq):
 
 
 @torch.no_grad()
-def to_optax_state(module, optimizer, scheduled=True):
+def to_optax_state(module, optimizer, scheduled=True, states=None):
     """``optimizer``'s Adam state as ``qaig_tpu``'s optax tree (moments in
-    JAX layouts; zeros before the first update)."""
+    JAX layouts; zeros before the first update).  ``states`` ({torch name:
+    Adam state}) stands in for the optimizer's (a sharded run's full
+    moments, or host copies of them)."""
     mu, nu = {}, {}
     count = 0
     params = dict(module.named_parameters())
     for jax_path, (torch_name, kind) in mapping(module).items():
         target = params[torch_name]
-        state = optimizer.state.get(target, {})
+        state = (states.get(torch_name, {}) if states is not None
+                 else optimizer.state.get(target, {}))
         if "step" in state:
             count = int(state["step"])
         for out, key in ((mu, "exp_avg"), (nu, "exp_avg_sq")):

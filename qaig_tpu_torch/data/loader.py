@@ -9,6 +9,12 @@ permutation per epoch; with ``drop_remainder`` (the default) the last
 partial batch is dropped, else it is the last batch.  The same seed gives
 the same batches.  Items that are tuples, such as ``(image, path)``,
 batch column by column: arrays are stacked, anything else is listed.
+
+``batch_size`` is the global batch.  Under data parallelism every rank
+draws the same order and yields only its contiguous ``batch_size /
+process_count`` slice of each batch: ``process_index`` is the rank's data
+coordinate, so the ranks that share it (tensor- or pipeline-parallel
+peers) load the same rows.
 """
 
 import queue
@@ -31,7 +37,13 @@ def _stack(samples):
 
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 drop_remainder=True):
+                 drop_remainder=True, process_index=0, process_count=1):
+        if batch_size % process_count:
+            raise ValueError(
+                f"global batch {batch_size} not divisible by "
+                f"{process_count} processes")
+        self.process_index = process_index
+        self.process_count = process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -49,8 +61,13 @@ class DataLoader:
             self._rng.shuffle(order)
         limit = (len(self) * self.batch_size if self.drop_remainder
                  else len(order))
+        per_proc = self.batch_size // self.process_count
         for start in range(0, limit, self.batch_size):
-            yield order[start:start + self.batch_size]
+            batch = order[start:start + self.batch_size]
+            if self.process_count > 1:
+                lo = self.process_index * per_proc
+                batch = batch[lo:lo + per_proc]
+            yield batch
 
     def __iter__(self):
         """Iterate over batches (numpy arrays, or tuples of columns), read

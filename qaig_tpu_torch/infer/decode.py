@@ -84,9 +84,41 @@ def _bucket_schedule(needed, total):
     return min(cap, total) if needed <= total else needed
 
 
+class RowSlice:
+    """A ``torch.Generator`` shared by ``count`` data-parallel ranks of
+    which this one (``index``) holds a contiguous block of every draw's
+    rows: each draw is made for all ranks' rows, as one process would
+    make it, and this rank's block taken, so the tokens equal one
+    process's (rollout rows are image-major, so a block of images is a
+    block of rows)."""
+
+    def __init__(self, generator, index, count):
+        self.generator, self.index, self.count = generator, index, count
+
+    @property
+    def device(self):
+        return self.generator.device
+
+    def _mine(self, full, rows):
+        return full[self.index * rows:(self.index + 1) * rows]
+
+    def exponential(self, shape, dtype):
+        full = torch.empty((shape[0] * self.count,) + tuple(shape[1:]),
+                           dtype=dtype, device=self.device)
+        return self._mine(full.exponential_(1, generator=self.generator),
+                          shape[0])
+
+    def randint(self, high, shape):
+        full = torch.randint(0, high, (shape[0] * self.count,)
+                             + tuple(shape[1:]), generator=self.generator,
+                             device=self.device)
+        return self._mine(full, shape[0])
+
+
 def _categorical(logits, draw):
     """One categorical draw per row of (rows, K) float32 logits: all rows
-    from one ``torch.Generator``, or by Gumbel-max with per-row noise
+    from one ``torch.Generator`` (or this rank's rows of its draw for all
+    ranks, :class:`RowSlice`), or by Gumbel-max with per-row noise
     (rows, K) (``_SlotNoise.at``).  The generator's draw is
     ``torch.multinomial(softmax, 1)``'s own algorithm written out,
     ``argmax(p / E)`` with ``E ~ Exp(1)`` from the generator, so the same
@@ -95,7 +127,10 @@ def _categorical(logits, draw):
     if isinstance(draw, torch.Tensor):
         return torch.argmax(logits + draw, dim=-1)
     probs = torch.softmax(logits, dim=-1)
-    noise = torch.empty_like(probs).exponential_(1, generator=draw)
+    if isinstance(draw, RowSlice):
+        noise = draw.exponential(probs.shape, probs.dtype)
+    else:
+        noise = torch.empty_like(probs).exponential_(1, generator=draw)
     return torch.argmax(probs / noise, dim=-1)
 
 

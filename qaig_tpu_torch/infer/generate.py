@@ -13,6 +13,15 @@ stage's rollout, the stage-0 conditioning image and every stage's pixel
 decode as one function), which on CUDA runs from one CUDA graph
 (``infer/graphs.py``) and on the CPU runs eagerly.  Both draw from the
 generator in the same order and give the same tokens.
+
+Sharded generation (``--multihost``, :func:`make_decode_mesh`): each rank
+of the mesh's data axis decodes its block of the images through every
+stage, and ``--num-model-shards`` splits each stage's MLPs over the model
+axis (``parallel/sharding.py``).  Every draw is made for all the images
+and the rank's rows taken (``infer/decode.py::RowSlice``), so the tokens
+equal one process's.  Rank 0 gathers the tokens, decodes them to pixels
+and writes the grids.  The fused cascade is single-process only, as in
+``qaig_tpu``: ``--fused`` with a sharded mesh raises.
 """
 
 import time
@@ -20,9 +29,12 @@ import time
 import torch
 import torch.nn.functional as F
 
-from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
+from qaig_tpu_torch.infer.decode import DecodeEngine, RowSlice, SamplerSettings
 from qaig_tpu_torch.infer.graphs import GraphRunner
 from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
+from qaig_tpu_torch.parallel import comm
+from qaig_tpu_torch.parallel.mesh import make_mesh_for_batch
+from qaig_tpu_torch.parallel.sharding import shard_mlps_
 from qaig_tpu_torch.train import common
 from qaig_tpu_torch.utils.checkpoint import load_model
 from qaig_tpu_torch.utils.image_io import save_images
@@ -56,8 +68,19 @@ def transformer_from_checkpoint(ckpt, device, logging=print, use_ema=False):
     return model, ckpt
 
 
+def make_decode_mesh(num_images, n_model=1, device=None):
+    """The mesh of sharded generation: the images split over the data
+    axis; with ``n_model > 1`` each stage's MLPs tensor-parallel over the
+    model axis."""
+    return make_mesh_for_batch(num_images, n_model=n_model, device=device)
+
+
 def _random_tokens(shape, high, generator):
-    """Uniform random token ids in [0, high) on the generator's device."""
+    """Uniform random token ids in [0, high) on the generator's device
+    (this rank's rows of the draw for all ranks, from a
+    :class:`RowSlice`)."""
+    if isinstance(generator, RowSlice):
+        return generator.randint(high, shape)
     return torch.randint(0, high, shape, generator=generator,
                          device=generator.device)
 
@@ -126,28 +149,46 @@ def _load_stage(index, stage_cfg, cast, device, use_ema=False,
         "is_base": index == "0"}
 
 
-def _run_stage(st, decoder, num_images, generator, prev_tokens):
-    """One stage, with no host read of a device value: the stage-0 random
-    conditioning grid (drawn first) and its image, the rollout
-    (conditioned on ``prev_tokens`` past stage 0) and the stage's pixel
-    decode.  Returns (conditioning image (stage 0, else None),
-    reconstruction, tokens), images float32."""
-    cond = None
+def _stage_tokens(st, num_images, generator, prev_tokens):
+    """One stage's draws and rollout: the stage-0 random conditioning grid
+    (drawn first), then the rollout (conditioned on ``prev_tokens`` past
+    stage 0).  Returns (the conditioning tokens (stage 0, else None),
+    tokens)."""
+    init_tokens = None
     if st["is_base"]:
-        lr_codebook = st["lr_codebook"]
         init_tokens = _random_tokens(
-            (num_images, lr_codebook.seq_len), st["lr_num_embeddings"],
+            (num_images, st["lr_codebook"].seq_len), st["lr_num_embeddings"],
             generator)
-        cond = decoder(lr_codebook.get_quantized_image(init_tokens)).float()
+        start = init_tokens
     else:
-        init_tokens = torch.full((num_images, 1), st["hr_num_embeddings"],
-                                 dtype=torch.long, device=generator.device)
+        start = torch.full((num_images, 1), st["hr_num_embeddings"],
+                           dtype=torch.long, device=generator.device)
     tokens = generate_stage_tokens(
         st["model"], st["stage_cfg"], generator, st["is_base"],
         st["lr_num_embeddings"], st["hr_num_embeddings"], st["total_seq"],
-        st["sliding_window"], lr_input=prev_tokens, init_tokens=init_tokens)
+        st["sliding_window"], lr_input=prev_tokens, init_tokens=start)
+    return init_tokens, tokens
+
+
+def _stage_images(st, decoder, init_tokens, tokens):
+    """(conditioning image (stage 0, else None), reconstruction), float32:
+    the stage's pixel decode."""
+    cond = None
+    if init_tokens is not None:
+        cond = decoder(st["lr_codebook"].get_quantized_image(
+            init_tokens)).float()
     recon = decoder(st["hr_codebook"].get_quantized_image(tokens)).float()
-    return cond, recon, tokens
+    return cond, recon
+
+
+def _run_stage(st, decoder, num_images, generator, prev_tokens):
+    """One stage, with no host read of a device value: its draws and
+    rollout (:func:`_stage_tokens`) and its pixel decode.  Returns
+    (conditioning image (stage 0, else None), reconstruction, tokens),
+    images float32."""
+    init_tokens, tokens = _stage_tokens(st, num_images, generator,
+                                        prev_tokens)
+    return (*_stage_images(st, decoder, init_tokens, tokens), tokens)
 
 
 def _run_fused(stages, decoder, num_images, generator):
@@ -191,10 +232,18 @@ def _load_decoder(decoder_path, device, dtype):
     return common.cast_floats(decoder, dtype)
 
 
-def use_fused(fused, device):
+def use_fused(fused, device, sharded=False):
     """The path ``generate.run`` takes: ``fused`` (``--fused`` /
-    ``--no-fused``) when given, else fused on CUDA (the port has no mesh)
-    and dispatched on the CPU."""
+    ``--no-fused``) when given, else fused on CUDA and dispatched on the
+    CPU; ``sharded`` generation (a mesh over processes) is dispatched, and
+    ``--fused`` raises there, as in ``qaig_tpu``."""
+    if sharded:
+        if fused:
+            raise ValueError(
+                "--fused requires unsharded generation (one process, one "
+                "device); drop --multihost / --num-model-shards or use "
+                "--no-fused.")
+        return False
     return device.type == "cuda" if fused is None else bool(fused)
 
 
@@ -210,6 +259,7 @@ def run(args, cache=None):
     the generator and, at a batch size seen before, replays that batch's
     graph instead of loading and capturing again."""
     device = common.select_device(args.get("device") or "cuda")
+    device = common.maybe_init_distributed(args, device)
     common.ensure_dir(args["out_dir"])
     # --bf16: serving precision; float32 (reference numerics) is the default
     dtype = torch.bfloat16 if args.get("bf16") else torch.float32
@@ -219,9 +269,13 @@ def run(args, cache=None):
         profiler = common.Profiler(dict(args, profile_start=0))
         profiler.step(0)
     try:
-        if use_fused(args.get("fused"), device):
+        mesh = make_decode_mesh(args.get("num_images", 25),
+                                int(args.get("num_model_shards") or 1),
+                                device)
+        if use_fused(args.get("fused"), device,
+                     sharded=comm.world_size() > 1):
             return _generate_fused(args, device, dtype, cache)
-        return _generate_dispatched(args, device, dtype)
+        return _generate_dispatched(args, device, dtype, mesh)
     finally:
         if profiler is not None:
             profiler.close()
@@ -232,32 +286,52 @@ def _synchronize(device):
         torch.cuda.synchronize(device)
 
 
-def _generate_dispatched(args, device, dtype):
-    """The dispatched loop: load, generate and save one stage at a time."""
+def _generate_dispatched(args, device, dtype, mesh):
+    """The dispatched loop: load, generate and save one stage at a time.
+    Over a sharded ``mesh`` each rank decodes its images (and its MLP
+    shards), and rank 0 gathers the tokens, decodes the pixels and writes.
+    Returns all the images' last tokens (on the host when sharded)."""
     num_images = args.get("num_images", 25)
     generator = torch.Generator(device=device).manual_seed(
         args.get("seed") or 0)
+    n_data = mesh.size("data")
+    draw = (RowSlice(generator, mesh.index("data"), n_data) if n_data > 1
+            else generator)
+    local_images = num_images // n_data
+    main = common.is_main_process()
+    if mesh.distributed:
+        print(f"Generation mesh: {mesh.describe()}")
     decoder = _load_decoder(args["decoder_path"], device, dtype)
-    prev_tokens = None
+    prev_tokens = tokens = None
     for index, stage_cfg in common.load_config(args["config_path"]).items():
         print(f"Model: {int(index):,}")
         st = _load_stage(index, stage_cfg,
                          lambda m: common.cast_floats(m, dtype), device,
                          use_ema=bool(args.get("use_ema")))
+        shard_mlps_(st["model"], mesh)
         _synchronize(device)
         t0 = time.perf_counter()
-        cond, recon, prev_tokens = _run_stage(st, decoder, num_images,
-                                              generator, prev_tokens)
-        if cond is not None:
-            save_images(cond.cpu().numpy(), "recon_model_Cond",
-                        args["out_dir"], logging=print)
-        recon = recon.cpu().numpy()
+        init_tokens, prev_tokens = _stage_tokens(st, local_images, draw,
+                                                 prev_tokens)
+        tokens = prev_tokens
+        if mesh.distributed:   # every image's tokens, on every rank
+            tokens = common.gather_replicated(prev_tokens, mesh).to(device)
+            if init_tokens is not None:
+                init_tokens = common.gather_replicated(
+                    init_tokens, mesh).to(device)
+        if main:
+            cond, recon = _stage_images(st, decoder, init_tokens, tokens)
+            if cond is not None:
+                save_images(cond.cpu().numpy(), "recon_model_Cond",
+                            args["out_dir"], logging=print)
+            recon = recon.cpu().numpy()
         _synchronize(device)
         print(f"Stage {index}: {st['total_seq']} tokens x {num_images} "
               f"images in {time.perf_counter() - t0:.3f} s")
-        save_images(recon, f"recon_model_{index}", args["out_dir"],
-                    logging=print)
-    return prev_tokens
+        if main:
+            save_images(recon, f"recon_model_{index}", args["out_dir"],
+                        logging=print)
+    return tokens
 
 
 def _generate_fused(args, device, dtype, cache):

@@ -13,8 +13,10 @@ do not depend on the rows it is batched with.  The serving batcher
 temperature) (``fused``, row-keyed only, as in ``qaig_tpu``): on CUDA, the
 default, from a CUDA graph captured at the key's first call
 (``infer/graphs.py``); on the CPU, where the dispatched loop stays the
-default, eagerly.  Not ported: the ``mesh`` argument (sharded and
-tensor-parallel generation, ``ROADMAP.md`` queue 1's "Parallelism" item).
+default, eagerly.  Not ported: the ``mesh`` argument (one process
+sharding over several cards, ``ROADMAP.md`` queue 1's "Serving over
+several cards in one process" item; multi-process sharded generation is
+``generate.run``'s).
 """
 
 import dataclasses

@@ -131,24 +131,34 @@ def project_kv(params, x, act):
 def pack_qkv(attn_params):
     """Fuse the three Q/K/V MLPs for the decode hot path: one (3*hidden, D)
     linear for the first layers (same input) and one batched (3, D, hidden)
-    product for the second.  Same math, 6 products -> 2."""
+    product for the second.  Same math, 6 products -> 2.  Under tensor
+    parallelism the MLPs hold this rank's shards, and so does the pack
+    (``tp``: their link to the model group)."""
     mlps = (attn_params.q, attn_params.k, attn_params.v)
     return {
         "l0w": torch.cat([m.l0.weight for m in mlps], dim=0),
         "l0b": torch.cat([m.l0.bias for m in mlps], dim=0),
         "l1w": torch.stack([m.l1.weight for m in mlps]),
         "l1b": torch.stack([m.l1.bias for m in mlps]),
+        "tp": getattr(attn_params.q, "tp", None),
     }
 
 
 def packed_qkv(packed, x, act):
-    """(N, P, D) -> (q, k, v) each (N, P, D) via the packed projections."""
+    """(N, P, D) -> (q, k, v) each (N, P, D) via the packed projections;
+    with ``tp`` the shards' products are summed over the model group
+    before the bias."""
     n, p, _ = x.shape
     hidden = packed["l1w"].shape[2]
+    tp = packed.get("tp")
     h = act(F.linear(x, packed["l0w"], packed["l0b"]))   # (N, P, 3H)
     h = h.reshape(n * p, 3, hidden).transpose(0, 1)           # (3, NP, H)
-    out = torch.baddbmm(packed["l1b"][:, None, :], h,
-                        packed["l1w"].transpose(1, 2))         # (3, NP, D)
+    if tp is None:
+        out = torch.baddbmm(packed["l1b"][:, None, :], h,
+                            packed["l1w"].transpose(1, 2))     # (3, NP, D)
+    else:
+        out = tp.reduce(torch.bmm(h, packed["l1w"].transpose(1, 2))) \
+            + packed["l1b"][:, None, :]
     out = out.reshape(3, n, p, -1)
     return out[0], out[1], out[2]
 

@@ -119,8 +119,18 @@ def linear(layer, x, activation=None):
 
 
 def mlp2(params, x, act, act_last=False):
-    h = linear(params.l0, x, activation=act)
-    return linear(params.l1, h, activation=act if act_last else None)
+    """The two linears of an :class:`MLP2`.  Under tensor parallelism
+    (``parallel/sharding.py``: the module holds its rank's shards and a
+    ``tp`` link to the model group) the partial products of ``l1`` are
+    summed over the group and ``l1``'s bias is added once, after the
+    sum."""
+    tp = getattr(params, "tp", None)
+    if tp is None:
+        h = linear(params.l0, x, activation=act)
+        return linear(params.l1, h, activation=act if act_last else None)
+    h = linear(params.l0, tp.copy(x), activation=act)
+    y = tp.reduce(F.linear(h, params.l1.weight)) + params.l1.bias
+    return act(y) if act_last else y
 
 
 def layer_norm(x, eps=_LN_EPS):

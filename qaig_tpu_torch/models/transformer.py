@@ -164,14 +164,21 @@ class Transformer(nn.Module):
 
     # -- full teacher-forcing forward ---------------------------------------
 
-    def forward(self, x_dec, x_enc=None, pos_cond=None):
+    def forward(self, x_dec, x_enc=None, pos_cond=None, decoder_stack=None):
         """Token ids (N, Seq) -> logits (N, Seq, out_dim); ``x_enc`` feeds
-        the encoder, ``pos_cond`` (N, Seq) holds absolute positions."""
+        the encoder, ``pos_cond`` (N, Seq) holds absolute positions.
+        ``decoder_stack(model, h, enc_out, pos_cond_emb)`` replaces the
+        loop over the decoder layers (the pipeline's stage,
+        ``parallel/pipeline.py``); when it returns None (a stage before the
+        last) so does ``forward``."""
         cfg = self.cfg
         enc_out = self.encode(x_enc) if cfg.use_encoder else None
         h = self.embed_decoder(x_dec)
         pos_cond_emb = (self.pos_cond_embedding(pos_cond)
                         if cfg.use_pos_cond else None)
+        if decoder_stack is not None:
+            h = decoder_stack(self, h, enc_out, pos_cond_emb)
+            return None if h is None else self.classify(h)
         for layer in self.decoder_layers:
             h = self._block(layer, self.dec_block_cfg, h, enc_out,
                             pos_cond_emb)

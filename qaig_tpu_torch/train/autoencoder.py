@@ -1,5 +1,7 @@
-"""Autoencoder training stage on one device (counterpart of
-``qaig_tpu/train/autoencoder.py``).
+"""Autoencoder training stage (counterpart of
+``qaig_tpu/train/autoencoder.py``), on one device or data-parallel over
+``--multihost`` processes (``--zero-opt``: ZeRO-1; ``--num-model-shards``
+shapes the mesh, the conv nets stay replicated, as in ``qaig_tpu``).
 
 Adam(0.5, 0.999) on the MSE between the images and their reconstruction,
 the learning rate halved every ``lr_step`` updates; every
@@ -11,8 +13,14 @@ while the master weights, Adam moments and loss stay float32, as the JAX
 package casts its parameter tree.  Float32 convolutions on the card run in
 full float32 (``common.select_device`` turns TF32 off).  On CUDA the step
 (forward, backward, Adam) replays from a CUDA graph, the counterpart of
-the JAX trainer's one jitted step.
+the JAX trainer's one jitted step.  Over a mesh each rank steps on its
+rows of the global batch, the gradients are averaged in the step (or
+reduce-scattered, under ZeRO-1) and the logged loss is the global mean;
+rank 0 writes the logs, grids and checkpoints (``--checkpoint-backend
+pickle-async``: in the background).
 """
+
+import functools
 
 import torch
 from torch.func import functional_call
@@ -22,8 +30,10 @@ from qaig_tpu_torch.data.image_dataset import ImageDataset
 from qaig_tpu_torch.data.loader import DataLoader
 from qaig_tpu_torch.models.conv_nets import Autoencoder, AutoencoderConfig
 from qaig_tpu_torch.models.core import init_parameters
+from qaig_tpu_torch.parallel.mesh import make_mesh_for_batch
+from qaig_tpu_torch.parallel.sharding import Parallel
 from qaig_tpu_torch.train import common, optim
-from qaig_tpu_torch.utils.checkpoint import save_model
+from qaig_tpu_torch.utils.checkpoint import save_model, wait_pending_saves
 from qaig_tpu_torch.utils.image_io import save_images
 from qaig_tpu_torch.utils.logging_utils import setup_logging
 
@@ -54,14 +64,18 @@ def build_autoencoder(config_dict, device=None):
 
 
 def make_train_step(model, optimizer, bf16=False, grad_accum=1,
-                    scheduler=None, debug_nans=False, graphed=None):
+                    scheduler=None, debug_nans=False, graphed=None,
+                    parallel=None):
     """``step(batch) -> loss``: forward, MSE, backward and one
     ``optimizer`` update of ``model`` in place (then ``scheduler``).
     ``grad_accum``: the batch in that many equal chunks, gradients summed,
     one update.  ``debug_nans``: autograd anomaly detection (eager).
     ``graphed`` (None: on CUDA unless ``debug_nans``): the device work
     replays from a CUDA graph (``common.train_step``); the step's
-    ``runner`` then holds it (None when eager)."""
+    ``runner`` then holds it (None when eager).  ``parallel``: a
+    ``parallel/sharding.py::Parallel`` (``batch`` holds this rank's rows;
+    the gradients are reduced over the mesh, the loss is the global
+    mean)."""
     device = next(model.parameters()).device
 
     def loss_fn(batch):
@@ -76,20 +90,27 @@ def make_train_step(model, optimizer, bf16=False, grad_accum=1,
         return torch.mean((recon - batch) ** 2)
 
     def forward_backward(batch):
+        if parallel is not None:
+            parallel.zero_grad_()
         loss = 0.0
         for chunk in batch.chunk(grad_accum):
             chunk_loss = loss_fn(chunk)
             (chunk_loss / grad_accum).backward()
             loss = loss + chunk_loss.detach()
-        return loss / grad_accum
+        loss = loss / grad_accum
+        return loss if parallel is None else parallel.mean_loss(loss)
 
-    return common.train_step(forward_backward, optimizer.step, optimizer,
-                             scheduler, device, graphed, debug_nans)
+    return common.train_step(forward_backward,
+                             common.parallel_update(optimizer, parallel),
+                             optimizer, scheduler, device, graphed,
+                             debug_nans)
 
 
-def checkpoint_dict(cfg, model, optimizer, scheduled=True, global_steps=0):
+def checkpoint_dict(cfg, model, optimizer, scheduled=True, global_steps=0,
+                    params=None, states=None):
     """``qaig_tpu``'s autoencoder checkpoint: the config, the flat model
-    state, the optax-form optimizer state and the step counter."""
+    state, the optax-form optimizer state and the step counter
+    (``params`` / ``states``: ``common.gather_training_state``'s)."""
     return {
         "global_steps": global_steps,
         "num_layers": cfg.num_layers,
@@ -102,9 +123,10 @@ def checkpoint_dict(cfg, model, optimizer, scheduled=True, global_steps=0):
         "encoder_activation_type": cfg.encoder_activation_type,
         "use_final_dec_activation": cfg.use_final_dec_activation,
         "decoder_activation_type": cfg.decoder_activation_type,
-        "model": to_jax_state(model),
+        "model": to_jax_state(model, params=params),
         "model_optimizer": to_optax_state(model, optimizer,
-                                          scheduled=scheduled),
+                                          scheduled=scheduled,
+                                          states=states),
     }
 
 
@@ -112,10 +134,17 @@ def run(args):
     """Train from the CLI flags in ``args`` (a dict); returns the model.
     ``device`` defaults to ``cuda``."""
     device = common.select_device(args.get("device") or "cuda")
+    notes = []
+    device = common.maybe_init_distributed(args, device,
+                                           logging=notes.append)
+    main = common.is_main_process()
     out_dir = common.ensure_dir(args["out_dir"])
-    log = setup_logging(out_dir, PROJECT_NAME)
+    log = setup_logging(out_dir, PROJECT_NAME, main_process=main)
+    for note in notes:
+        log.info(note)
     profiler = common.Profiler(args)
-    metrics = common.MetricsLogger(out_dir)
+    metrics = common.MetricsLogger(out_dir, enabled=main)
+    backend = args.get("checkpoint_backend") or "pickle"
 
     config_dict = common.load_config(args["config_path"])
     model_lr = config_dict["model_lr"]
@@ -125,10 +154,20 @@ def run(args):
     max_epoch = args.get("max_epoch", 1_000)
     max_steps = args.get("max_steps")
     seed = args.get("seed", 0)
-    grad_accum = int(args.get("grad_accum") or 1)
-    if grad_accum < 1 or batch_size % grad_accum:
-        raise ValueError(f"--grad-accum {grad_accum} must be >= 1 and "
-                         f"divide the batch size {batch_size}")
+    raw_accum = args.get("grad_accum")
+    grad_accum = 1 if raw_accum is None else int(raw_accum)
+    if grad_accum < 1:
+        raise ValueError(f"--grad-accum must be >= 1, got {grad_accum}")
+    if batch_size % grad_accum:
+        raise ValueError(
+            f"batch size {batch_size} not divisible by "
+            f"--grad-accum {grad_accum}")
+    # the conv nets have no tensor-parallel split: --num-model-shards only
+    # shapes the mesh (its model peers step on the same rows); the mesh
+    # sees one --grad-accum chunk at a time
+    mesh = make_mesh_for_batch(batch_size // grad_accum,
+                               n_model=int(args.get("num_model_shards")
+                                           or 1), device=device)
 
     model, cfg = build_autoencoder(config_dict, device)
     init_parameters(model, torch.Generator(device=device).manual_seed(seed))
@@ -159,18 +198,27 @@ def run(args):
                                      ckpt["model_optimizer"],
                                      logging=log.info)
 
+    parallel = (Parallel(model, optimizer, mesh,
+                         zero=bool(args.get("zero_opt")),
+                         tensor_parallel=False)
+                if mesh.distributed else None)
     dataset = ImageDataset(args["dataset_path"])
-    loader = DataLoader(dataset, batch_size=batch_size, seed=seed)
+    loader = DataLoader(dataset, batch_size=batch_size, seed=seed,
+                        process_index=mesh.index("data"),
+                        process_count=mesh.size("data"))
     train_step = make_train_step(
         model, optimizer, bf16=bool(args.get("bf16")), grad_accum=grad_accum,
-        scheduler=scheduler, debug_nans=bool(args.get("debug_nans")))
+        scheduler=scheduler, debug_nans=bool(args.get("debug_nans")),
+        parallel=parallel)
 
     n_params = sum(p.numel() for p in model.parameters())
     log.info(PROJECT_NAME)
     log.info(f"Output Dir: {out_dir}")
     log.info(f"Device: {device}")
-    log.info("Train step: " + ("CUDA graph" if common.use_graphs(
-        None, device, bool(args.get("debug_nans"))) else "eager"))
+    log.info(common.train_step_mode(device, bool(args.get("debug_nans"))))
+    log.info("Mesh: {}{}".format(
+        mesh.describe(),
+        " | ZeRO-1 optimizer sharding" if args.get("zero_opt") else ""))
     log.info(f"Model size: {n_params:,}")
     log.info("#" * 100)
     log.info("Autoencoder Parameters.")
@@ -191,8 +239,11 @@ def run(args):
     log.info("#" * 100)
 
     def dump(images, name):
-        save_images(images.float().cpu().numpy(), name, out_dir,
-                    logging=log.info)
+        images = (images if parallel is None
+                  else common.gather_replicated(images, mesh))
+        if main:
+            save_images(images.float().cpu().numpy(), name, out_dir,
+                        logging=log.info)
 
     log_every = args.get("log_every", 1)
     throughput = common.ThroughputMeter(batch_size)
@@ -203,60 +254,73 @@ def run(args):
     if resume_steps is not None:
         log.info(f"Resuming at global step {global_steps:,}.")
     stop = False
-    for _ in range(max_epoch):
-        total_recon_loss = 0.0
-        iteration_count = 0
-        loss_acc = torch.zeros((), device=device)
-        for index, image in enumerate(loader):
-            profiler.step(global_steps)
-            batch = torch.from_numpy(image).to(device)
-            loss = train_step(batch)
-            iteration_count += 1
-            loss_acc += loss
-            should_sync = (log_every <= 1
-                           or (global_steps + 1) % log_every == 0
-                           or global_steps % checkpoint_step == 0)
-            if should_sync:
-                total_recon_loss = float(loss_acc)
-                common.check_finite(total_recon_loss)
+    try:
+        for _ in range(max_epoch):
+            total_recon_loss = 0.0
+            iteration_count = 0
+            loss_acc = torch.zeros((), device=device)
+            for index, image in enumerate(loader):
+                profiler.step(global_steps)
+                batch = torch.from_numpy(image).to(device)
+                loss = train_step(batch)
+                iteration_count += 1
+                loss_acc += loss
+                should_sync = (log_every <= 1
+                               or (global_steps + 1) % log_every == 0
+                               or global_steps % checkpoint_step == 0)
+                if should_sync:
+                    total_recon_loss = float(loss_acc)
+                    common.check_finite(total_recon_loss)
 
-            if global_steps % checkpoint_step == 0:
-                save_status = save_model(
-                    checkpoint_dict(cfg, model, optimizer,
-                                    scheduled=scheduler is not None,
-                                    global_steps=global_steps),
-                    dest_path=out_dir, file_name=f"model_{global_steps}.pt",
-                    logging=log.info)
-                log.info("Successfully saved model." if save_status
-                         else "Error occured saving model.")
-                if save_status and args.get("keep_checkpoints"):
-                    common.prune_checkpoints(
-                        out_dir, int(args["keep_checkpoints"]),
-                        logging=log.info)
-                with torch.inference_mode():
-                    recon = model(batch)
-                dump(batch, f"ground_truth_{global_steps}")
-                dump(recon, f"recon_{global_steps}")
+                if global_steps % checkpoint_step == 0:
+                    params, states = common.gather_training_state(
+                        model, optimizer, parallel,
+                        snapshot=backend == "pickle-async")
+                    if main:
+                        save_status = save_model(
+                            functools.partial(
+                                checkpoint_dict, cfg, model, optimizer,
+                                scheduled=scheduler is not None,
+                                global_steps=global_steps, params=params,
+                                states=states),
+                            dest_path=out_dir,
+                            file_name=f"model_{global_steps}.pt",
+                            logging=log.info, backend=backend)
+                        log.info("Successfully saved model." if save_status
+                                 else "Error occured saving model.")
+                        if save_status and args.get("keep_checkpoints"):
+                            common.prune_checkpoints(
+                                out_dir, int(args["keep_checkpoints"]),
+                                logging=log.info)
+                    with torch.inference_mode():
+                        recon = model(batch)
+                    dump(batch, f"ground_truth_{global_steps}")
+                    dump(recon, f"recon_{global_steps}")
 
-            lr_now = optim.current_lr(model_lr, lr_update_step,
-                                      global_steps + 1)
-            if should_sync:
-                avg = total_recon_loss / iteration_count
-                log.info(
-                    "Cum. Steps: {:,} | Steps: {:,} / {:,} | L.R.: {:.8f} | "
-                    "Recon Loss: {:.5f}".format(
-                        global_steps + 1, index + 1, len(loader), lr_now,
-                        avg))
-                metrics.log(step=global_steps + 1, lr=lr_now,
-                            recon_loss=avg,
-                            samples_per_sec=throughput.rate(
-                                global_steps + 1))
-            global_steps += 1
-            if max_steps and global_steps >= max_steps:
-                stop = True
+                lr_now = optim.current_lr(model_lr, lr_update_step,
+                                          global_steps + 1)
+                if should_sync:
+                    avg = total_recon_loss / iteration_count
+                    log.info(
+                        "Cum. Steps: {:,} | Steps: {:,} / {:,} | L.R.: "
+                        "{:.8f} | Recon Loss: {:.5f}".format(
+                            global_steps + 1, index + 1, len(loader),
+                            lr_now, avg))
+                    metrics.log(step=global_steps + 1, lr=lr_now,
+                                recon_loss=avg,
+                                samples_per_sec=throughput.rate(
+                                    global_steps + 1))
+                global_steps += 1
+                if max_steps and global_steps >= max_steps:
+                    stop = True
+                    break
+            if stop:
                 break
-        if stop:
-            break
-    profiler.close()
-    metrics.close()
+    finally:
+        saved = wait_pending_saves(logging=log.info)
+        profiler.close()
+        metrics.close()
+    if not saved:
+        raise RuntimeError(
+            "An error occured while saving model checkpoint!")
     return model

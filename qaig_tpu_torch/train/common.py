@@ -4,7 +4,9 @@ dtype casts, checkpoint load, flat-state and optimizer-state restore,
 rebuilding the FC decoder, the autoencoder and codebooks from their
 checkpoints, checkpoint discovery and retention (pickle checkpoints only),
 throughput and metrics logs, a ``torch.profiler`` window, and the NaN
-guard.  Model and optimizer states cross to and from ``qaig_tpu``'s
+guard, and the multi-process runtime (``--multihost``; the process group
+and its collectives are ``qaig_tpu_torch/parallel/comm.py``'s).  Model and
+optimizer states cross to and from ``qaig_tpu``'s
 checkpoint schema through ``qaig_tpu_torch.convert``; reference torch
 state dicts and Adam states are read through ``utils/torch_compat.py``
 and ``utils/torch_optim.py``.
@@ -22,7 +24,9 @@ import torch
 from qaig_tpu_torch.convert import load_jax_state, load_optax_state
 from qaig_tpu_torch.models import core
 from qaig_tpu_torch.utils import torch_compat, torch_optim
-from qaig_tpu_torch.utils.checkpoint import load_model
+from qaig_tpu_torch.parallel import comm
+from qaig_tpu_torch.utils.checkpoint import (host_snapshot, load_model,
+                                             pending_paths)
 
 
 def load_config(path):
@@ -51,6 +55,36 @@ def select_device(device):
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
     return device
+
+
+def maybe_init_distributed(args, device, logging=print):
+    """``--multihost``: join the run's process group (``parallel/comm.py``:
+    ``--coordinator-address`` / ``--num-processes`` / ``--process-id``, or
+    torchrun's environment); returns the device this process runs on.
+    Without ``--multihost`` the run is single-process."""
+    return comm.init(args, device, logging=logging)
+
+
+def is_main_process():
+    """Rank 0 (or a single-process run): the one that writes metrics,
+    logs, previews, images and checkpoints."""
+    return comm.is_main_process()
+
+
+def gather_replicated(tensor, mesh):
+    """The global batch of a tensor whose rows are split over ``mesh``'s
+    data axis, on the host of every rank (collective; one rank: the tensor
+    on the host)."""
+    return torch.cat(comm.host_all_gather(tensor, mesh.group("data"),
+                                          mesh.size("data")))
+
+
+def single_writer_barrier():
+    """The barrier of the single-writer stages (fmap, prune): every rank
+    returns only after rank 0's writes are done.  Rank 0 reaches it from a
+    ``finally``, so a failing writer releases the others (they return;
+    checks of the files show the failure).  No-op single-process."""
+    comm.barrier()
 
 
 def cast_floats(module, dtype):
@@ -116,13 +150,28 @@ def use_graphs(graphed, device, debug_nans=False):
     On the CPU the step is eager."""
     device = torch.device(device)
     if graphed is None:
-        return device.type == "cuda" and not debug_nans
+        return (device.type == "cuda" and not debug_nans
+                and comm.graphs_allowed())
     if graphed and device.type != "cuda":
         raise ValueError("a train step runs as a CUDA graph on CUDA only")
     if graphed and debug_nans:
         raise ValueError("--debug-nans runs the eager step: anomaly "
                          "detection cannot run inside a CUDA graph capture")
+    if graphed and not comm.graphs_allowed():
+        raise ValueError("gloo's collectives (ranks sharing a card) cannot "
+                         "be captured in a CUDA graph")
     return bool(graphed)
+
+
+def train_step_mode(device, debug_nans=False):
+    """The log line of a trainer's step mode, with its reason when a step
+    on CUDA runs eagerly."""
+    if use_graphs(None, device, debug_nans):
+        return "Train step: CUDA graph"
+    if torch.device(device).type == "cuda" and not comm.graphs_allowed():
+        return ("Train step: eager (gloo's collectives cannot be captured "
+                "in a CUDA graph)")
+    return "Train step: eager"
 
 
 def graph_train_step(device_step, warmup, optimizer, device):
@@ -190,6 +239,42 @@ def train_step(forward_backward, update, optimizer, scheduler, device,
 
     step.runner = None if replay is None else replay.runner
     return step
+
+
+def parallel_update(optimizer, parallel=None):
+    """A stage trainer's update: ``optimizer.step()``, with ``parallel``
+    (``parallel/sharding.py::Parallel``) between the gradients' reduction
+    over the mesh and ZeRO's all-gather of the parameters."""
+    if parallel is None:
+        return optimizer.step
+
+    def update():
+        parallel.reduce_grads_()
+        optimizer.step()
+        parallel.after_step_()
+    return update
+
+
+def gather_training_state(model, optimizer=None, parallel=None,
+                          snapshot=False):
+    """(parameters, Adam states) by torch name for a checkpoint of
+    ``model``, as the converters' ``params=`` / ``states=`` take them:
+    under ``parallel`` the full tensors (collective: every rank calls it);
+    with ``snapshot`` host copies for a background write
+    (``utils/checkpoint.py::host_snapshot``); else (None, None), and the
+    converters read the model and its optimizer directly.  No optimizer:
+    states None."""
+    if parallel is not None:
+        params = parallel.full_params(model)
+        states = parallel.full_states() if optimizer is not None else None
+    elif snapshot:
+        params = dict(model.named_parameters())
+        states = None if optimizer is None else {
+            name: optimizer.state[p] for name, p in params.items()
+            if p in optimizer.state}
+    else:
+        return None, None
+    return host_snapshot((params, states)) if snapshot else (params, states)
 
 
 def submodule_key_map(keep_prefix, drop_prefixes=()):
@@ -289,7 +374,10 @@ def find_latest_checkpoint(out_dir, prefix="model", logging=None):
     ``<out_dir>/models_checkpoint`` as ``(path, N)``, or ``(None, -1)``
     (``--auto-resume``).  An incomplete file is skipped for the one
     before it."""
+    pending = pending_paths()
     for n, path in _list_checkpoints(out_dir, prefix):
+        if str(path) in pending:
+            continue
         if _checkpoint_complete(path):
             return path, n
         if logging is not None:
@@ -303,7 +391,10 @@ def prune_checkpoints(out_dir, keep, prefix="model", logging=None):
     (``--keep-checkpoints``; call only after a successful save)."""
     if not keep or keep < 1:
         return
-    for _, path in _list_checkpoints(out_dir, prefix)[keep:]:
+    pending = pending_paths()
+    written = [(n, path) for n, path in _list_checkpoints(out_dir, prefix)
+               if str(path) not in pending]
+    for _, path in written[keep:]:
         try:
             path.unlink()
             if logging is not None:
@@ -337,11 +428,13 @@ class ThroughputMeter:
 class MetricsLogger:
     """Append-only JSONL metrics stream (``<out>/metrics.jsonl``)."""
 
-    def __init__(self, out_dir):
+    def __init__(self, out_dir, enabled=True):
         self.path = os.path.join(str(out_dir), "metrics.jsonl")
-        self._fh = open(self.path, "a")
+        self._fh = open(self.path, "a") if enabled else None
 
     def log(self, **fields):
+        if self._fh is None:
+            return
         self._fh.write(json.dumps(fields) + "\n")
         self._fh.flush()
 

@@ -10,6 +10,11 @@ so the manifest lists the same files in the same order as ``qaig_tpu``'s.
 
 The reference quirk is kept: the encoder's final activation is switched by
 the checkpoint's ``use_final_dec_activation`` key.
+
+A single-writer stage: under ``--multihost`` rank 0 encodes and writes
+(the latents and the manifest are one namespace); the other ranks wait at
+a barrier, which rank 0 reaches from a ``finally``, so every rank returns
+after the manifest is written, or after the writer failed.
 """
 
 import os
@@ -82,16 +87,23 @@ def run(args):
     """Extract the feature maps of ``args`` (the CLI flags, a dict);
     returns the manifest's path.  ``device`` defaults to ``cuda``."""
     device = common.select_device(args.get("device") or "cuda")
+    device = common.maybe_init_distributed(args, device)
     out_dir = common.ensure_dir(args["out_dir"])
-    status, ckpt = load_model(args["model_path"])
-    if not status:
-        raise RuntimeError(
-            "An error occured while loading Encoder model checkpoint!")
-    model, _ = encoder_from_checkpoint(ckpt, device)
-    dataset = ImageDataset(args["dataset_path"], return_filepaths=True)
-    loader = DataLoader(dataset, batch_size=args.get("batch_size", 8),
-                        shuffle=True, seed=args.get("seed", 0),
-                        drop_remainder=False)
-    return save_feature_maps(
-        model, loader, out_dir, device,
-        num_files_folder=args.get("num_files_folder", 1_000))
+    if not common.is_main_process():
+        common.single_writer_barrier()
+        return os.path.join(str(out_dir), MANIFEST_NAME)
+    try:
+        status, ckpt = load_model(args["model_path"])
+        if not status:
+            raise RuntimeError(
+                "An error occured while loading Encoder model checkpoint!")
+        model, _ = encoder_from_checkpoint(ckpt, device)
+        dataset = ImageDataset(args["dataset_path"], return_filepaths=True)
+        loader = DataLoader(dataset, batch_size=args.get("batch_size", 8),
+                            shuffle=True, seed=args.get("seed", 0),
+                            drop_remainder=False)
+        return save_feature_maps(
+            model, loader, out_dir, device,
+            num_files_folder=args.get("num_files_folder", 1_000))
+    finally:
+        common.single_writer_barrier()

@@ -5,6 +5,11 @@ Count how often each code is the BMU over the whole feature-map dataset
 last partial batch is kept, so the kernel sees any number of rows), keep
 the codes used at least ``prune_threshold`` times, copy their rows into a
 smaller codebook and save it as ``pruned_codebook.pt``.
+
+A single-writer stage, as the feature-map stage: under ``--multihost``
+rank 0 counts and writes, the other ranks wait at a barrier that rank 0
+reaches from a ``finally``.  ``--checkpoint-backend pickle-async`` writes
+in the background and is joined before the stage returns.
 """
 
 import numpy as np
@@ -15,7 +20,7 @@ from qaig_tpu_torch.data.loader import DataLoader
 from qaig_tpu_torch.models.codebook import Codebook
 from qaig_tpu_torch.train import common
 from qaig_tpu_torch.train.codebook import checkpoint_dict
-from qaig_tpu_torch.utils.checkpoint import save_model
+from qaig_tpu_torch.utils.checkpoint import save_model, wait_pending_saves
 from qaig_tpu_torch.utils.logging_utils import setup_logging
 
 PROJECT_NAME = "Prune Codebook"
@@ -53,9 +58,21 @@ def prune(model, counts, prune_threshold, logging=print):
 
 def run(args):
     """Prune the codebook of ``args`` (the CLI flags, a dict); returns the
-    pruned codebook.  ``device`` defaults to ``cuda``."""
+    pruned codebook (None on ranks other than 0).  ``device`` defaults to
+    ``cuda``."""
     device = common.select_device(args.get("device") or "cuda")
+    device = common.maybe_init_distributed(args, device)
     out_dir = common.ensure_dir(args["out_dir"])
+    if not common.is_main_process():
+        common.single_writer_barrier()
+        return None
+    try:
+        return _run_writer(args, device, out_dir)
+    finally:
+        common.single_writer_barrier()
+
+
+def _run_writer(args, device, out_dir):
     log = setup_logging(out_dir, PROJECT_NAME)
 
     cb_ckpt = common.load_checkpoint(args["codebook_path"], "codebook", log)
@@ -83,7 +100,11 @@ def run(args):
                       logging=log.info)
     save_status = save_model(checkpoint_dict(new_model, global_steps),
                              dest_path=out_dir,
-                             file_name="pruned_codebook.pt", logging=log.info)
+                             file_name="pruned_codebook.pt", logging=log.info,
+                             backend=args.get("checkpoint_backend")
+                             or "pickle")
+    if not wait_pending_saves(logging=log.info):
+        save_status = False
     log.info("Successfully saved codebook." if save_status
              else "Error occured saving codebook.")
     return new_model

@@ -1,5 +1,8 @@
-"""Quantized-transformer training stage, base and cascade modes, on one
-device (counterpart of ``qaig_tpu/train/transformer.py``).
+"""Quantized-transformer training stage, base and cascade modes
+(counterpart of ``qaig_tpu/train/transformer.py``), on one device or over
+a mesh of processes (``--multihost``: data parallelism,
+``--num-model-shards`` tensor parallelism, ``--num-pipeline-stages``
+GPipe, ``--zero-opt`` ZeRO-1; ``qaig_tpu_torch/parallel``).
 
 Each step: tokenize a feature-map batch against the LR and HR codebooks
 (the BMU kernel on the card), assemble the sequences (cascade: a <start>
@@ -21,6 +24,14 @@ the forward and backward on a bfloat16 copy of every parameter
 (``torch.func.functional_call``) while the master weights, Adam moments
 and loss stay float32, as the JAX package casts its parameter tree; the
 codebooks are never cast, so tokens match the float32 pipeline.
+
+Over a mesh every random draw of a step is made for the global batch on
+every rank and this rank's rows are taken, so a data-parallel run takes
+the 1-process run's steps; the logged loss is the global mean.  Only rank
+0 writes logs, metrics, previews and checkpoints; the checkpoint holds the
+full parameters and Adam moments (gathered over the mesh) in the
+per-layer-list schema.  ``--checkpoint-backend pickle-async`` writes them
+in the background (``utils/checkpoint.py``).
 """
 
 import copy
@@ -35,8 +46,11 @@ from qaig_tpu_torch.data.loader import DataLoader
 from qaig_tpu_torch.infer.decode import DecodeEngine, SamplerSettings
 from qaig_tpu_torch.models.core import init_parameters
 from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
+from qaig_tpu_torch.parallel.mesh import make_mesh_for_batch
+from qaig_tpu_torch.parallel.pipeline import GPipe
+from qaig_tpu_torch.parallel.sharding import Parallel
 from qaig_tpu_torch.train import common, optim
-from qaig_tpu_torch.utils.checkpoint import save_model
+from qaig_tpu_torch.utils.checkpoint import save_model, wait_pending_saves
 from qaig_tpu_torch.utils.image_io import save_images
 from qaig_tpu_torch.utils.logging_utils import setup_logging
 
@@ -144,7 +158,8 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
                     train_base_model, lr_num_embeddings, hr_num_embeddings,
                     sliding_window=None, bf16=False, grad_accum=1,
                     grad_clip=None, scheduler=None, debug_nans=False,
-                    ema_model=None, ema_decay=None, graphed=None):
+                    ema_model=None, ema_decay=None, graphed=None,
+                    parallel=None):
     """``step(batch, generator) -> loss``: tokenize, forward, backward and
     one ``optimizer`` update of ``model`` in place (then ``scheduler``).
     The window starts are drawn from ``generator`` on the host before the
@@ -160,29 +175,51 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
     autograd anomaly detection over forward and backward (eager).
     ``graphed`` (None: on CUDA unless ``debug_nans``): the device work
     replays from a CUDA graph (``common.train_step``); the step's
-    ``runner`` then holds it (None when eager)."""
-    params = [p for p in model.parameters() if p.requires_grad]
-    device = params[0].device
+    ``runner`` then holds it (None when eager).
+
+    ``parallel``: a ``parallel/sharding.py::Parallel`` over ``model`` and
+    ``optimizer`` (the mesh's data, tensor and pipeline parallelism and
+    ZeRO-1): ``batch`` holds this rank's rows, the window starts are drawn
+    for the global batch and this rank's are taken, the gradients are
+    reduced over the mesh (and clipped to the global norm), and the loss
+    returned is the global mean."""
+    device = next(p for p in model.parameters()
+                  if p.device.type != "meta").device
+    pipe = parallel.pipe if parallel is not None else None
     ema_pairs = None
     if ema_model is not None:
-        ema_pairs = (list(ema_model.parameters()), list(model.parameters()))
+        ema_pairs = ((parallel.owned(ema_model), parallel.owned(model))
+                     if parallel is not None else
+                     (list(ema_model.parameters()), list(model.parameters())))
 
     def loss_fn(hr_in, lr_in, hr_tgt, pos_cond):
         kwargs = {"x_enc": lr_in, "pos_cond": pos_cond}
+        if pipe is not None:
+            kwargs["decoder_stack"] = pipe
         if bf16:
             cast = {name: p.to(torch.bfloat16)
-                    for name, p in model.named_parameters()}
+                    for name, p in model.named_parameters()
+                    if p.device.type != "meta"}
             logits = functional_call(model, cast, (hr_in,), kwargs)
         else:
             logits = model(hr_in, **kwargs)
+        if logits is None:   # a pipeline stage before the last
+            return None
         return F.cross_entropy(
             logits.to(torch.float32).reshape(-1, logits.shape[-1]),
             hr_tgt.reshape(-1))
 
     def forward_backward(batch, starts=None):
+        if parallel is not None:
+            parallel.zero_grad_()
         parts = tokenize_batch(batch, starts, lr_codebook, hr_codebook,
                                train_base_model, lr_num_embeddings,
                                hr_num_embeddings, sliding_window)
+        if pipe is not None:
+            loss = loss_fn(*parts)
+            pipe.backward(loss)
+            return parallel.mean_loss(
+                None if loss is None else loss.detach())
         chunks = [[None] * grad_accum if x is None else x.chunk(grad_accum)
                   for x in parts]
         loss = 0.0
@@ -190,10 +227,16 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
             chunk_loss = loss_fn(*chunk)
             (chunk_loss / grad_accum).backward()
             loss = loss + chunk_loss.detach()
-        return loss / grad_accum
+        loss = loss / grad_accum
+        return loss if parallel is None else parallel.mean_loss(loss)
 
     def update():
-        if grad_clip is not None:
+        if parallel is not None:
+            parallel.reduce_grads_()
+            if grad_clip is not None:
+                parallel.clip_grads_(grad_clip)
+        elif grad_clip is not None:
+            params = [p for p in model.parameters() if p.requires_grad]
             grads = [p.grad for p in params if p.grad is not None]
             gnorm = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g) for g in grads]))
@@ -202,6 +245,8 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
             for g in grads:
                 g.mul_(scale)
         optimizer.step()
+        if parallel is not None:
+            parallel.after_step_()
         if ema_pairs is not None:
             with torch.no_grad():
                 torch._foreach_mul_(ema_pairs[0], ema_decay)
@@ -211,13 +256,19 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
     run = common.train_step(forward_backward, update, optimizer, scheduler,
                             device, graphed, debug_nans)
 
+    n_data, data_index = ((parallel.mesh.size("data"),
+                           parallel.mesh.index("data"))
+                          if parallel is not None else (1, 0))
+
     def step(batch, generator):
         inputs = [batch]
         if sliding_window is not None:
-            inputs.append(draw_window_starts(
-                generator, batch.shape[0], sequence_length(
+            n = batch.shape[0]
+            starts = draw_window_starts(
+                generator, n * n_data, sequence_length(
                     batch, lr_codebook, hr_codebook, train_base_model),
-                sliding_window))
+                sliding_window)
+            inputs.append(starts[data_index * n:(data_index + 1) * n])
         return run(*inputs)
 
     step.runner = run.runner
@@ -271,14 +322,112 @@ def generate_preview_tokens(engine, feature_map, lr_codebook,
     return tokens - shift
 
 
+def validate_parallel_args(cfg, batch_size, args):
+    """Check the ``--num-model-shards`` / ``--num-pipeline-stages`` /
+    ``--num-microbatches`` / ``--grad-accum`` / ``--zero-opt``
+    combination (``qaig_tpu``'s messages) and return ``(n_model, n_pipe,
+    num_microbatches)`` (``num_microbatches`` None without a pipeline).
+    Not ported: ``qaig_tpu``'s refusal of bf16 with both pipeline and
+    tensor parallelism on the CPU, an XLA:CPU toolchain limit."""
+    n_model = int(args.get("num_model_shards") or 1)
+    n_pipe = int(args.get("num_pipeline_stages") or 1)
+    raw_accum = args.get("grad_accum")
+    grad_accum = 1 if raw_accum is None else int(raw_accum)
+    if cfg.hidden_dim % n_model:
+        raise ValueError(
+            f"hidden_dim {cfg.hidden_dim} not divisible by "
+            f"--num-model-shards {n_model}")
+    if n_pipe < 1:
+        raise ValueError(f"--num-pipeline-stages must be >= 1, got {n_pipe}")
+    if grad_accum < 1:
+        raise ValueError(f"--grad-accum must be >= 1, got {grad_accum}")
+    if grad_accum > 1:
+        if batch_size % grad_accum:
+            raise ValueError(
+                f"batch size {batch_size} not divisible by "
+                f"--grad-accum {grad_accum}")
+        if n_pipe > 1:
+            raise ValueError(
+                "--grad-accum cannot be combined with "
+                "--num-pipeline-stages (the GPipe schedule already "
+                "microbatches; use --num-microbatches instead)")
+    num_microbatches = None
+    if n_pipe > 1:
+        if cfg.num_dec_layers % n_pipe:
+            raise ValueError(
+                f"num_dec_layers {cfg.num_dec_layers} not divisible by "
+                f"--num-pipeline-stages {n_pipe}")
+        raw_mb = args.get("num_microbatches")
+        if raw_mb is not None and int(raw_mb) < 1:
+            raise ValueError(
+                f"--num-microbatches must be >= 1, got {raw_mb}")
+        num_microbatches = int(raw_mb) if raw_mb is not None else n_pipe
+        if batch_size % num_microbatches:
+            raise ValueError(
+                f"batch size {batch_size} not divisible by "
+                f"--num-microbatches {num_microbatches}")
+        if args.get("zero_opt"):
+            raise ValueError(
+                "--zero-opt cannot be combined with "
+                "--num-pipeline-stages (pipeline stages already shard "
+                "the decoder moments over 'pipe'; ZeRO over 'data' on "
+                "top is untested)")
+    return n_model, n_pipe, num_microbatches
+
+
+def save_checkpoint(out_dir, step, header, model, optimizer, scheduler,
+                    ema_model=None, parallel=None, backend="pickle",
+                    keep=None, logging=print):
+    """Write ``model_<step>.pt`` (``header`` plus the model, its optax-form
+    Adam state and the EMA weights) on rank 0; with ``parallel`` every rank
+    takes part in gathering the full tensors first.  Returns the save's
+    status (None on the other ranks).  ``backend``: ``pickle`` or
+    ``pickle-async`` (``utils/checkpoint.py``); ``keep``: prune to that
+    many checkpoints after a successful save."""
+    # the background write builds the checkpoint from host snapshots; a
+    # synchronous one converts as it goes
+    snapshot = backend == "pickle-async"
+    params, states = common.gather_training_state(model, optimizer,
+                                                  parallel, snapshot)
+    ema = (common.gather_training_state(ema_model, parallel=parallel,
+                                        snapshot=snapshot)[0]
+           if ema_model is not None else None)
+    if not common.is_main_process():
+        return None
+
+    def build():
+        ckpt = dict(header, global_steps=step)
+        ckpt["model"] = to_jax_state(model, params=params)
+        ckpt["model_optimizer"] = to_optax_state(
+            model, optimizer, scheduled=scheduler is not None, states=states)
+        if ema_model is not None:
+            ckpt["model_ema"] = to_jax_state(ema_model, params=ema)
+        return ckpt
+    status = save_model(build, dest_path=out_dir,
+                        file_name=f"model_{step}.pt", logging=logging,
+                        backend=backend)
+    logging("Successfully saved model." if status
+            else "Error occured saving model.")
+    if status and keep:
+        common.prune_checkpoints(out_dir, int(keep), logging=logging)
+    return status
+
+
 def run(args):
-    """Train from the CLI flags in ``args`` (a dict); returns the model.
-    ``device`` defaults to ``cuda``."""
+    """Train from the CLI flags in ``args`` (a dict); returns the model
+    (this rank's shards over a mesh).  ``device`` defaults to ``cuda``."""
     device = common.select_device(args.get("device") or "cuda")
+    notes = []
+    device = common.maybe_init_distributed(args, device,
+                                           logging=notes.append)
+    main = common.is_main_process()
     out_dir = common.ensure_dir(args["out_dir"])
-    log = setup_logging(out_dir, PROJECT_NAME)
+    log = setup_logging(out_dir, PROJECT_NAME, main_process=main)
+    for note in notes:
+        log.info(note)
     profiler = common.Profiler(args)
-    metrics = common.MetricsLogger(out_dir)
+    metrics = common.MetricsLogger(out_dir, enabled=main)
+    backend = args.get("checkpoint_backend") or "pickle"
 
     config_dict = common.load_config(args["config_path"])
     model_lr = config_dict["model_lr"]
@@ -292,9 +441,6 @@ def run(args):
     max_steps = args.get("max_steps")
     seed = args.get("seed", 0)
     grad_accum = int(args.get("grad_accum") or 1)
-    if grad_accum < 1 or batch_size % grad_accum:
-        raise ValueError(f"--grad-accum {grad_accum} must be >= 1 and "
-                         f"divide the batch size {batch_size}")
 
     # pre-trained decoder and codebooks (frozen; the codebooks stay float32)
     load = common.load_checkpoint
@@ -317,6 +463,14 @@ def run(args):
     cfg = build_transformer_config(
         config_dict, train_base_model, lr_num_embeddings, hr_num_embeddings,
         use_remat=args.get("use_activation_checkpoint", False))
+    # DP over the mesh's data axis, Megatron TP of every 2-layer MLP over
+    # its model axis, GPipe over its pipe axis (the mesh sees one
+    # microbatch, or one --grad-accum chunk, at a time)
+    n_model, n_pipe, num_microbatches = validate_parallel_args(
+        cfg, batch_size, args)
+    mesh = make_mesh_for_batch(
+        batch_size // (num_microbatches if n_pipe > 1 else grad_accum),
+        n_model=n_model, n_pipe=n_pipe, device=device)
     model = init_parameters(Transformer(cfg, device=device),
                             torch.Generator(device=device).manual_seed(seed))
     optimizer, scheduler = optim.make_adam(model.parameters(), model_lr,
@@ -366,13 +520,29 @@ def run(args):
         ema_model = copy.deepcopy(model)
     if ema_model is not None:
         ema_model.requires_grad_(False)
+    n_params = sum(p.numel() for p in model.parameters())
+
+    # the parallel forms take the restored full model and optimizer and
+    # keep this rank's part of them
+    parallel = None
+    if mesh.distributed:
+        parallel = Parallel(
+            model, optimizer, mesh, zero=bool(args.get("zero_opt")),
+            pipeline=(GPipe(model, mesh, num_microbatches) if n_pipe > 1
+                      else None), ema_model=ema_model)
 
     dataset = FeatureMapDataset(args["dataset_path"])
-    loader = DataLoader(dataset, batch_size=batch_size, seed=seed)
+    loader = DataLoader(dataset, batch_size=batch_size, seed=seed,
+                        process_index=mesh.index("data"),
+                        process_count=mesh.size("data"))
     test_loader = DataLoader(dataset,
                              batch_size=min(test_num_sample, len(dataset)),
                              seed=seed + 1)
     skip_preview = bool(args.get("skip_preview"))
+    # previews: rank 0 alone, on the live model (replicated under DP) or,
+    # under the pipeline, on a full copy gathered at the checkpoint; every
+    # rank of a tensor-parallel run decodes with its shards in lockstep
+    previews_here = main or (n_model > 1 and n_pipe == 1)
 
     train_step = make_train_step(
         model, optimizer, lr_codebook, hr_codebook, train_base_model,
@@ -380,15 +550,12 @@ def run(args):
         bf16=bool(args.get("bf16")), grad_accum=grad_accum,
         grad_clip=grad_clip, scheduler=scheduler,
         debug_nans=bool(args.get("debug_nans")), ema_model=ema_model,
-        ema_decay=ema_decay)
-    engine = DecodeEngine(model)
+        ema_decay=ema_decay, parallel=parallel)
 
-    n_params = sum(p.numel() for p in model.parameters())
     log.info(PROJECT_NAME)
     log.info(f"Output Dir: {out_dir}")
     log.info(f"Device: {device}")
-    log.info("Train step: " + ("CUDA graph" if common.use_graphs(
-        None, device, bool(args.get("debug_nans"))) else "eager"))
+    log.info(common.train_step_mode(device, bool(args.get("debug_nans"))))
     log.info(f"Model size: {n_params:,}")
     log.info("#" * 100)
     log.info("Codebook Parameters.")
@@ -398,6 +565,11 @@ def run(args):
     log.info(f"High Res Num Embeddings: {hr_num_embeddings:,}")
     log.info("#" * 100)
     log.info("Transformer Parameters.")
+    log.info("Mesh: {}{}{}{}".format(
+        mesh.describe(),
+        f" (microbatches={num_microbatches})" if n_pipe > 1 else "",
+        " | ZeRO-1 optimizer sharding" if args.get("zero_opt") else "",
+        f" | grad-accum {grad_accum}" if grad_accum > 1 else ""))
     if use_sliding_window:
         log.info(f"Sliding Window: {sliding_window:,}")
     log.info(f"Num Decoder Embedding: {cfg.num_dec_embedding:,}")
@@ -413,6 +585,7 @@ def run(args):
     log.info(f"Batch Size: {batch_size:,}")
     log.info(f"Model LR Update size: {lr_update_step:,}")
     log.info(f"Model Checkpoint step: {checkpoint_step:,}")
+    log.info(f"Checkpoint backend: {backend}")
     if grad_accum > 1:
         log.info(f"Gradient accumulation: {grad_accum}")
     if ema_decay is not None:
@@ -421,8 +594,8 @@ def run(args):
         log.info(f"Gradient clip (global norm): {grad_clip}")
     log.info("#" * 100)
 
-    # window starts on the host (the same on any device); preview sampling
-    # on the model's device
+    # window starts on the host (the same on any device and on every
+    # rank); preview sampling on the model's device
     window_generator = torch.Generator().manual_seed(seed)
     sample_generator = torch.Generator(device=device).manual_seed(seed)
     log_every = args.get("log_every", 1)
@@ -433,13 +606,20 @@ def run(args):
     global_steps = 0 if resume_steps is None else resume_steps + 1
     if resume_steps is not None:
         log.info(f"Resuming at global step {global_steps:,}.")
+    header = checkpoint_dict(cfg, train_base_model, sliding_window)
 
     def dump(images, name):
-        save_images(images.float().cpu().numpy(), name, out_dir,
-                    logging=log.info)
+        if main:
+            save_images(images.float().cpu().numpy(), name, out_dir,
+                        logging=log.info)
 
     @torch.inference_mode()
-    def preview(step):
+    def preview(step, full=None):
+        preview_model = model
+        if full is not None:
+            preview_model = common.init_for_restore(
+                Transformer(cfg, device=device), device)
+            preview_model.load_state_dict(full)
         fmap = torch.from_numpy(next(iter(test_loader))).to(device)
         dump(decoder(fmap), f"ground_truth_{step}")
         dump(decoder(lr_codebook(
@@ -449,68 +629,68 @@ def run(args):
             fmap, neighbourhood_range=hr_codebook.neighbourhood_range)),
             f"high_res_example_{step}")
         tokens = generate_preview_tokens(
-            engine, fmap, lr_codebook, train_base_model, lr_num_embeddings,
-            hr_num_embeddings, total_hr_seq, temperature, sliding_window,
-            sample_generator)
+            DecodeEngine(preview_model), fmap, lr_codebook, train_base_model,
+            lr_num_embeddings, hr_num_embeddings, total_hr_seq, temperature,
+            sliding_window, sample_generator)
         dump(decoder(hr_codebook.get_quantized_image(tokens)),
              f"high_res_recon_{step}")
 
     stop = False
-    for _ in range(max_epoch):
-        total_loss = 0.0
-        iteration_count = 0
-        loss_acc = torch.zeros((), device=device)
-        for index, feature_map in enumerate(loader):
-            profiler.step(global_steps)
-            batch = torch.from_numpy(feature_map).to(device)
-            loss = train_step(batch, window_generator)
-            iteration_count += 1
-            loss_acc += loss
-            should_sync = (log_every <= 1
-                           or (global_steps + 1) % log_every == 0
-                           or global_steps % checkpoint_step == 0)
-            if should_sync:
-                total_loss = float(loss_acc)
-                common.check_finite(total_loss)
+    try:
+        for _ in range(max_epoch):
+            total_loss = 0.0
+            iteration_count = 0
+            loss_acc = torch.zeros((), device=device)
+            for index, feature_map in enumerate(loader):
+                profiler.step(global_steps)
+                batch = torch.from_numpy(feature_map).to(device)
+                loss = train_step(batch, window_generator)
+                iteration_count += 1
+                loss_acc += loss
+                should_sync = (log_every <= 1
+                               or (global_steps + 1) % log_every == 0
+                               or global_steps % checkpoint_step == 0)
+                if should_sync:
+                    total_loss = float(loss_acc)
+                    common.check_finite(total_loss)
 
-            if global_steps % checkpoint_step == 0:
-                ckpt = checkpoint_dict(cfg, train_base_model, sliding_window)
-                ckpt["global_steps"] = global_steps
-                ckpt["model"] = to_jax_state(model)
-                ckpt["model_optimizer"] = to_optax_state(
-                    model, optimizer, scheduled=scheduler is not None)
-                if ema_model is not None:
-                    ckpt["model_ema"] = to_jax_state(ema_model)
-                save_status = save_model(ckpt, dest_path=out_dir,
-                                         file_name=f"model_{global_steps}.pt",
-                                         logging=log.info)
-                log.info("Successfully saved model." if save_status
-                         else "Error occured saving model.")
-                if save_status and args.get("keep_checkpoints"):
-                    common.prune_checkpoints(
-                        out_dir, int(args["keep_checkpoints"]),
+                if global_steps % checkpoint_step == 0:
+                    save_checkpoint(
+                        out_dir, global_steps, header, model, optimizer,
+                        scheduler, ema_model=ema_model, parallel=parallel,
+                        backend=backend, keep=args.get("keep_checkpoints"),
                         logging=log.info)
-                if not skip_preview:
-                    preview(global_steps)
+                    if not skip_preview:
+                        # under the pipeline every rank joins the gather
+                        full = (parallel.full_params(model) if n_pipe > 1
+                                else None)
+                        if previews_here:
+                            preview(global_steps, full)
 
-            lr_now = optim.current_lr(model_lr, lr_update_step,
-                                      global_steps + 1)
-            if should_sync:
-                avg = total_loss / iteration_count
-                log.info(
-                    "Cum. Steps: {:,} | Steps: {:,} / {:,} | L.R.: {:.8f} | "
-                    "Recon Loss: {:.5f}".format(
-                        global_steps + 1, index + 1, len(loader), lr_now,
-                        avg))
-                metrics.log(step=global_steps + 1, lr=lr_now, ce_loss=avg,
-                            samples_per_sec=throughput.rate(
-                                global_steps + 1))
-            global_steps += 1
-            if max_steps and global_steps >= max_steps:
-                stop = True
+                lr_now = optim.current_lr(model_lr, lr_update_step,
+                                          global_steps + 1)
+                if should_sync:
+                    avg = total_loss / iteration_count
+                    log.info(
+                        "Cum. Steps: {:,} | Steps: {:,} / {:,} | L.R.: "
+                        "{:.8f} | Recon Loss: {:.5f}".format(
+                            global_steps + 1, index + 1, len(loader),
+                            lr_now, avg))
+                    metrics.log(step=global_steps + 1, lr=lr_now,
+                                ce_loss=avg,
+                                samples_per_sec=throughput.rate(
+                                    global_steps + 1))
+                global_steps += 1
+                if max_steps and global_steps >= max_steps:
+                    stop = True
+                    break
+            if stop:
                 break
-        if stop:
-            break
-    profiler.close()
-    metrics.close()
+    finally:
+        saved = wait_pending_saves(logging=log.info)
+        profiler.close()
+        metrics.close()
+    if not saved:
+        raise RuntimeError(
+            "An error occured while saving model checkpoint!")
     return model

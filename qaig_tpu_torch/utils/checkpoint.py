@@ -16,10 +16,20 @@ values and plain containers and runs no other pickled code;
 ``qaig_tpu_torch.train.common`` restores the reference state dicts and
 Adam states they hold.  Not applicable: ``qaig_tpu``'s ``.orbax``
 checkpoint directories (orbax imports JAX).
+
+Background writes (``backend="pickle-async"``, the role of ``qaig_tpu``'s
+``orbax-async``): the trainers take :func:`host_snapshot` copies of the
+tensors a checkpoint holds (pinned host memory, complete before the next
+graphed step updates the parameters in place) and hand ``save_model`` a
+function that builds the checkpoint from them; one background thread runs
+it and writes the same pickle, atomically.  At most one write is in
+flight: the next save joins it, and so does :func:`wait_pending_saves`,
+which the trainers call at the end of their run and on error.
 """
 
 import os
 import pickle
+import threading
 
 _TRUSTED_MODULES = ("builtins", "collections", "copyreg", "_codecs",
                     "numpy", "ml_dtypes")
@@ -43,6 +53,33 @@ def _numpy_globals():
     return names
 
 
+def host_snapshot(tree):
+    """``tree`` (dicts, lists and tuples) with each tensor copied to host
+    memory: into pinned memory, queued on the current stream and waited
+    for, when it lies on the card.  A background write reads these copies
+    while the training steps update the tensors in place."""
+    import torch
+    on_card = []
+
+    def copy(obj):
+        if isinstance(obj, torch.Tensor):
+            obj = obj.detach()
+            if not obj.is_cuda:
+                return obj.clone()
+            on_card.append(obj)
+            return torch.empty(obj.shape, dtype=obj.dtype,
+                               pin_memory=True).copy_(obj, non_blocking=True)
+        if isinstance(obj, dict):
+            return {k: copy(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(copy(v) for v in obj)
+        return obj
+    out = copy(tree)
+    if on_card:
+        torch.cuda.synchronize()
+    return out
+
+
 def _to_numpy(obj):
     import torch
     if isinstance(obj, dict):
@@ -55,17 +92,70 @@ def _to_numpy(obj):
     return obj
 
 
-def save_model(model_dict, dest_path, file_name, logging=print):
+BACKENDS = ("pickle", "pickle-async")
+
+# the background write in flight: (thread, its error list, its path)
+_pending = []
+
+
+def pending_paths():
+    """Paths whose background write has not finished."""
+    return {path for thread, _, path in _pending if thread.is_alive()}
+
+
+def wait_pending_saves(logging=print):
+    """Join the background write in flight, if any; False when it
+    failed."""
+    ok = True
+    while _pending:
+        thread, errors, path = _pending.pop()
+        thread.join()
+        for e in errors:
+            logging(f"Async checkpoint save of {path} failed: {e}.")
+            ok = False
+    return ok
+
+
+def _write(model_dict, path):
+    if callable(model_dict):
+        model_dict = model_dict()
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(_to_numpy(model_dict), f, protocol=4)
+    os.replace(tmp, path)
+
+
+def save_model(model_dict, dest_path, file_name, logging=print,
+               backend="pickle"):
     """Atomically pickle ``model_dict`` (tensors become numpy) to
-    ``<dest>/models_checkpoint/<file_name>``; returns bool."""
+    ``<dest>/models_checkpoint/<file_name>``; returns bool.  ``model_dict``
+    may be a function that builds the dict.  ``backend="pickle-async"``
+    returns at once and builds and writes the file on a background thread
+    (the next save, or :func:`wait_pending_saves`, joins it; its failure
+    shows there), so the function must read host copies only
+    (:func:`host_snapshot`)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"checkpoint backend {backend!r}: the port writes "
+                         f"{' or '.join(BACKENDS)}")
     try:
         folder = os.path.join(str(dest_path), "models_checkpoint")
         os.makedirs(folder, exist_ok=True)
         path = os.path.join(folder, file_name)
-        tmp = path + ".tmp"
-        with open(tmp, "wb") as f:
-            pickle.dump(_to_numpy(model_dict), f, protocol=4)
-        os.replace(tmp, path)
+        if not wait_pending_saves(logging=logging):  # one write at a time
+            return False
+        if backend == "pickle-async":
+            errors = []
+
+            def write():
+                try:
+                    _write(model_dict, path)
+                except Exception as e:
+                    errors.append(e)
+            thread = threading.Thread(target=write, name="checkpoint-write")
+            _pending.append((thread, errors, path))
+            thread.start()
+            return True
+        _write(model_dict, path)
         return True
     except Exception as e:  # the reference's boolean contract
         logging(f"Exception occured while saving model: {e}.")

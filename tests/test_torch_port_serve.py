@@ -574,7 +574,8 @@ def test_serve_cli_flags_match_jax_cli(monkeypatch, capsys, tmp_path):
     config = tmp_path / "gen.json"
     config.write_text("{}")
     required = ["--config-path", str(config), "--decoder-path", "d.pt"]
-    reasons = ('ROADMAP.md queue 1, "Parallelism"',) * 2 + ("XLA-only",) * 2
+    reasons = (('ROADMAP.md queue 1, "Serving over several cards in one '
+                'process"',) * 2 + ("XLA-only",) * 2)
     for flag, value, reason in zip(REFUSED, ([], ["2"], ["cache"], ["a=1"]),
                                    reasons):
         with pytest.raises(SystemExit):
@@ -582,7 +583,9 @@ def test_serve_cli_flags_match_jax_cli(monkeypatch, capsys, tmp_path):
         err = capsys.readouterr().err
         assert f"{flag}: " in err and reason in err, (flag, err)
     roadmap = (REPO / "ROADMAP.md").read_text()
-    assert re.search(r"^\d+\. \*\*Parallelism\.\*\*", roadmap, re.M)
+    assert re.search(
+        r"^\d+\. \*\*Serving over several cards in one process\.\*\*",
+        roadmap, re.M)
     if torch.cuda.is_available():
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -745,11 +745,8 @@ def test_codebook_run_replays_the_boundary_decrement(tmp_path):
 # the CLIs
 # ---------------------------------------------------------------------------
 
-# flags of the JAX CLIs that the port leaves out (ROADMAP queue 1 item 8)
-LEFT_OUT = {"num_model_shards", "num_pipeline_stages", "num_microbatches",
-            "zero_opt", "multihost", "coordinator_address", "num_processes",
-            "process_id", "compilation_cache_dir", "compiler_options",
-            "checkpoint_backend"}
+# flags of the JAX CLIs that the port leaves out: XLA's
+LEFT_OUT = {"compilation_cache_dir", "compiler_options"}
 STAGE_CLIS = ["train_autoencoder", "generate_fmap_dataset", "train_codebook",
               "prune_codebook"]
 
@@ -758,7 +755,8 @@ STAGE_CLIS = ["train_autoencoder", "generate_fmap_dataset", "train_codebook",
 def test_cli_flags_match_jax_cli(name, monkeypatch):
     """Every other flag has the JAX CLI's option strings (``-c`` too),
     type, default and required-ness; ``--device`` narrows its choices to
-    what the port runs and defaults to ``cuda``."""
+    what the port runs and defaults to ``cuda``; ``--checkpoint-backend``
+    trades the orbax ones for ``pickle-async``."""
     import importlib
     jax_cli = importlib.import_module(f"qaig_tpu.cli.{name}")
     cli = importlib.import_module(f"qaig_tpu_torch.cli.{name}")
@@ -787,6 +785,9 @@ def test_cli_flags_match_jax_cli(name, monkeypatch):
             assert set(action.choices) < set(other.choices), dest
             assert action.default == "cuda"
             continue
+        if dest == "checkpoint_backend":   # orbax imports JAX
+            assert set(action.choices) & set(other.choices) == {"pickle"}
+            assert set(action.choices) == {"pickle", "pickle-async"}
         assert action.default == other.default, dest
         assert getattr(action.type, "__name__", action.type) == \
             getattr(other.type, "__name__", other.type), dest

@@ -696,17 +696,15 @@ def test_train_device_cuda_without_a_gpu_raises(tmp_path):
                   str(tmp_path)])
 
 
-# flags of the JAX CLI that the port leaves out (ROADMAP queue 1 item 8)
-LEFT_OUT = {"num_model_shards", "num_pipeline_stages", "num_microbatches",
-            "zero_opt", "multihost", "coordinator_address", "num_processes",
-            "process_id", "compilation_cache_dir", "compiler_options",
-            "checkpoint_backend"}
+# flags of the JAX CLI that the port leaves out: XLA's
+LEFT_OUT = {"compilation_cache_dir", "compiler_options"}
 
 
 def test_cli_flags_match_jax_cli(monkeypatch):
     """Every other flag has the JAX CLI's name, type, default and
     required-ness; ``--device`` narrows its choices to what the port
-    runs."""
+    runs, ``--checkpoint-backend`` trades the orbax ones for
+    ``pickle-async``."""
     from qaig_tpu.cli import train_quantized_transformer as jax_cli
     from qaig_tpu_torch.cli import train_quantized_transformer as cli
 
@@ -733,6 +731,9 @@ def test_cli_flags_match_jax_cli(monkeypatch):
         if dest == "device":
             assert set(action.choices) < set(other.choices), dest
             continue
+        if dest == "checkpoint_backend":   # orbax imports JAX
+            assert set(action.choices) & set(other.choices) == {"pickle"}
+            assert set(action.choices) == {"pickle", "pickle-async"}
         assert action.default == other.default, dest
         assert getattr(action.type, "__name__", action.type) == \
             getattr(other.type, "__name__", other.type), dest
