@@ -141,6 +141,16 @@ Phases (any failure exits non-zero and prints no result line):
    (tokens equal to 1 process) and ``--num-model-shards 2`` at greedy;
    (d) phase 6's run with ``--checkpoint-backend pickle-async``: save
    seconds, overlapping steps, files byte-equal, a resume.
+12. serving over several cards in one process -- ``CascadePipeline``
+   on ``parallel/local.py::LocalMesh`` meshes that repeat the one card:
+   (a) data 2, bf16, fused (a graph a replica), 8 images, each replica's
+   block bit-equal to the one-card pipeline at batch 4, A 2 x 37 and B 2
+   x 2345 a call, cold and warm; float32 tokens equal to one card's at 8;
+   (b) data 1 x model 2, float32, greedy, dispatched, 4 images: tokens
+   equal to one card's, MLP shards of hidden/2 rows, ``fused=True``
+   raises; (d) the serve CLI with ``--shard-batch`` as a subprocess
+   (``data=1 x model=1``, a request's tokens), and ``--num-model-shards
+   2``'s refusal on one card.
 
 The kernels' launch counts are set to 0 before each main path's run and
 read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
@@ -3974,6 +3984,271 @@ def run_parallel_path(torch, workdir, paths, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: serving over several cards in one process
+# ---------------------------------------------------------------------------
+
+# a stage's launches per cascade call (phase 5's control flow; the same at
+# any batch size)
+CASCADE_LAUNCHES = {"flash_attention": 37,
+                    "shared_prefix_attention_fused_t": 2345}
+
+
+def _mesh_call(torch, pipe, *args, **kw):
+    """(seconds to a synchronised end, images, tokens) of one
+    ``pipe.generate`` call, the results on the host."""
+    synchronize(torch, pipe.device)
+    t0 = time.perf_counter()
+    images, tokens = pipe.generate(*args, **kw)
+    synchronize(torch, pipe.device)
+    return time.perf_counter() - t0, images.cpu(), tokens.cpu()
+
+
+def _first_difference(got, want):
+    differ = (got != want).nonzero()
+    return None if len(differ) == 0 else [int(i) for i in differ[0]]
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def run_mesh_serve_path(torch, paths, device="cuda"):
+    """Phase 12: ``CascadePipeline(mesh=...)`` on phase 5's checkpoints,
+    every mesh repeating the one card (``LocalMesh(devices=[cuda:0] *
+    2)``).  (a) Data 2, bf16, fused (one graph a replica), 8 images: each
+    replica's block bit-equal to a one-card pipeline's call at batch 4 on
+    the same rows' keys (bf16 products depend on the batch); A 2 x 37 and
+    B 2 x 2345 a call, cold (two captures) and warm; in float32 the 8
+    images' tokens equal the one-card pipeline's at 8.  (b) Data 1 x model
+    2, float32, greedy, dispatched, 4 images: tokens equal the one-card
+    dispatched pipeline's, each MLP shard holds hidden/2 rows of ``l0``,
+    A 37 and B 2345, ``fused=True`` raises.  (d) ``python -m
+    qaig_tpu_torch.cli.serve_generation --bf16 --shard-batch`` as a
+    subprocess: ``data=1 x model=1``, a 2-image request's tokens equal a
+    one-card bf16 pipeline's; ``--num-model-shards 2`` exits non-zero
+    with "must divide the chip count (1)".  (The device guards of the
+    kernels need a second card: ``tests/test_torch_port_two_cards.py``.)
+    Returns (launches by path, timings)."""
+    from qaig_tpu_torch.infer import decode
+    from qaig_tpu_torch.infer.pipeline import (CascadePipeline,
+                                               derive_row_keys)
+    from qaig_tpu_torch.models import core
+    from qaig_tpu_torch.parallel.local import LocalMesh
+
+    config_path, decoder_path, _ = paths
+    config = json.loads(Path(config_path).read_text())
+    card = torch.device(device, 0) if device == "cuda" else \
+        torch.device(device)
+    shared = "both replicas on one card: no scaling is measured"
+
+    def load(dtype=None, mesh=None):
+        return CascadePipeline.from_config(config, decoder_path, device=card,
+                                           dtype=dtype, mesh=mesh)
+
+    launches, out = {}, {}
+    keys = derive_row_keys(12, 8)
+    predicted = {k: 2 * v for k, v in CASCADE_LAUNCHES.items()}
+
+    # (a) data 2, bf16, fused: cold (two captures), then warm
+    pipe = load(torch.bfloat16, LocalMesh(2, 1, [card] * 2))
+    reset_launches()
+    cold_s, images, tokens = _mesh_call(torch, pipe, 8, row_keys=keys)
+    _check_launches("12 (a) cold", read_launches(), predicted)
+    reset_launches()
+    warm_s, warm_images, warm_tokens = _mesh_call(torch, pipe, 8,
+                                                  row_keys=keys)
+    launches["serve_mesh_data2"] = read_launches()
+    _check_launches("12 (a) warm", launches["serve_mesh_data2"], predicted)
+    if not (torch.equal(warm_tokens, tokens)
+            and torch.equal(warm_images, images)):
+        raise SystemExit("12 (a): a warm replay differs from the first call")
+    captures = [[r._graphs.graphs[(4, None)].capture_s,
+                 r._graphs.graphs[(4, None)].instantiate_s]
+                for r in pipe.replicas if r._graphs is not None]
+    del pipe
+    _free(torch)
+    one = load(torch.bfloat16)
+    for a, b in ((0, 4), (4, 8)):
+        _, want_images, want = _mesh_call(torch, one, 4,
+                                          row_keys=keys[a:b])
+        if not (torch.equal(tokens[a:b], want)
+                and torch.equal(images[a:b], want_images)):
+            raise SystemExit(
+                f"12 (a): replica block {a}:{b} differs from the one-card "
+                f"pipeline at batch 4 (first token difference "
+                f"{_first_difference(tokens[a:b], want)})")
+    _, _, server_want = _mesh_call(torch, one, 2, seed=5)   # for (d)
+    del one
+    _free(torch)
+    out["data2_bf16"] = {"cold_s": cold_s, "warm_s": warm_s,
+                         "capture_instantiate_s": captures}
+    log(f"[mesh] 12 (a) data 2 (cuda:0 twice), bf16, fused, 8 images: "
+        f"first call {cold_s:.3f} s (capture / instantiation per replica "
+        f"{[[round(x, 3) for x in c] for c in captures]} s), warm "
+        f"{warm_s:.3f} s ({shared}); each block bit-equal to the one-card "
+        f"pipeline at batch 4; launches "
+        f"{ {k: launches['serve_mesh_data2'][k] for k in predicted} }")
+
+    plain = load()
+    pipe = load(None, LocalMesh(2, 1, [card] * 2))
+    mesh_s, _, tokens = _mesh_call(torch, pipe, 8, row_keys=keys)
+    plain_s, _, want = _mesh_call(torch, plain, 8, row_keys=keys)
+    if not torch.equal(tokens, want):
+        raise SystemExit(f"12 (a) float32: data-2 tokens differ from the "
+                         f"one-card pipeline's (first "
+                         f"{_first_difference(tokens, want)})")
+    del pipe
+    _free(torch)
+    out["data2_f32"] = {"first_call_s": mesh_s, "one_card_first_call_s":
+                        plain_s}
+    log(f"[mesh] 12 (a) float32: data 2 tokens of 8 images equal the "
+        f"one-card pipeline's (first calls, captures included: "
+        f"{mesh_s:.3f} s against {plain_s:.3f} s)")
+
+    # (b) data 1 x model 2, float32, greedy, dispatched
+    pipe = load(None, LocalMesh(1, 2, [card] * 2))
+    for stage in pipe.stages:
+        model = stage.engine.model
+        for m in model.modules():
+            if isinstance(m, core.MLP2):
+                rows = [m.l0.weight.shape[0]] + [
+                    p.l0.weight.shape[0] for p in m.tp.parts]
+                if rows != [model.cfg.hidden_dim // 2] * 2:
+                    raise SystemExit(f"12 (b): MLP shards hold {rows} rows "
+                                     f"of l0, not hidden/2 each")
+    try:
+        pipe.generate(4, seed=3, fused=True)
+        raise SystemExit("12 (b): fused=True with a model axis did not "
+                         "raise")
+    except ValueError:
+        pass
+    sample = decode._categorical
+    decode._categorical = lambda logits, draw: logits.argmax(dim=-1)
+    seconds = {"tp2": [], "one_card": []}
+    want = None
+    try:
+        # in turns (TP, one card, one card, TP): the first dispatched
+        # call of a shape pays one-off library set-up
+        for turn in range(4):
+            tp = turn in (0, 3)
+            if turn == 0:
+                reset_launches()
+            s, _, tokens = _mesh_call(torch, pipe if tp else plain, 4,
+                                      seed=3, fused=False)
+            if turn == 0:
+                launches["serve_mesh_tp2"] = read_launches()
+            seconds["tp2" if tp else "one_card"].append(s)
+            if want is None:
+                want = tokens
+            first = _first_difference(tokens, want)
+            if first is not None:
+                raise SystemExit(
+                    f"12 (b): {'TP 2' if tp else 'one-card'} greedy tokens "
+                    f"differ from the first TP 2 call's, first at image "
+                    f"{first[0]}, position {first[1]}")
+    finally:
+        decode._categorical = sample
+    _check_launches("12 (b)", launches["serve_mesh_tp2"], CASCADE_LAUNCHES)
+    del pipe, plain
+    _free(torch)
+    out["tp2_f32_greedy"] = seconds
+    log(f"[mesh] 12 (b) data 1 x model 2 (cuda:0 twice), float32, greedy, "
+        f"dispatched, 4 images, in turns: TP 2 "
+        f"{[round(s, 3) for s in seconds['tp2']]} s, one card unsharded "
+        f"{[round(s, 3) for s in seconds['one_card']]} s ({shared}); "
+        f"tokens equal; shards of hidden/2 rows; fused=True raises; "
+        f"launches (the first TP call) "
+        f"{ {k: launches['serve_mesh_tp2'][k] for k in CASCADE_LAUNCHES} }")
+
+    # (d) the server CLI
+    out["server"] = run_mesh_server(torch, config_path, decoder_path,
+                                    card, server_want)
+    return launches, out
+
+
+def run_mesh_server(torch, config_path, decoder_path, card, want):
+    """Phase 12 (d): the serve CLI with ``--shard-batch`` (one card:
+    ``data=1 x model=1``), a 2-image request of seed 5 against ``want``,
+    ``/metrics``' mesh, SIGTERM; then ``--num-model-shards 2``, which
+    must exit non-zero with the "must divide" message."""
+    import os
+    import signal
+    import threading
+    import urllib.request
+    repo = Path(__file__).resolve().parent
+    base_argv = [sys.executable, "-m", "qaig_tpu_torch.cli.serve_generation",
+                 "--device", card.type, "--bf16", "--port", "0",
+                 "--config-path", str(config_path), "--decoder-path",
+                 str(decoder_path)]
+    proc = subprocess.Popen(
+        base_argv + ["--shard-batch", "--warmup-batch", "1"], cwd=repo,
+        env=dict(os.environ), text=True, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT)
+    lines = []
+    pump = threading.Thread(target=lambda: lines.extend(proc.stdout),
+                            daemon=True)
+    pump.start()
+
+    def fault(msg):
+        return SystemExit(f"12 (d): {msg}\nserver output:\n"
+                          + "".join(lines)[-3000:])
+
+    try:
+        t0 = time.perf_counter()
+        while not any("serving on http" in ln for ln in lines):
+            if proc.poll() is not None:
+                raise fault("the server exited early")
+            if time.perf_counter() - t0 > 300:
+                raise fault("the server never came up")
+            time.sleep(0.2)
+        start_s = time.perf_counter() - t0
+        if not any(ln.strip() == "serving over 1 chips: data=1 x model=1"
+                   for ln in lines):
+            raise fault("no 'serving over 1 chips: data=1 x model=1' line")
+        serving = next(ln for ln in lines if "serving on http" in ln)
+        base = f"http://127.0.0.1:{int(serving.rsplit(':', 1)[1])}"
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "/generate", data=json.dumps(
+                    {"num_images": 2, "seed": 5}).encode()),
+                timeout=600) as resp:
+            body = json.loads(resp.read())
+        request_s = time.perf_counter() - t0
+        if not torch.equal(torch.as_tensor(body["tokens"]), want):
+            raise fault("the 2-image request's tokens differ from the "
+                        "one-card bf16 pipeline's")
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as resp:
+            mesh = json.loads(resp.read())["mesh"]
+        if mesh != {"data": 1, "model": 1, "devices": [[str(card)]]}:
+            raise fault(f"/metrics reports the mesh {mesh}")
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=120) != 0:
+            raise fault("the server did not drain cleanly")
+        pump.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    refused = subprocess.run(base_argv + ["--num-model-shards", "2"],
+                             cwd=repo, env=dict(os.environ), text=True,
+                             capture_output=True, timeout=300)
+    message = "--num-model-shards 2 must divide the chip count (1)"
+    if refused.returncode == 0 or message not in refused.stderr:
+        raise SystemExit(f"12 (d): --num-model-shards 2 on one card: exit "
+                         f"{refused.returncode}, stderr "
+                         f"{refused.stderr[-2000:]}")
+    log(f"[mesh] 12 (d) serve CLI --bf16 --shard-batch: data=1 x model=1, "
+        f"up in {start_s:.1f} s (load, warm-up at batch 1), a 2-image "
+        f"request {request_s:.3f} s (its first call: a capture) with the "
+        f"one-card pipeline's tokens, /metrics mesh {mesh}; "
+        f"--num-model-shards 2: exit {refused.returncode}, '{message}'")
+    return {"start_s": start_s, "request_s": request_s, "mesh": mesh}
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4091,6 +4366,10 @@ def main():
                         help="phases 1-2, phase 5's cascade and phase 6's "
                              "bf16 run, then phase 11 (the parallel forms) "
                              "only; prints its timings, no result line")
+    parser.add_argument("--serving-only", action="store_true",
+                        help="phases 1-2, phase 5's cascade, then phase 12 "
+                             "(serving over a mesh) only; prints its "
+                             "timings, no result line")
     args = parser.parse_args()
 
     import torch
@@ -4105,6 +4384,14 @@ def main():
             run_train_path(torch, wd)
             _, timings = run_parallel_path(torch, wd, paths)
         print(json.dumps({"parallel": timings}))
+        return 0
+
+    if args.serving_only:
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as wd:
+            paths = write_full_cascade(torch, wd, 0)
+            _, timings = run_mesh_serve_path(torch, paths)
+        print(json.dumps({"mesh": timings}))
         return 0
 
     phase_build()
@@ -4159,6 +4446,8 @@ def main():
         parallel_launches, timings["parallel"] = run_parallel_path(
             torch, workdir, paths)
         launches.update(parallel_launches)
+        mesh_launches, timings["mesh"] = run_mesh_serve_path(torch, paths)
+        launches.update(mesh_launches)
 
     line = kernels_line(records, launches)
     if args.json_out:

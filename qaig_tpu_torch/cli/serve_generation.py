@@ -1,9 +1,9 @@
-"""Serve cascade generation over HTTP on one GPU (the port's counterpart of
+"""Serve cascade generation over HTTP (the port's counterpart of
 ``qaig_tpu/cli/serve_generation.py``, same flags and defaults):
 
     python -m qaig_tpu_torch.cli.serve_generation --config-path gen.json \
         --decoder-path ae.pt [--port 8000] [--bf16] [--warmup-batch 1] \
-        [--device cuda]
+        [--device cuda] [--shard-batch] [--num-model-shards N]
 
 Wraps :class:`qaig_tpu_torch.infer.pipeline.CascadePipeline` in
 :class:`qaig_tpu_torch.serve.GenerationServer`; prints ``serving on
@@ -11,10 +11,14 @@ http://host:port`` once it accepts requests (``--port 0`` binds a free
 port), and on SIGTERM or SIGINT drains every accepted request and exits 0
 after ``drained; bye.``.
 
-Accepted for flag parity and refused with an error: ``--shard-batch`` and
-``--num-model-shards`` above 1 (one server process drives one card until
-``ROADMAP.md`` queue 1's "Serving over several cards in one process"
-item), and
+One process serves one card, or with ``--shard-batch`` /
+``--num-model-shards N`` every visible card (one CPU device under
+``--device cpu``) as a ``data x model`` mesh (``parallel/local.py``), as
+``qaig_tpu`` serves every local chip: ``--shard-batch`` splits each
+dispatch over ``data`` (dispatches padded to a multiple of it),
+``--num-model-shards`` splits every stage MLP over ``model``.
+
+Accepted for flag parity and refused with an error:
 ``--compilation-cache-dir`` and ``--compiler-options`` (XLA's, with no
 counterpart in PyTorch).
 """
@@ -25,9 +29,6 @@ import pathlib
 import signal
 import time
 
-ONE_CARD = "not in the port yet: one server process drives one card " \
-           "(ROADMAP.md queue 1, \"Serving over several cards in one " \
-           "process\")"
 XLA_ONLY = "XLA-only: the port compiles nothing through XLA"
 
 
@@ -60,9 +61,15 @@ def main(argv=None):
     parser.add_argument("--bf16", action="store_true",
                         help="Serve in bfloat16 (the benchmark precision).")
     parser.add_argument("--shard-batch", action="store_true",
-                        help=f"Shard batches over several cards: {ONE_CARD}.")
+                        help="Shard each dispatch's image batch over all "
+                             "visible cards (a replica of the weights on "
+                             "each).  Dispatches are padded to a multiple "
+                             "of the data axis.")
     parser.add_argument("--num-model-shards", type=int, default=1,
-                        help=f"Tensor-parallel shards above 1: {ONE_CARD}.")
+                        help="Tensor-parallel shards for each stage "
+                             "transformer's MLPs (Megatron MLP sharding "
+                             "over the cards of a data replica).  Implies a "
+                             "mesh even without --shard-batch.")
     parser.add_argument("--use-ema", action="store_true",
                         help="Serve the EMA weights (model_ema, written by "
                              "training under --ema-decay).")
@@ -87,41 +94,58 @@ def main(argv=None):
     parser.add_argument("--compiler-options", default=None, type=str,
                         help=f"XLA's options: {XLA_ONLY}.")
     args = parser.parse_args(argv)
-    for reason, flags in (
-            (ONE_CARD, (("--shard-batch", args.shard_batch),
-                        ("--num-model-shards", args.num_model_shards > 1))),
-            (XLA_ONLY, (("--compilation-cache-dir",
-                         args.compilation_cache_dir is not None),
-                        ("--compiler-options",
-                         args.compiler_options is not None)))):
-        refused = [flag for flag, used in flags if used]
-        if refused:
-            parser.error(f"{', '.join(refused)}: {reason}")
+    refused = [flag for flag, used in (
+        ("--compilation-cache-dir", args.compilation_cache_dir is not None),
+        ("--compiler-options", args.compiler_options is not None)) if used]
+    if refused:
+        parser.error(f"{', '.join(refused)}: {XLA_ONLY}")
 
     if args.device == "cuda":
         one_malloc_arena()
     import torch
     from qaig_tpu_torch.infer.pipeline import CascadePipeline
+    from qaig_tpu_torch.parallel.local import LocalMesh, local_devices
     from qaig_tpu_torch.serve import GenerationServer
     from qaig_tpu_torch.train import common
+
+    device = common.select_device(args.device)
+    mesh = None
+    batch_multiple = 1
+    n_model = max(1, args.num_model_shards)
+    if args.shard_batch or n_model > 1:
+        devices = local_devices(device)
+        n_chips = len(devices)
+        if n_chips % n_model != 0:
+            raise SystemExit(f"--num-model-shards {n_model} must divide "
+                             f"the chip count ({n_chips})")
+        batch_multiple = n_chips // n_model if args.shard_batch else 1
+        mesh = LocalMesh(n_data=batch_multiple, n_model=n_model,
+                         devices=devices)
+        print(f"serving over {n_chips} chips: data={batch_multiple} "
+              f"x model={n_model}"
+              + (f" (num_images must be a multiple of {batch_multiple})"
+                 if batch_multiple > 1 else ""), flush=True)
 
     def build_pipeline():
         # re-read the config too, so a reload picks up both new checkpoint
         # bytes and updated checkpoint paths inside the same config file
         pipe = CascadePipeline.from_config(
             common.load_config(args.config_path), args.decoder_path,
-            device=args.device,
-            dtype=torch.bfloat16 if args.bf16 else None,
-            use_ema=args.use_ema)
+            device=device, dtype=torch.bfloat16 if args.bf16 else None,
+            use_ema=args.use_ema, mesh=mesh)
         if args.warmup_batch > 0:
             # also runs during POST /reload (old weights keep serving), so
             # the swapped-in pipeline never serves its first, slow call;
             # on CUDA that call captures the batch's graph (infer/graphs.py
             # serialises captures, so one made while the dispatcher
-            # replays the old pipeline's graphs is safe)
-            pipe.generate(args.warmup_batch, seed=0)
-            if pipe.device.type == "cuda":
-                torch.cuda.synchronize(pipe.device)
+            # replays the old pipeline's graphs is safe); over a mesh the
+            # batch is padded to the data axis, as a dispatch is, so every
+            # replica runs (and captures) its block
+            batch = -(-args.warmup_batch // batch_multiple) * batch_multiple
+            pipe.generate(batch, seed=0)
+            for replica in pipe.replicas:
+                if replica.device.type == "cuda":
+                    torch.cuda.synchronize(replica.device)
             print(f"warmed up at batch {args.warmup_batch}", flush=True)
         return pipe
 
@@ -129,6 +153,7 @@ def main(argv=None):
     # batcher holds the only reference, so the old weights free
     server = GenerationServer(build_pipeline(), host=args.host,
                               port=args.port, max_batch=args.max_batch,
+                              batch_multiple=batch_multiple,
                               max_queue_rows=args.max_queue_rows,
                               request_timeout=args.request_timeout,
                               reloader=build_pipeline)

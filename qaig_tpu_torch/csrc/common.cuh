@@ -9,6 +9,25 @@
 
 namespace qaig {
 
+// A kernel's attributes (its dynamic shared memory cap above 48 KB) live in
+// each device's own context, so "set once" means once per device: a launch
+// on a second card of the process needs a call of its own there.  `done`
+// holds one flag per device index; a device past the table sets the
+// attribute at every launch.
+constexpr int kMaxDevices = 64;
+
+template <typename Set>
+inline cudaError_t once_per_device(bool (&done)[kMaxDevices], Set set) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool tracked = device >= 0 && device < kMaxDevices;
+  if (tracked && done[device]) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess && tracked) done[device] = true;
+  return err;
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);

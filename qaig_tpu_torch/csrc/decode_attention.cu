@@ -543,13 +543,12 @@ cudaError_t split_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
                          cudaStream_t stream) {
   auto kernel = prefix_split_kernel<T, P>;
   const size_t smem = split_smem(B, dh, sizeof(T), sizeof(P), stages);
-  static bool attributes_set = false;  // once per instantiation
-  if (!attributes_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static bool attributes_set[qaig::kMaxDevices] = {};  // per instantiation
+  const cudaError_t set = qaig::once_per_device(attributes_set, [&] {
+    return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (err != cudaSuccess) return err;
-    attributes_set = true;
-  }
+  });
+  if (set != cudaSuccess) return set;
   cfg = {};
   cfg.gridDim = dim3((unsigned)N * H * splits);
   cfg.blockDim = dim3(kThreads);

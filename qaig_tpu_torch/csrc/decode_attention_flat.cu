@@ -533,13 +533,12 @@ cudaError_t flat_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr,
                         int N, int B, int bc, int H, int dh, int tile,
                         int splits, int stages, cudaStream_t stream) {
   auto kernel = flat_split_kernel<T, P>;
-  static bool attributes_set = false;  // once per instantiation
-  if (!attributes_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
+  static bool attributes_set[qaig::kMaxDevices] = {};  // per instantiation
+  const cudaError_t set = qaig::once_per_device(attributes_set, [&] {
+    return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
-    if (err != cudaSuccess) return err;
-    attributes_set = true;
-  }
+  });
+  if (set != cudaSuccess) return set;
   cfg = {};
   cfg.gridDim = dim3((unsigned)N * splits, (unsigned)((B + bc - 1) / bc));
   cfg.blockDim = dim3(kThreads);

@@ -1584,16 +1584,19 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
   using L = MmaLayout<DH>;
   auto pass1 = flash_bwd_dq_mma_kernel<DH>;
   auto pass2 = flash_bwd_dkdv_mma_kernel<DH>;
-  static bool attributes_set = false;  // once per head dim
-  if (!attributes_set && L::bytes > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          pass2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
-    if (err != cudaSuccess) return err;
+  static bool attributes_set[qaig::kMaxDevices] = {};  // per head dim
+  if (L::bytes > 48 * 1024) {
+    const cudaError_t set = qaig::once_per_device(attributes_set, [&] {
+      cudaError_t e = cudaFuncSetAttribute(
+          pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::bytes);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(
+            pass2, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)L::bytes);
+      return e;
+    });
+    if (set != cudaSuccess) return set;
   }
-  attributes_set = true;
   // (n, h) on x, 64-row tiles on y, head-dim halves on z
   const dim3 grid(N * H, (S + 63) / 64, L::kSplit);
   const float scale = 1.0f / sqrtf((float)DH);
@@ -1699,18 +1702,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v,
   auto pass1 = flash_bwd_dq_f32_kernel<DH>;
   auto pass2 = flash_bwd_dkdv_f32_kernel<DH>;
   constexpr size_t bytes1 = L::bytes1, bytes2 = L::bytes2;
-  static bool attributes_set = false;  // once per head dim
-  if (!attributes_set) {
-    cudaError_t err = cudaSuccess;
+  static bool attributes_set[qaig::kMaxDevices] = {};  // per head dim
+  const cudaError_t set = qaig::once_per_device(attributes_set, [&] {
+    cudaError_t e = cudaSuccess;
     if (bytes1 > 48 * 1024)
-      err = cudaFuncSetAttribute(
+      e = cudaFuncSetAttribute(
           pass1, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes1);
-    if (err == cudaSuccess && bytes2 > 48 * 1024)
-      err = cudaFuncSetAttribute(
+    if (e == cudaSuccess && bytes2 > 48 * 1024)
+      e = cudaFuncSetAttribute(
           pass2, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes2);
-    if (err != cudaSuccess) return err;
-    attributes_set = true;
-  }
+    return e;
+  });
+  if (set != cudaSuccess) return set;
   const float scale = 1.0f / sqrtf((float)DH);
   const float scale_log2 = scale * kLog2e;
   // (n, h) x cluster rank on x, 64-row tiles on y

@@ -71,6 +71,8 @@
 // b1, act_last and the rounding.  Ragged N and D: TMA fills what lies
 // past the tensors with zeros, and the stores are masked.
 
+#include "common.cuh"
+
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -706,12 +708,10 @@ cudaError_t launch(const bf16* x, const bf16* w0, const bf16* b0,
   constexpr int D2 = 64 * NF;
   auto kernel = mlp2_fused_kernel<NF>;
   const size_t smem = smem_bytes(D, D2);
-  static bool allowed = false;  // the attribute, once
-  if (!allowed) {
-    const cudaError_t err = allow_max_smem((const void*)kernel);
-    if (err != cudaSuccess) return err;
-    allowed = true;
-  }
+  static bool allowed[qaig::kMaxDevices] = {};  // the attribute, per device
+  const cudaError_t set = qaig::once_per_device(
+      allowed, [&] { return allow_max_smem((const void*)kernel); });
+  if (set != cudaSuccess) return set;
   CUtensorMap x_map, w0_map, w1_map;
   if (!tensor_map(&x_map, x, N, D, 64) ||
       !tensor_map(&w0_map, w0, (uint64_t)S * H, D, 64) ||

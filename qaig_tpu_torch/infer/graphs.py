@@ -17,7 +17,8 @@ with a key and replays the graph on every later call with that key:
   eager function would;
 * capture runs on the runner's own side stream in ``thread_local`` mode,
   one capture at a time in the process, into one memory pool that all of
-  the runner's graphs share;
+  the runner's graphs share, after a garbage collection (a graph that
+  dies inside another capture invalidates it);
 * cuDNN and cuBLAS set up their handles at their first call in a thread,
   allocating device memory, which a capture forbids: before a thread's
   first capture the runner runs its ``warmup`` (a few small eager calls
@@ -36,6 +37,7 @@ A capture or a replay that fails raises; nothing falls back to the eager
 function.
 """
 
+import gc
 import threading
 import time
 
@@ -85,15 +87,16 @@ def add_counts(deltas):
 
 
 class CapturedGraph:
-    """One captured graph with its static inputs and outputs, the launches
-    one replay makes (in :func:`launch_counters`' order) and the capture's
-    host seconds (``capture_s``: the function's run under capture;
-    ``instantiate_s``: ending the capture, which instantiates the
-    graph)."""
+    """One captured graph on one card (``device``) with its static inputs
+    and outputs, the launches one replay makes (in :func:`launch_counters`'
+    order) and the capture's host seconds (``capture_s``: the function's
+    run under capture; ``instantiate_s``: ending the capture, which
+    instantiates the graph)."""
 
-    def __init__(self, graph, inputs, outputs, launches, capture_s=0.0,
-                 instantiate_s=0.0):
+    def __init__(self, graph, device, inputs, outputs, launches,
+                 capture_s=0.0, instantiate_s=0.0):
         self.graph = graph
+        self.device = device
         self.inputs = inputs
         self.outputs = outputs
         self.launches = launches
@@ -101,11 +104,17 @@ class CapturedGraph:
         self.instantiate_s = instantiate_s
 
     def replay(self, *inputs):
-        for static, value in zip(self.inputs, inputs):
-            static.copy_(value, non_blocking=True)
-        self.graph.replay()
-        add_counts(self.launches)
-        return _clone(self.outputs)
+        """Copy ``inputs`` in, replay and hand back clones of the outputs,
+        all queued on the graph's card (PyTorch replays on the current
+        stream of the current device, so the card is made current here)
+        without waiting for it: a caller can start the replays of several
+        cards before it reads any of their outputs."""
+        with torch.cuda.device(self.device):
+            for static, value in zip(self.inputs, inputs):
+                static.copy_(value, non_blocking=True)
+            self.graph.replay()
+            add_counts(self.launches)
+            return _clone(self.outputs)
 
 
 def _clone(tree):
@@ -167,6 +176,12 @@ class GraphRunner:
                     if prepare is not None:
                         prepare(*static)
                     prepared = read_counts()
+                    # a graph that dies during the capture (garbage in a
+                    # reference cycle, collected at an allocation)
+                    # destroys its executable there, which invalidates
+                    # the capture: collect such garbage first, as
+                    # torch.cuda.graph does
+                    gc.collect()
                     t0 = time.perf_counter()
                     graph.capture_begin(pool=self.pool,
                                         capture_error_mode="thread_local")
@@ -182,7 +197,7 @@ class GraphRunner:
                 launches = [a - b for a, b in zip(read_counts(), prepared)]
             finally:
                 add_counts([b - a for a, b in zip(read_counts(), before)])
-        return CapturedGraph(graph, static, outputs, launches,
+        return CapturedGraph(graph, self.device, static, outputs, launches,
                              capture_s=t1 - t0, instantiate_s=t2 - t1)
 
     def _end_failed_capture(self, graph):

@@ -128,37 +128,48 @@ def project_kv(params, x, act):
     return core.mlp2(params.k, x, act), core.mlp2(params.v, x, act)
 
 
-def pack_qkv(attn_params):
-    """Fuse the three Q/K/V MLPs for the decode hot path: one (3*hidden, D)
-    linear for the first layers (same input) and one batched (3, D, hidden)
-    product for the second.  Same math, 6 products -> 2.  Under tensor
-    parallelism the MLPs hold this rank's shards, and so does the pack
-    (``tp``: their link to the model group)."""
-    mlps = (attn_params.q, attn_params.k, attn_params.v)
+def _pack(*mlps):
     return {
         "l0w": torch.cat([m.l0.weight for m in mlps], dim=0),
         "l0b": torch.cat([m.l0.bias for m in mlps], dim=0),
         "l1w": torch.stack([m.l1.weight for m in mlps]),
         "l1b": torch.stack([m.l1.bias for m in mlps]),
-        "tp": getattr(attn_params.q, "tp", None),
     }
+
+
+def pack_qkv(attn_params):
+    """Fuse the three Q/K/V MLPs for the decode hot path: one (3*hidden, D)
+    linear for the first layers (same input) and one batched (3, D, hidden)
+    product for the second.  Same math, 6 products -> 2.  Under tensor
+    parallelism the MLPs hold one shard each, and so does the pack; ``tp``
+    is the pack's link to the other shards (``core.mlp2``'s links; in one
+    process each shard's pack is made on its own card)."""
+    q, k, v = attn_params.q, attn_params.k, attn_params.v
+    packed = _pack(q, k, v)
+    tp = getattr(q, "tp", None)
+    packed["tp"] = None if tp is None else tp.zip(_pack, k.tp, v.tp)
+    return packed
 
 
 def packed_qkv(packed, x, act):
     """(N, P, D) -> (q, k, v) each (N, P, D) via the packed projections;
-    with ``tp`` the shards' products are summed over the model group
-    before the bias."""
+    with ``tp`` the shards' products are summed before the bias."""
     n, p, _ = x.shape
     hidden = packed["l1w"].shape[2]
     tp = packed.get("tp")
-    h = act(F.linear(x, packed["l0w"], packed["l0b"]))   # (N, P, 3H)
-    h = h.reshape(n * p, 3, hidden).transpose(0, 1)           # (3, NP, H)
+
+    def first(part, xs):
+        h = act(F.linear(xs, part["l0w"], part["l0b"]))      # (N, P, 3H)
+        return h.reshape(n * p, 3, hidden).transpose(0, 1)      # (3, NP, H)
+
     if tp is None:
-        out = torch.baddbmm(packed["l1b"][:, None, :], h,
+        out = torch.baddbmm(packed["l1b"][:, None, :], first(packed, x),
                             packed["l1w"].transpose(1, 2))     # (3, NP, D)
     else:
-        out = tp.reduce(torch.bmm(h, packed["l1w"].transpose(1, 2))) \
-            + packed["l1b"][:, None, :]
+        out = tp.sum_partials(
+            lambda part, xs: torch.bmm(first(part, xs),
+                                       part["l1w"].transpose(1, 2)),
+            packed, x) + packed["l1b"][:, None, :]
     out = out.reshape(3, n, p, -1)
     return out[0], out[1], out[2]
 

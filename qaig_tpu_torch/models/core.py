@@ -119,17 +119,23 @@ def linear(layer, x, activation=None):
 
 
 def mlp2(params, x, act, act_last=False):
-    """The two linears of an :class:`MLP2`.  Under tensor parallelism
-    (``parallel/sharding.py``: the module holds its rank's shards and a
-    ``tp`` link to the model group) the partial products of ``l1`` are
-    summed over the group and ``l1``'s bias is added once, after the
-    sum."""
+    """The two linears of an :class:`MLP2`.  Under tensor parallelism the
+    module holds one shard and a ``tp`` link to the others: its rank's
+    shard and the model group across processes
+    (``parallel/sharding.py``, ``comm.ModelShards``), or shard 0 and the
+    other cards' shards in one process (``parallel/local.py``,
+    ``LocalShards``).  ``tp.sum_partials`` sums the shards' partial
+    products of ``l1``, and ``l1``'s bias is added once, after the sum."""
     tp = getattr(params, "tp", None)
     if tp is None:
         h = linear(params.l0, x, activation=act)
         return linear(params.l1, h, activation=act if act_last else None)
-    h = linear(params.l0, tp.copy(x), activation=act)
-    y = tp.reduce(F.linear(h, params.l1.weight)) + params.l1.bias
+
+    def partial(shard, xs):
+        return F.linear(linear(shard.l0, xs, activation=act),
+                        shard.l1.weight)
+
+    y = tp.sum_partials(partial, params, x) + params.l1.bias
     return act(y) if act_last else y
 
 

@@ -111,9 +111,9 @@ def launch_plan(m, d, k, aligned=True):
 
 
 def fused_bmu(patches, codes):
-    """The BMU kernel: (M, D) float32 patches x (K, D) float32 codes on the
-    current CUDA device -> (M,) int64 indices, in the geometry of
-    :func:`launch_plan`."""
+    """The BMU kernel: (M, D) float32 patches x (K, D) float32 codes on one
+    CUDA device (any card of the process: the launch runs there) -> (M,)
+    int64 indices, in the geometry of :func:`launch_plan`."""
     _check_kernel_inputs(patches, codes)
     m, d = patches.shape
     k = codes.shape[0]
@@ -126,9 +126,9 @@ def fused_bmu(patches, codes):
         part_dot = torch.empty(splits, m, k, dtype=torch.float32, device=dev)
         part_sq = torch.empty(splits, k, dtype=torch.float32, device=dev)
         fn = cuda_build.function("bmu", "qaig_bmu_small_m", _ARGTYPES)
-        err = fn(patches.data_ptr(), codes.data_ptr(), m, k, d,
-                 plan["slice"], splits, out.data_ptr(), part_dot.data_ptr(),
-                 part_sq.data_ptr(), cuda_build.stream_handle(patches))
+        args = (patches.data_ptr(), codes.data_ptr(), m, k, d, plan["slice"],
+                splits, out.data_ptr(), part_dot.data_ptr(),
+                part_sq.data_ptr(), cuda_build.stream_handle(patches))
     else:
         part_dist = part_idx = None
         if splits > 1:
@@ -136,11 +136,13 @@ def fused_bmu(patches, codes):
                                     device=dev)
             part_idx = torch.empty(splits, m, dtype=torch.int32, device=dev)
         fn = cuda_build.function("bmu", "qaig_bmu", _ARGTYPES)
-        err = fn(patches.data_ptr(), codes.data_ptr(), m, k, d, splits,
-                 plan["tiles_per_split"], out.data_ptr(),
-                 None if part_dist is None else part_dist.data_ptr(),
-                 None if part_idx is None else part_idx.data_ptr(),
-                 cuda_build.stream_handle(patches))
+        args = (patches.data_ptr(), codes.data_ptr(), m, k, d, splits,
+                plan["tiles_per_split"], out.data_ptr(),
+                None if part_dist is None else part_dist.data_ptr(),
+                None if part_idx is None else part_idx.data_ptr(),
+                cuda_build.stream_handle(patches))
+    with torch.cuda.device(dev):
+        err = fn(*args)
     cuda_build.check("bmu", err)
     fused_bmu.launches += 1
     if plan["geometry"] == "small_m":
@@ -190,6 +192,3 @@ def _check_kernel_inputs(patches, codes):
         raise ValueError("fused_bmu: empty patches (D = 0)")
     if max(m, k, d) >= 2 ** 31:
         raise ValueError("fused_bmu: M, K or D does not fit a 32-bit int")
-    if patches.device.index != torch.cuda.current_device():
-        raise ValueError("fused_bmu: tensors are not on the current CUDA "
-                         "device")

@@ -3,7 +3,10 @@
 Every kernel source under ``qaig_tpu_torch/csrc/`` is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library with a plain C interface and
 loaded with ``ctypes``; tensors are passed as ``data_ptr()`` integers and
-the launch goes on PyTorch's current stream.  The sources include no
+the launch goes on PyTorch's current stream of the tensors' card, with that
+card made the current device around the call (every wrapper does this, so a
+launch works on any card of the process; the sources set their kernels'
+attributes once per device).  The sources include no
 PyTorch header, so a build takes seconds, where a
 ``torch.utils.cpp_extension`` build that compiles PyTorch's headers takes
 minutes.

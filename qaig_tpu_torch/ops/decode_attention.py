@@ -323,13 +323,15 @@ def _launch_split(q, k_shared, v_shared, k_block, v_block, index0,
     out = torch.empty_like(q)
     fn = cuda_build.function("decode_attention",
                              "qaig_prefix_split_attention", _SPLIT_ARGTYPES)
-    err = fn(q.data_ptr(), k_shared.data_ptr(), v_shared.data_ptr(),
-             k_scale.data_ptr() if quant else None,
-             v_scale.data_ptr() if quant else None,
-             k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
-             n, b, heads, dh, s, k_block.shape[2], int(index0),
-             int(block_index), plan["splits"], plan["chunk"], plan["stages"],
-             vec, _DTYPES[q.dtype], int(quant), cuda_build.stream_handle(q))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_shared.data_ptr(), v_shared.data_ptr(),
+                 k_scale.data_ptr() if quant else None,
+                 v_scale.data_ptr() if quant else None,
+                 k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
+                 n, b, heads, dh, s, k_block.shape[2], int(index0),
+                 int(block_index), plan["splits"], plan["chunk"],
+                 plan["stages"], vec, _DTYPES[q.dtype], int(quant),
+                 cuda_build.stream_handle(q))
     cuda_build.check("decode_attention", err)
     return out
 
@@ -360,9 +362,6 @@ def _check_tensors(name, q, prefix, k_scale, v_scale, k_block, v_block):
                              f"{x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {tname} is not contiguous")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: tensors are not on the current CUDA "
-                         "device")
 
 
 def _check_kernel_inputs(q, k_shared, v_shared, k_scale, v_scale, k_block,
@@ -721,14 +720,16 @@ def _launch_flat(q, k_il, v_il, k_scale, v_scale, k_block, v_block, index0,
     out = torch.empty_like(q)
     fn = cuda_build.function("decode_attention_flat", "qaig_flat_attention",
                              _FLAT_ARGTYPES)
-    err = fn(q.data_ptr(), k_il.data_ptr(), v_il.data_ptr(),
-             k_scale.data_ptr() if quant else None,
-             v_scale.data_ptr() if quant else None,
-             k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
-             n, b, plan["rollouts"], heads, dh, s, k_block.shape[2],
-             int(index0), int(block_index), plan["splits"], plan["chunk"],
-             plan["tile"], plan["stages"], vec, _DTYPES[q.dtype], int(quant),
-             float(math.sqrt(dh)), cuda_build.stream_handle(q))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k_il.data_ptr(), v_il.data_ptr(),
+                 k_scale.data_ptr() if quant else None,
+                 v_scale.data_ptr() if quant else None,
+                 k_block.data_ptr(), v_block.data_ptr(), out.data_ptr(),
+                 n, b, plan["rollouts"], heads, dh, s, k_block.shape[2],
+                 int(index0), int(block_index), plan["splits"],
+                 plan["chunk"], plan["tile"], plan["stages"], vec,
+                 _DTYPES[q.dtype], int(quant), float(math.sqrt(dh)),
+                 cuda_build.stream_handle(q))
     cuda_build.check("decode_attention_flat", err)
     return out
 

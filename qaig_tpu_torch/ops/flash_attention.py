@@ -220,7 +220,8 @@ def _backward_plan(dtype, dh, s, heads, n, sm_count, cluster):
 def fused_flash_attention_backward(q, k, v, out, dout, heads, causal):
     """The backward kernel: (dq, dk, dv) of :func:`flash_attention` at
     (q, k, v) with saved output ``out`` and output gradient ``dout``, all
-    (N, S, H*dh) on the current CUDA device in q's dtype; the function of
+    (N, S, H*dh) in q's dtype on one CUDA device (any card of the process:
+    the launch runs there); the function of
     :func:`flash_attention_backward`.  ``dout`` may be non-contiguous (as
     autograd hands it over).  Two launches (dq; dk and dv) with float32
     (N, H, S) scratch for each row's log-sum-exp and delta, in the geometry
@@ -259,12 +260,13 @@ def _backward(q, k, v, out, dout, heads, causal, plan=None):
                                device=q.device) for _ in range(2))
     fn = cuda_build.function("flash_attention_bwd",
                              "qaig_flash_attention_bwd", _BWD_ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             lse2.data_ptr(), delta.data_ptr(), n, s, heads, d // heads,
-             int(causal), _DTYPES[q.dtype], plan["rows"], plan["tile"],
-             plan["split"], plan["stages"], plan["cluster"],
-             cuda_build.stream_handle(q))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 dout.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), lse2.data_ptr(), delta.data_ptr(), n, s,
+                 heads, d // heads, int(causal), _DTYPES[q.dtype],
+                 plan["rows"], plan["tile"], plan["split"], plan["stages"],
+                 plan["cluster"], cuda_build.stream_handle(q))
     cuda_build.check("flash_attention_bwd", err)
     return dq, dk, dv
 
@@ -275,9 +277,10 @@ def _launch(q, k, v, heads, causal):
     out = torch.empty_like(q)
     fn = cuda_build.function("flash_attention", "qaig_flash_attention_fwd",
                              _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             n, s, heads, d // heads, int(causal), _DTYPES[q.dtype],
-             cuda_build.stream_handle(q))
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 n, s, heads, d // heads, int(causal), _DTYPES[q.dtype],
+                 cuda_build.stream_handle(q))
     cuda_build.check("flash_attention", err)
     flash_attention.launches += 1
     return out
@@ -314,6 +317,3 @@ def _check_kernel_inputs(q, k, v, heads):
         if x.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError("flash_attention: tensors are not on the current "
-                         "CUDA device")

@@ -151,11 +151,12 @@ def mlp2_fused(x, w0, b0, w1, b1, act_last=False, cluster=None):
         part = torch.empty(g.parts, s, g.grid_x * ROWS_PER_BLOCK, d2,
                            dtype=torch.float32, device=x.device)
     fn = cuda_build.function("mlp2_fused", "qaig_mlp2_fused", _ARGTYPES)
-    err = fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-             b1.data_ptr(), out.data_ptr(),
-             None if part is None else part.data_ptr(), n, d, s, hid, d2,
-             int(act_last), g.grid_x, g.cluster, g.parts, g.chunks_per_part,
-             cuda_build.stream_handle(x))
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
+                 b1.data_ptr(), out.data_ptr(),
+                 None if part is None else part.data_ptr(), n, d, s, hid,
+                 d2, int(act_last), g.grid_x, g.cluster, g.parts,
+                 g.chunks_per_part, cuda_build.stream_handle(x))
     cuda_build.check("mlp2_fused", err)
     mlp2_fused.launches += 1
     return out
@@ -198,6 +199,3 @@ def _check_kernel_inputs(x, w0, b0, w1, b1):
     if smem_bytes(d, d2) > MAX_SMEM:
         raise ValueError(f"mlp2_fused: D {d} needs {smem_bytes(d, d2)} "
                          f"bytes of shared memory, over {MAX_SMEM}")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError("mlp2_fused: tensors are not on the current CUDA "
-                         "device")

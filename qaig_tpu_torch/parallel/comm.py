@@ -244,7 +244,9 @@ class ModelShards:
     """A tensor-parallel MLP's link to its model group: ``copy`` before
     the first (column-split) linear, ``reduce`` after the second
     (row-split) one.  Shared, not copied, by ``copy.deepcopy`` (the EMA
-    copy of a sharded model)."""
+    copy of a sharded model).  ``sum_partials`` and ``zip`` are the seam
+    that ``parallel/local.py::LocalShards`` (the shards of one process's
+    cards) shares."""
 
     def __init__(self, group):
         self.group = group
@@ -254,6 +256,17 @@ class ModelShards:
 
     def reduce(self, y):
         return _ReduceFromShards.apply(y, self.group)
+
+    def sum_partials(self, fn, part, x):
+        """``fn(part, x)``, this rank's shard's partial product, summed
+        over the model group."""
+        return self.reduce(fn(part, self.copy(x)))
+
+    def zip(self, fn, *links):
+        """The link of a structure built from several MLPs' shards (the
+        packed QKV): this rank holds its shard of each, so the group's
+        link."""
+        return self
 
     def __deepcopy__(self, memo):
         return self

@@ -2,8 +2,9 @@
 ``qaig_tpu/serve.py``).
 
 A load-once/serve-many HTTP endpoint over the port's pipeline: the models
-load onto the card at startup and every request reuses them.  One
-dispatcher thread runs all of the card's work; ``torch.inference_mode``
+load onto the card (or each card of the pipeline's mesh) at startup and
+every request reuses them.  One dispatcher thread runs all of the cards'
+work; ``torch.inference_mode``
 and the current CUDA device are per-thread state, so the thread sets both
 itself.
 
@@ -26,7 +27,8 @@ Endpoints
 ``GET /metrics``                           serving counters: requests/images/
     errors totals, dispatch counts (+how many were coalesced), padded-row
     waste, dispatch latency (last/mean/max, and count and seconds per
-    padded batch size), queue depth, uptime.  JSON by
+    padded batch size), queue depth, uptime, and the mesh (``{"data",
+    "model", "devices"}``; JSON only).  JSON by
     default; Prometheus text exposition via ``?format=prometheus`` or an
     ``Accept: text/plain`` header (``qaig_``-prefixed gauges)
 ``POST /reload``                           re-read the checkpoints this
@@ -102,6 +104,19 @@ def _to_numpy(x):
     return np.asarray(x)
 
 
+def _mesh_of(pipeline):
+    """{"data", "model", "devices"} of the pipeline's mesh (one device and
+    1 x 1 without one; empty for a pipeline that names no device)."""
+    mesh = getattr(pipeline, "mesh", None)
+    if mesh is not None:
+        return {"data": mesh.size("data"), "model": mesh.size("model"),
+                "devices": [[str(d) for d in row] for row in mesh.grid]}
+    device = getattr(pipeline, "device", None)
+    if device is None:
+        return {}
+    return {"data": 1, "model": 1, "devices": [[str(device)]]}
+
+
 class RequestBatcher:
     """Coalesces concurrent generate requests into single device dispatches.
 
@@ -153,9 +168,11 @@ class RequestBatcher:
         self._thread.start()
 
     def metrics(self):
-        """Snapshot of the serving counters (plus queue depth + uptime)."""
+        """Snapshot of the serving counters (plus queue depth, uptime and
+        the pipeline's mesh: its data and model axes and its devices)."""
         with self._cv:
             snap = dict(self._stats)
+            snap["mesh"] = _mesh_of(self.pipeline)
             snap["dispatches_by_batch"] = {
                 str(size): dict(entry)
                 for size, entry in sorted(self._by_batch.items())}
@@ -226,7 +243,9 @@ class RequestBatcher:
 
     def _loop(self):
         # per-thread state: no autograd records, and the pipeline's card
-        # as the current CUDA device
+        # (its first replica's, over a mesh: the pipeline makes each
+        # replica's card current around its work) as the current CUDA
+        # device
         with torch.inference_mode():
             self._dispatch_forever()
 
@@ -329,8 +348,8 @@ class GenerationServer:
     ``max_batch`` bounds per-request work (memory and latency); concurrent
     requests coalesce through a :class:`RequestBatcher` into single padded
     device dispatches.  ``batch_multiple`` > 1 pads every dispatch to a
-    multiple (``qaig_tpu``'s sharded-generation mesh; the port's CLI serves
-    one card and keeps 1).
+    multiple (the data axis of the pipeline's mesh under ``--shard-batch``,
+    as in ``qaig_tpu``).
     """
 
     def __init__(self, pipeline, host="127.0.0.1", port=8000, max_batch=64,

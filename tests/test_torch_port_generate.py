@@ -302,5 +302,6 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
                  "cli.prune_codebook", "utils.torch_compat",
                  "utils.torch_export", "utils.torch_optim",
                  "cli.export_torch", "parallel.comm", "parallel.mesh",
-                 "parallel.sharding", "parallel.pipeline", "cli._args"):
+                 "parallel.sharding", "parallel.pipeline",
+                 "parallel.local", "cli._args"):
         assert f"'qaig_tpu_torch.{name}'" in proc.stdout, name

@@ -17,6 +17,7 @@ and the fused cascade's CUDA graphs.  This file imports no JAX, so its
 """
 
 import contextlib
+import gc
 import json
 import threading
 
@@ -124,6 +125,33 @@ def test_runner_failed_capture_raises_and_counts_nothing(stub_cuda):
     assert _counts() == start and runner.graphs == {}
     runner("key", _launching((1, 0)), inputs=(torch.zeros(1),))
     assert _counts() == (start[0] + 1, start[1])
+
+
+def test_runner_collects_garbage_before_a_capture(stub_cuda):
+    """Garbage in a reference cycle is collected before the capture
+    begins: a CUDA graph among it would otherwise be destroyed inside the
+    capture (at a collection the capture's allocations trigger), which
+    invalidates the capture."""
+    events = []
+
+    class Cyclic:
+        def __init__(self):
+            self.me = self
+
+        def __del__(self):
+            events.append("collected")
+
+    def fn(x):
+        events.append("captured")
+        return (x,)
+
+    gc.disable()
+    try:
+        Cyclic()
+        GraphRunner("cpu")("k", fn, inputs=(torch.zeros(1),))
+    finally:
+        gc.enable()
+    assert events == ["collected", "captured"]
 
 
 def test_runner_warms_up_once_per_thread(stub_cuda):

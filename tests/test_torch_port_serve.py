@@ -17,7 +17,6 @@ import base64
 import importlib
 import io
 import json
-import re
 import subprocess
 import sys
 import threading
@@ -527,17 +526,16 @@ def test_png_pixels_equal_pils_render():
     np.testing.assert_array_equal(np.asarray(mine), np.asarray(theirs))
 
 
-REFUSED = ("--shard-batch", "--num-model-shards", "--compilation-cache-dir",
-           "--compiler-options")
+REFUSED = ("--compilation-cache-dir", "--compiler-options")
 
 
 def test_serve_cli_flags_match_jax_cli(monkeypatch, capsys, tmp_path):
     """Every flag has the JAX CLI's name, type, default and required-ness
-    (``--device`` narrows its choices); the multi-card and XLA flags are
-    refused with an error naming the roadmap item (the parallel ones) or
-    XLA (the compiler ones), and that item is in the roadmap's queue 1;
-    ``--device cuda`` (the
-    default) raises where no GPU is visible."""
+    (``--device`` narrows its choices); the XLA flags are refused with an
+    error naming XLA, and ``--shard-batch`` / ``--num-model-shards`` are
+    taken (``tests/test_torch_port_serve_sharded.py`` drives them);
+    ``--device cuda`` (the default) raises where no GPU is visible, with
+    or without them."""
     import argparse
     from qaig_tpu.cli import serve_generation as jax_cli
     from qaig_tpu_torch.cli import serve_generation as cli
@@ -574,22 +572,16 @@ def test_serve_cli_flags_match_jax_cli(monkeypatch, capsys, tmp_path):
     config = tmp_path / "gen.json"
     config.write_text("{}")
     required = ["--config-path", str(config), "--decoder-path", "d.pt"]
-    reasons = (('ROADMAP.md queue 1, "Serving over several cards in one '
-                'process"',) * 2 + ("XLA-only",) * 2)
-    for flag, value, reason in zip(REFUSED, ([], ["2"], ["cache"], ["a=1"]),
-                                   reasons):
+    for flag, value in zip(REFUSED, (["cache"], ["a=1"])):
         with pytest.raises(SystemExit):
             cli.main(required + [flag] + value)
         err = capsys.readouterr().err
-        assert f"{flag}: " in err and reason in err, (flag, err)
-    roadmap = (REPO / "ROADMAP.md").read_text()
-    assert re.search(
-        r"^\d+\. \*\*Serving over several cards in one process\.\*\*",
-        roadmap, re.M)
+        assert f"{flag}: " in err and "XLA-only" in err, (flag, err)
     if torch.cuda.is_available():
         return
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        cli.main(required)
+    for extra in ([], ["--shard-batch"], ["--num-model-shards", "2"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(required + extra)
 
 
 def test_serve_cli_end_to_end_over_http(gen_config, tmp_path):
