@@ -150,9 +150,27 @@ Phases (any failure exits non-zero and prints no result line):
    equal to one card's, MLP shards of hidden/2 rows, ``fused=True``
    raises; (d) the serve CLI with ``--shard-batch`` as a subprocess
    (``data=1 x model=1``, a request's tokens), and ``--num-model-shards
-   2``'s refusal on one card.
+   2``'s refusal on one card;
+13. data plane -- the native batch loaders (``qaig_tpu_torch/native``,
+   built with ``g++``): (a) 64 seeded 128x128x3 PNGs whose rows use all
+   five filters, mostly Paeth and Average, decoded by the plain decoder
+   (``utils/png.py``) and by ``load_image_batch``, bit-equal, seconds per
+   image of both and the ``DataLoader``'s batches per second at batch 8;
+   (b) ``train_autoencoder`` (6 bf16 steps) and ``generate_fmap_dataset``
+   over those files as subprocesses, the feature maps' seconds split into
+   process start, checkpoint load, decoding and device work; (c) ``python
+   -m qaig_tpu_torch.scripts.eval_quality``'s ``main`` on the card over
+   phase 9's codebooks and a copy of its autoencoder whose weights are 3x
+   (one BMU launch a batch a codebook, the LR codebook's small-M), PSNRs
+   within 1e-3 dB of a CPU run, the codebook PSNRs more than 0.01 dB from
+   the reconstruction's; (d) ``generate.run`` with ``devices=[cuda:0,
+   cuda:0]`` (data 2), float32, greedy, dispatched by default: tokens
+   equal the one-card run's, the mesh line printed, ``fused=True``
+   raises.
 
-The kernels' launch counts are set to 0 before each main path's run and
+Each phase's wall seconds are printed on a line of their own
+(``[seconds] phase ...``), and the run's total after the last.  The
+kernels' launch counts are set to 0 before each main path's run and
 read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi`` name and power limit, and, last, the device JSON line.
 ``--json-out PATH`` also writes every per-shape measurement there;
@@ -162,6 +180,7 @@ take the time).
 """
 
 import argparse
+import contextlib
 import ctypes
 import json
 import subprocess
@@ -3311,7 +3330,8 @@ def run_front_path(torch, workdir, device="cuda"):
         f"{pruned['num_embeddings']} of 512 codes kept in "
         f"{res['seconds']:.3f} s; fused_bmu calls {want}")
     return launches, timings, {"dataset": dataset, "decoder": decoder,
-                               "fmaps": fmaps / "all_dataset.json"}
+                               "fmaps": fmaps / "all_dataset.json",
+                               "books": books}
 
 
 # ---------------------------------------------------------------------------
@@ -4296,6 +4316,402 @@ CHECKS = {"decode": check_decode, "flash": check_flash,
           "bmu": check_bmu, "flat": check_flat, "mlp": check_mlp}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the data plane
+# ---------------------------------------------------------------------------
+
+DATA = dict(images=64, side=128, batch=8, steps=6, checkpoint_step=3,
+            # each row's filter, cycled: mostly Paeth and Average, as
+            # libpng's adaptive choice leaves photographs, and the others
+            filters=(4, 3, 4, 4, 3, 1, 4, 3, 2, 4, 3, 0),
+            eval_batch=8, eval_images=16, gen_images=4, gen_seed=3)
+
+
+def write_filtered_images(root, n, side, seed=1):
+    """``n`` seeded side x side x 3 PNGs with filtered rows
+    (``DATA["filters"]``) and their manifest; returns (manifest, paths)."""
+    import numpy as np
+    from qaig_tpu_torch.data.manifest import write_manifest
+    from qaig_tpu_torch.utils import png
+    folder = Path(root) / "images"
+    folder.mkdir(parents=True)
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:side, 0:side] / side
+    paths = []
+    for i in range(n):
+        phase = rng.uniform(0, 2 * np.pi, 3)
+        base = 127.5 + 100 * np.sin(2 * np.pi * (xx[..., None] * phase / 3
+                                                 + yy[..., None]) + phase)
+        pixels = np.clip(base + rng.normal(0, 10, (side, side, 3)), 0, 255)
+        path = folder / f"{i}.png"
+        path.write_bytes(png.encode(pixels.astype(np.uint8),
+                                    DATA["filters"]))
+        paths.append(str(path))
+    manifest = write_manifest(Path(root) / "dataset.json", [
+        {"image_fpath": p, "labels": []} for p in paths])
+    return manifest, paths
+
+
+def _scaled_weights(tree, factor):
+    """A checkpoint's parameter tree with every array of more than one
+    dimension (the convolutions' and dense layers' kernels) times
+    ``factor``."""
+    import numpy as np
+    if isinstance(tree, dict):
+        return {k: _scaled_weights(v, factor) for k, v in tree.items()}
+    if np.ndim(tree) > 1:
+        return np.asarray(tree) * np.asarray(factor, np.asarray(tree).dtype)
+    return tree
+
+
+# runs the feature-map CLI's main() in a fresh process and splits its
+# seconds: process start (interpreter, imports, CUDA set-up; from the
+# parent's clock at the process's start), checkpoint load, decoding (the
+# items' decode time summed over the loader's threads, and the time the
+# encoding loop waited for a batch), device work (the encoder's forward,
+# synchronised) and the rest (host copies, file writes, the manifest)
+FMAP_RUNNER = """
+import json, sys, threading, time
+t_parent = float(sys.argv[1])
+import torch
+import chip_smoke
+from qaig_tpu_torch.cli import generate_fmap_dataset as cli
+from qaig_tpu_torch.data import image_dataset
+from qaig_tpu_torch.train import fmap
+argv = sys.argv[2:]
+device = argv[argv.index("--device") + 1]
+torch.zeros(1, device=device)
+chip_smoke.synchronize(torch, device)
+split = {"process_start_s": time.time() - t_parent, "read_s": 0.0,
+         "restore_s": 0.0, "decode_items_s": 0.0, "decode_wait_s": 0.0,
+         "device_s": 0.0}
+lock = threading.Lock()
+def sync():
+    chip_smoke.synchronize(torch, device)
+load_model, build = fmap.load_model, fmap.encoder_from_checkpoint
+def timed_load(*a, **kw):
+    t0 = time.perf_counter()
+    out = load_model(*a, **kw)
+    split["read_s"] += time.perf_counter() - t0
+    return out
+def timed_build(*a, **kw):
+    t0 = time.perf_counter()
+    model, cfg = build(*a, **kw)
+    sync()
+    split["restore_s"] += time.perf_counter() - t0
+    forward = model.forward
+    def timed_forward(x):
+        sync()
+        t0 = time.perf_counter()
+        y = forward(x)
+        sync()
+        split["device_s"] += time.perf_counter() - t0
+        return y
+    model.forward = timed_forward
+    return model, cfg
+getitem = image_dataset.ImageDataset.__getitem__
+def timed_getitem(self, index):
+    t0 = time.perf_counter()
+    out = getitem(self, index)
+    with lock:
+        split["decode_items_s"] += time.perf_counter() - t0
+    return out
+batches = fmap.DataLoader.__iter__
+def timed_iter(self):
+    it = batches(self)
+    while True:
+        t0 = time.perf_counter()
+        try:
+            item = next(it)
+        except StopIteration:
+            return
+        finally:
+            split["decode_wait_s"] += time.perf_counter() - t0
+        yield item
+fmap.load_model, fmap.encoder_from_checkpoint = timed_load, timed_build
+image_dataset.ImageDataset.__getitem__ = timed_getitem
+fmap.DataLoader.__iter__ = timed_iter
+t0 = time.perf_counter()
+cli.main(argv)
+sync()
+split["main_s"] = time.perf_counter() - t0
+split["load_s"] = split["read_s"] + split["restore_s"]
+split["rest_s"] = split["main_s"] - split["load_s"] - \\
+    split["decode_wait_s"] - split["device_s"]
+print("SPLIT " + json.dumps(split))
+"""
+
+
+def run_fmap_split(argv, device="cuda"):
+    """``generate_fmap_dataset``'s seconds, split (``FMAP_RUNNER``)."""
+    import os
+    repo = Path(__file__).resolve().parent
+    start = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-c", FMAP_RUNNER, repr(start),
+         *[str(a) for a in argv], "--device", device],
+        cwd=repo, env=dict(os.environ), capture_output=True, text=True,
+        timeout=600)
+    total = time.time() - start
+    lines = [ln for ln in proc.stdout.splitlines()
+             if ln.startswith("SPLIT ")]
+    if proc.returncode != 0 or not lines:
+        raise SystemExit(f"generate_fmap_dataset failed (exit "
+                         f"{proc.returncode}):\n"
+                         + (proc.stdout + proc.stderr)[-4000:])
+    split = json.loads(lines[-1][len("SPLIT "):])
+    split["total_s"] = total
+    return split
+
+
+def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
+                  device="cuda"):
+    """Phase 13: the data plane (``qaig_tpu_torch/native``).  (a) 64
+    seeded 128x128x3 PNGs with filtered rows (``DATA["filters"]``) decoded
+    item by item by the plain decoder (``utils/png.py``) and in batches of
+    8 by ``native.load_image_batch``: bit-equal slabs, seconds per image
+    of both, and the ``DataLoader``'s batches per second at batch 8.  (b)
+    ``train_autoencoder`` (6 bf16 steps at batch 8) and
+    ``generate_fmap_dataset`` over those files as subprocesses: seconds
+    per step beside phase 9's, and feature maps' seconds split
+    (``FMAP_RUNNER``).  (c) ``eval_quality`` on the card over phase 9's
+    codebooks and 16 of the files, with a copy of phase 9's autoencoder
+    whose weights are 3x: one BMU launch a batch a codebook (the LR
+    codebook's in the small-M geometry), PSNRs within 1e-3 dB of a CPU
+    run, and the codebook PSNRs more than 0.01 dB from the
+    reconstruction's, so that a wrong code would show.  (d)
+    ``generate.run`` with ``devices=[cuda:0, cuda:0]`` (data 2), float32,
+    greedy, dispatched by default, 4 images: tokens equal to the one-card
+    run's, the mesh line printed, A 2 x 37 and B 2 x 2345, ``fused=True``
+    raises.  Returns (launches by path, timings)."""
+    import contextlib
+    import io
+    import numpy as np
+    from qaig_tpu_torch import native
+    from qaig_tpu_torch.data.image_dataset import ImageDataset
+    from qaig_tpu_torch.data.loader import DataLoader
+    from qaig_tpu_torch.infer import decode, generate
+    from qaig_tpu_torch.scripts import eval_quality
+    from qaig_tpu_torch.utils import png
+
+    d = DATA
+    repo = Path(__file__).resolve().parent
+    root = Path(workdir) / "data"
+    launches, out = {}, {}
+
+    # (a) decoding
+    t0 = time.perf_counter()
+    dataset, paths = write_filtered_images(root, d["images"], d["side"])
+    write_s = time.perf_counter() - t0
+    try:
+        import PIL
+        pil = f"PIL {PIL.__version__} imports (not used: png.encode " \
+              f"writes the files)"
+    except ImportError:
+        pil = "PIL does not import (png.encode writes the files)"
+    t0 = time.perf_counter()
+    for name in ("image_loader", "npy_loader"):
+        native.build(name)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = np.stack([np.ascontiguousarray(
+        ((png.read_bgr(p).astype(np.float32) - 127.5) / 127.5)
+        .transpose(2, 0, 1)) for p in paths])
+    plain_s = time.perf_counter() - t0
+    b = d["batch"]
+    t0 = time.perf_counter()
+    slab = np.concatenate([native.load_image_batch(paths[i:i + b], d["side"],
+                                                   d["side"])
+                           for i in range(0, len(paths), b)])
+    batch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    items = np.stack([native.load_image(p) for p in paths])
+    item_s = time.perf_counter() - t0
+    if not (np.array_equal(slab, plain) and np.array_equal(items, plain)):
+        raise SystemExit(f"13 (a): the native decoder differs from the plain "
+                         f"one on {int((slab != plain).sum())} (batch) / "
+                         f"{int((items != plain).sum())} (item) values")
+    loader = DataLoader(ImageDataset(dataset), batch_size=b, shuffle=False)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    loader_s = time.perf_counter() - t0
+    if not np.array_equal(np.concatenate(batches), plain):
+        raise SystemExit("13 (a): the loader's batches differ from the plain "
+                         "decoder's")
+    n = len(paths)
+    out["decode"] = {
+        "plain_s_per_image": plain_s / n, "native_batch_s_per_image":
+        batch_s / n, "native_item_s_per_image": item_s / n,
+        "loader_batches_per_s": len(batches) / loader_s,
+        "write_s": write_s, "build_s": build_s}
+    log(f"[data] 13 (a) {n} PNGs of {d['side']}x{d['side']}x3, rows "
+        f"filtered {d['filters']} (cycled), written in {write_s:.1f} s; "
+        f"{pil}; native library built in {build_s:.1f} s (g++)")
+    log(f"[data] 13 (a) decode, host seconds per image: plain (utils/png.py, "
+        f"one by one) {plain_s / n:.5f}, native in batches of {b} "
+        f"{batch_s / n:.6f} ({plain_s / batch_s:.1f}x), native one by one "
+        f"{item_s / n:.6f}; slabs bit-equal; DataLoader at batch {b} "
+        f"(load_batch): {len(batches) / loader_s:.1f} batches/s")
+
+    # (b) the front of the pipeline over the filtered files
+    common = ["--batch-size", b, "--max-steps", d["steps"],
+              "--checkpoint-step", d["checkpoint_step"]]
+    ae_out = root / "ae_bf16"
+    res = run_cli("train_autoencoder", "autoencoder", [
+        "--dataset-path", dataset, "--config-path", repo / FRONT[
+            "autoencoder"], "--out-dir", ae_out, *common, "--bf16"], device)
+    losses = _finite_losses(ae_out, d["steps"])
+    step = _step_mean(res["step_s"])
+    phase9 = front_timings["autoencoder_bf16"]["step_mean_s"]
+    out["autoencoder_bf16"] = {"step_s": res["step_s"], "step_mean_s": step,
+                               "phase9_step_mean_s": phase9,
+                               "seconds": res["seconds"], "losses": losses}
+    log(f"[data] 13 (b) train_autoencoder bf16 over the filtered PNGs: "
+        f"{d['steps']} graphed steps at batch {b}, {step:.4f} s per step "
+        f"(steps 1-5; all {[round(x, 4) for x in res['step_s']]}) against "
+        f"phase 9's {phase9:.4f} s over unfiltered PNGs in this run (PERF "
+        f"§5: 0.0080 s); {res['seconds']:.3f} s for main(); losses "
+        f"{[round(x, 5) for x in losses]}")
+    split = run_fmap_split([
+        "--dataset-path", dataset, "--model-path", front_paths["decoder"],
+        "--out-dir", root / "fmaps", "--batch-size", b], device)
+    out["fmap_split"] = split
+    log(f"[data] 13 (b) generate_fmap_dataset over the {n} filtered PNGs in "
+        f"{split['total_s']:.3f} s: process start (interpreter, imports, "
+        f"CUDA set-up) {split['process_start_s']:.3f} s, checkpoint load "
+        f"{split['load_s']:.3f} s (read and unpickle "
+        f"{split['read_s']:.3f} s, the encoder built and restored on the "
+        f"card {split['restore_s']:.3f} s), decoding "
+        f"{split['decode_wait_s']:.3f} s "
+        f"waited for ({split['decode_items_s']:.3f} s of item decodes on "
+        f"the loader's threads), device work {split['device_s']:.3f} s, the "
+        f"rest (host copies, file writes) {split['rest_s']:.3f} s")
+
+    # (c) eval_quality on the card, then on the CPU, over a copy of phase
+    # 9's autoencoder whose weights are 3x (the CPU test's scale): phase
+    # 9's own decodes every latent to nearly one image, so its codebook
+    # PSNRs sit ~3e-7 dB from its reconstruction's and no wrong code could
+    # show; the copy's stand apart
+    from qaig_tpu_torch.utils.checkpoint import load_model, save_model
+    _, ckpt = load_model(front_paths["decoder"])
+    if not save_model(dict(ckpt, model=_scaled_weights(ckpt["model"], 3)),
+                      root / "ae_x3", "model.pt"):
+        raise SystemExit("13 (c): the scaled autoencoder was not written")
+    model = root / "ae_x3" / "models_checkpoint" / "model.pt"
+    books = front_paths["books"]
+    argv = [str(a) for a in (
+        "--dataset-path", dataset, "--model-path", model,
+        "--codebook-path", books["hr"], "--codebook-path", books["lr"],
+        "--batch-size", d["eval_batch"], "--max-images", d["eval_images"])]
+    buf = io.StringIO()
+    synchronize(torch, device)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        card = eval_quality.main(argv + ["--device", device])
+    synchronize(torch, device)
+    card_s = time.perf_counter() - t0
+    launches["eval_quality"] = read_launches()
+    printed = buf.getvalue().strip().splitlines()[-1]
+    n_batches = -(-d["eval_images"] // d["eval_batch"])
+    _check_launches("13 (c) eval_quality", launches["eval_quality"], {
+        "fused_bmu": 2 * n_batches, "fused_bmu_small_m": n_batches})
+    t0 = time.perf_counter()
+    cpu = eval_quality.evaluate(dataset, model, [books["hr"], books["lr"]],
+                                d["eval_batch"], d["eval_images"], "cpu")
+    cpu_s = time.perf_counter() - t0
+    diffs = {"recon": abs(card["psnr_recon_db"] - cpu["psnr_recon_db"])}
+    apart = {}
+    for key in ("hr", "lr"):
+        book = str(books[key])
+        diffs[key] = abs(card["psnr_quantized_db"][book]
+                         - cpu["psnr_quantized_db"][book])
+        apart[key] = min(abs(r["psnr_quantized_db"][book]
+                             - r["psnr_recon_db"]) for r in (card, cpu))
+    out["eval_quality"] = {"card": card, "cpu": cpu, "abs_diff_db": diffs,
+                           "quantized_apart_db": apart, "card_s": card_s,
+                           "cpu_s": cpu_s}
+    log(f"[data] 13 (c) eval_quality --device cuda over phase 9's "
+        f"autoencoder with 3x weights and phase 9's HR / LR codebooks, "
+        f"{card['num_images']} images at batch {d['eval_batch']}: {printed} "
+        f"in {card_s:.3f} s; fused_bmu launches "
+        f"{launches['eval_quality']['fused_bmu']} (one a batch a codebook), "
+        f"{launches['eval_quality']['fused_bmu_small_m']} of them small-M "
+        f"(the LR codebook's); |card - CPU| in dB "
+        f"{ {k: float(f'{v:.2e}') for k, v in diffs.items()} }; |quantized "
+        f"- recon| in dB, the smaller of card and CPU "
+        f"{ {k: float(f'{v:.4g}') for k, v in apart.items()} } (CPU run "
+        f"{cpu_s:.1f} s)")
+    if card["num_images"] != d["eval_images"] or \
+            max(diffs.values()) > 1e-3:
+        raise SystemExit(f"13 (c): eval_quality on the card and on the CPU "
+                         f"differ: {diffs}")
+    if min(apart.values()) <= 0.01:
+        raise SystemExit(f"13 (c): a codebook's PSNR is within 0.01 dB of "
+                         f"the reconstruction's ({apart}), so the comparison "
+                         f"could not see a wrong code")
+
+    # (d) generate.run over a mesh of cuda:0 twice
+    config_path, decoder_path, _ = cascade_paths
+    args = {"device": device, "config_path": str(config_path),
+            "decoder_path": str(decoder_path), "num_images": d["gen_images"],
+            "seed": d["gen_seed"]}
+    two = [f"{device}:0"] * 2
+    try:
+        generate.run(dict(args, fused=True, out_dir=str(root / "gen_f")),
+                     devices=two)
+        raise SystemExit("13 (d): fused=True on a 2-card mesh did not raise")
+    except ValueError as e:
+        refusal = str(e)
+    plan = [("one_card", two[:1], {"fused": False}, 1),
+            ("data2", two, {}, 2)]
+    sample = decode._categorical
+    decode._categorical = lambda logits, draw: logits.argmax(dim=-1)
+    runs = {}
+    try:
+        for name, devices, extra, _ in plan:
+            buf = io.StringIO()
+            synchronize(torch, device)
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                tokens = generate.run(dict(args, **extra, out_dir=str(
+                    root / f"gen_{name}")), devices=devices)
+            synchronize(torch, device)
+            runs[name] = {"tokens": tokens.cpu(), "log": buf.getvalue(),
+                          "seconds": time.perf_counter() - t0,
+                          "launches": read_launches()}
+    finally:
+        decode._categorical = sample
+    launches["generate_mesh"] = runs["data2"]["launches"]
+    want = runs["one_card"]["tokens"]
+    for name, _, _, n_data in plan:
+        got, log_text = runs[name]["tokens"], runs[name]["log"]
+        first = _first_difference(got, want)
+        if got.shape != (d["gen_images"], want.shape[1]) or \
+                first is not None:
+            raise SystemExit(f"13 (d) {name}: tokens differ from the "
+                             f"one-card run's (first at {first})")
+        _check_launches(f"13 (d) {name}", runs[name]["launches"],
+                        {k: n_data * v for k, v in CASCADE_LAUNCHES.items()})
+        line = f"Generation mesh: data={n_data} x model=1"
+        if line not in log_text or "Fused" in log_text:
+            raise SystemExit(f"13 (d) {name}: no '{line}' line, or not "
+                             f"dispatched:\n{log_text}")
+    out["generate_mesh"] = {name: {"seconds": r["seconds"]}
+                            for name, r in runs.items()}
+    seconds = {name: round(r["seconds"], 3) for name, r in runs.items()}
+    log(f"[data] 13 (d) generate.run, float32, greedy, {d['gen_images']} "
+        f"images: devices=[{two[0]}, {two[0]}] (data 2, dispatched by "
+        f"default, stages read once) gives the one-card run's tokens; "
+        f"'{runs['data2']['log'].splitlines()[0]}' printed; seconds "
+        f"{seconds} (both replicas on one card, in turn: no scaling is "
+        f"measured); launches "
+        f"{ {k: launches['generate_mesh'][k] for k in CASCADE_LAUNCHES} }; "
+        f"fused=True raises: {refusal}")
+    return launches, out
+
+
 def repeat_paths(torch, runs):
     """``--repeat-paths``: the generation and training main paths only,
     ``runs`` times each in turns after one untimed warm-up run of each, in
@@ -4316,6 +4732,21 @@ def repeat_paths(torch, runs):
                 out["generate_s"].append(gen["run_s"])
                 out["train_step_s"].append(train["step_mean_s"])
     print(json.dumps({"repeat_paths": out}), flush=True)
+
+
+START = time.perf_counter()
+PHASE_SECONDS = {}
+
+
+@contextlib.contextmanager
+def phase(name):
+    """Time a phase's wall seconds and print them on their own line."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t0
+        log(f"[seconds] phase {name}: {PHASE_SECONDS[name]:.1f} s")
 
 
 def kernels_line(records, launches_by_path):
@@ -4370,10 +4801,16 @@ def main():
                         help="phases 1-2, phase 5's cascade, then phase 12 "
                              "(serving over a mesh) only; prints its "
                              "timings, no result line")
+    parser.add_argument("--data-only", action="store_true",
+                        help="phases 1-2, phase 5's cascade, phase 9 (the "
+                             "front's checkpoints), then phase 13 (the data "
+                             "plane) only; prints its timings, no result "
+                             "line")
     args = parser.parse_args()
 
     import torch
-    name, smi = phase_device(torch)
+    with phase("1 device"):
+        name, smi = phase_device(torch)
     if args.repeat_paths:
         repeat_paths(torch, args.repeat_paths)
         return 0
@@ -4394,7 +4831,19 @@ def main():
         print(json.dumps({"mesh": timings}))
         return 0
 
-    phase_build()
+    if args.data_only:
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as wd:
+            paths = write_full_cascade(torch, wd, 0)
+            _, front, front_paths = run_front_path(torch, wd)
+            with phase("13 data plane"):
+                _, timings = run_data_path(torch, wd, front_paths, front,
+                                           paths)
+        print(json.dumps({"data": timings}, default=str))
+        return 0
+
+    with phase("2 build"):
+        phase_build()
     timer = Timer(torch)
     records = []
     if args.kernels_only is not None:
@@ -4403,51 +4852,73 @@ def main():
         for rec in records:
             print(json.dumps({"record": rec}), flush=True)
         return 0
-    for check in CHECKS.values():
-        check(torch, timer, records)
+    with phase("3 kernels"):
+        for check in CHECKS.values():
+            check(torch, timer, records)
     del timer
-    for quantized_prefix in (False, True):
-        check_reference(torch, quantized_prefix=quantized_prefix)
-        check_flat_reference(torch, quantized_prefix=quantized_prefix)
-    check_train_reference(torch)
-    check_train_reference(torch, bf16=True)
+    with phase("4 reference"):
+        for quantized_prefix in (False, True):
+            check_reference(torch, quantized_prefix=quantized_prefix)
+            check_flat_reference(torch, quantized_prefix=quantized_prefix)
+        check_train_reference(torch)
+        check_train_reference(torch, bf16=True)
     with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as workdir:
-        t0 = time.perf_counter()
-        paths = write_full_cascade(torch, workdir, 0)
-        log(f"[main] full-width cascade written in "
-            f"{time.perf_counter() - t0:.1f} s")
         launches = {}
-        launches["generate"], timings, reference = run_main_path(
-            torch, workdir, paths, profile=args.profile)
-        launches["generate_fused"], timings["fused"], fused_ref = \
-            run_fused_path(torch, workdir, paths, reference)
+        with phase("5 generation"):
+            t0 = time.perf_counter()
+            paths = write_full_cascade(torch, workdir, 0)
+            log(f"[main] full-width cascade written in "
+                f"{time.perf_counter() - t0:.1f} s")
+            launches["generate"], timings, reference = run_main_path(
+                torch, workdir, paths, profile=args.profile)
+        with phase("5f fused generation"):
+            launches["generate_fused"], timings["fused"], fused_ref = \
+                run_fused_path(torch, workdir, paths, reference)
         del reference
-        launches["flat_generate"], timings["flat"] = run_flat_path(
-            torch, paths)
-        launches["train"], timings["train"] = run_train_path(
-            torch, workdir, profile=args.profile)
-        timings["train"]["compare"] = compare_train_steps(torch, workdir)
-        launches["train_f32"], timings["train_f32"] = run_train_path(
-            torch, workdir, bf16=False)
-        timings["train_f32"]["compare"] = compare_train_steps(
-            torch, workdir, bf16=False)
-        launches["pipeline"], timings["serve"] = run_serve_path(torch,
-                                                                paths)
-        launches["probe"], timings["probe"] = run_probe_path(torch)
-        front, timings["front"], front_paths = run_front_path(torch,
-                                                              workdir)
-        launches.update(front)
-        timings["front"]["reference"] = check_front_reference(torch,
-                                                              front_paths)
-        timings["front"]["compare"] = compare_front_steps(torch)
-        timings["front"]["traced_alone"] = traced_replays_alone(workdir)
-        launches["interchange"], timings["interchange"] = \
-            run_interchange_path(torch, workdir, paths, fused_ref)
-        parallel_launches, timings["parallel"] = run_parallel_path(
-            torch, workdir, paths)
-        launches.update(parallel_launches)
-        mesh_launches, timings["mesh"] = run_mesh_serve_path(torch, paths)
-        launches.update(mesh_launches)
+        with phase("5b flat decode"):
+            launches["flat_generate"], timings["flat"] = run_flat_path(
+                torch, paths)
+        with phase("6 training"):
+            launches["train"], timings["train"] = run_train_path(
+                torch, workdir, profile=args.profile)
+            timings["train"]["compare"] = compare_train_steps(torch, workdir)
+            launches["train_f32"], timings["train_f32"] = run_train_path(
+                torch, workdir, bf16=False)
+            timings["train_f32"]["compare"] = compare_train_steps(
+                torch, workdir, bf16=False)
+        with phase("7 serving"):
+            launches["pipeline"], timings["serve"] = run_serve_path(torch,
+                                                                    paths)
+        with phase("8 probe"):
+            launches["probe"], timings["probe"] = run_probe_path(torch)
+        with phase("9 front"):
+            front, timings["front"], front_paths = run_front_path(torch,
+                                                                  workdir)
+            launches.update(front)
+        with phase("4d front reference"):
+            timings["front"]["reference"] = check_front_reference(
+                torch, front_paths)
+        with phase("9 (b)-(c) front graphs"):
+            timings["front"]["compare"] = compare_front_steps(torch)
+            timings["front"]["traced_alone"] = traced_replays_alone(workdir)
+        with phase("10 interchange"):
+            launches["interchange"], timings["interchange"] = \
+                run_interchange_path(torch, workdir, paths, fused_ref)
+        with phase("11 parallel"):
+            parallel_launches, timings["parallel"] = run_parallel_path(
+                torch, workdir, paths)
+            launches.update(parallel_launches)
+        with phase("12 serving over a mesh"):
+            mesh_launches, timings["mesh"] = run_mesh_serve_path(torch,
+                                                                 paths)
+            launches.update(mesh_launches)
+        with phase("13 data plane"):
+            data_launches, timings["data"] = run_data_path(
+                torch, workdir, front_paths, timings["front"], paths)
+            launches.update(data_launches)
+    timings["phase_s"] = dict(PHASE_SECONDS)
+    log(f"[seconds] total: {time.perf_counter() - START:.1f} s (phases "
+        f"{ {k: round(v, 1) for k, v in PHASE_SECONDS.items()} })")
 
     line = kernels_line(records, launches)
     if args.json_out:

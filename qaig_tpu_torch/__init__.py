@@ -1,8 +1,9 @@
 """qaig_tpu_torch -- the PyTorch / CUDA port of ``qaig_tpu``.
 
 The port mirrors ``qaig_tpu``'s module tree (``ops``, ``models``, ``infer``,
-``train``, ``parallel``, ``data``, ``utils``, ``cli``, and ``scripts`` for
-the repo's ``scripts/``) so each counterpart is found by its path.  It
+``train``, ``parallel``, ``data``, ``native``, ``utils``, ``cli``, and
+``scripts`` for the repo's ``scripts/``) so each counterpart is found by
+its path.  It
 imports ``torch`` and never ``jax`` or anything of ``qaig_tpu``: it reads
 and writes the same numpy-pickle checkpoints and converts the parameter
 layouts itself (``qaig_tpu_torch.convert``).

@@ -1,14 +1,21 @@
 """Batching data loader with background prefetch (counterpart of
 ``qaig_tpu/data/loader.py``).
 
-A worker thread stacks numpy batches into a small queue (items fan out over
-a thread pool: ``np.load`` releases the GIL) so the card never waits on
-file reads; the caller moves each batch to its device.  The order is the
-JAX package's: with ``shuffle``, one ``np.random.default_rng(seed)``
-permutation per epoch; with ``drop_remainder`` (the default) the last
-partial batch is dropped, else it is the last batch.  The same seed gives
-the same batches.  Items that are tuples, such as ``(image, path)``,
-batch column by column: arrays are stacked, anything else is listed.
+A worker thread puts numpy batches into a small queue (``prefetch``
+batches ahead) so the card never waits on file reads; the caller moves
+each batch to its device.  A dataset with a ``load_batch(indices,
+num_threads)`` method (``ImageDataset`` and ``FeatureMapDataset``: the
+data plane's native batch loaders) gives each batch in one call, over
+``num_workers`` threads; where it returns ``None``, or the dataset has
+none, the items fan out over ``num_workers`` threads (``np.load`` and the
+native decoder release the GIL) and are stacked.
+
+The order is the JAX package's: with ``shuffle``, one
+``np.random.default_rng(seed)`` permutation per epoch; with
+``drop_remainder`` (the default) the last partial batch is dropped, else
+it is the last batch.  The same seed gives the same batches.  Items that
+are tuples, such as ``(image, path)``, batch column by column: arrays are
+stacked, anything else is listed.
 
 ``batch_size`` is the global batch.  Under data parallelism every rank
 draws the same order and yields only its contiguous ``batch_size /
@@ -24,10 +31,6 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 
-PREFETCH = 2      # batches read ahead
-NUM_WORKERS = 4   # item reads in flight
-
-
 def _stack(samples):
     if isinstance(samples[0], (tuple, list)):
         return tuple(np.stack(c) if isinstance(c[0], np.ndarray) else list(c)
@@ -37,7 +40,8 @@ def _stack(samples):
 
 class DataLoader:
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 drop_remainder=True, process_index=0, process_count=1):
+                 drop_remainder=True, prefetch=2, process_index=0,
+                 process_count=1, num_workers=4):
         if batch_size % process_count:
             raise ValueError(
                 f"global batch {batch_size} not divisible by "
@@ -48,6 +52,8 @@ class DataLoader:
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_remainder = drop_remainder
+        self.prefetch = prefetch            # batches read ahead
+        self.num_workers = num_workers      # threads a batch's reads use
         self._rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -73,15 +79,20 @@ class DataLoader:
         """Iterate over batches (numpy arrays, or tuples of columns), read
         ahead by a worker thread; an abandoned iterator releases the
         worker."""
-        q = queue.Queue(maxsize=PREFETCH)
+        q = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         error = []
         stop = threading.Event()
-        pool = ThreadPoolExecutor(max_workers=NUM_WORKERS)
+        pool = ThreadPoolExecutor(max_workers=self.num_workers)
+        load_batch = getattr(self.dataset, "load_batch", None)
 
         def fetch(idx_batch):
-            return _stack(list(pool.map(self.dataset.__getitem__,
-                                        [int(i) for i in idx_batch])))
+            indices = [int(i) for i in idx_batch]
+            if load_batch is not None:
+                batch = load_batch(indices, num_threads=self.num_workers)
+                if batch is not None:
+                    return batch
+            return _stack(list(pool.map(self.dataset.__getitem__, indices)))
 
         def put(item):
             while not stop.is_set():

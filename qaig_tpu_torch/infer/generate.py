@@ -14,16 +14,34 @@ decode as one function), which on CUDA runs from one CUDA graph
 (``infer/graphs.py``) and on the CPU runs eagerly.  Both draw from the
 generator in the same order and give the same tokens.
 
-Sharded generation (``--multihost``, :func:`make_decode_mesh`): each rank
-of the mesh's data axis decodes its block of the images through every
-stage, and ``--num-model-shards`` splits each stage's MLPs over the model
-axis (``parallel/sharding.py``).  Every draw is made for all the images
-and the rank's rows taken (``infer/decode.py::RowSlice``), so the tokens
-equal one process's.  Rank 0 gathers the tokens, decodes them to pixels
-and writes the grids.  The fused cascade is single-process only, as in
-``qaig_tpu``: ``--fused`` with a sharded mesh raises.
+Sharded generation (:func:`make_decode_mesh`): each replica on the mesh's
+data axis decodes its block of the images through every stage, and
+``--num-model-shards`` splits each stage's MLPs over the model axis.
+Without ``--multihost`` the mesh is a ``parallel/local.py::LocalMesh``
+over every visible card of this one process, as ``qaig_tpu`` builds its
+mesh over every local chip: a replica a data row on the row's first card,
+its MLPs split over the row's cards (``shard_mlps_local_``).  Under
+``--multihost`` it is the mesh of the run's processes, a replica a rank
+(``parallel/sharding.py::shard_mlps_``).  Every draw is made for all the
+images and each replica's rows taken (``infer/decode.py::RowSlice``), so
+the tokens equal one card's.  The first replica (rank 0) gathers the
+tokens, decodes them to pixels and writes the grids.  The fused cascade
+runs only on a 1x1 mesh in one process, as in ``qaig_tpu``: ``--fused``
+with a larger mesh raises.  On a local mesh each stage's checkpoints are
+read once and copied to every replica's card, and the replicas' rollouts
+run one after the other from this thread: the dispatched loop is
+host-bound, so a mesh of several cards takes longer than one card, and
+longer than one card's fused cascade (PERF.md §5).  A thread a replica
+was tried and was slower still (the loops contend for the GIL).
+
+The local mesh does not go through ``CascadePipeline(mesh=...)``: its
+batch-keyed draws are the pipeline's (one stage-0 conditioning token an
+image), and ``generate``'s are ``qaig_tpu``'s ``generate``'s (a stage-0
+grid of the LR codebook's length an image).
 """
 
+import contextlib
+import copy
 import time
 
 import torch
@@ -33,6 +51,9 @@ from qaig_tpu_torch.infer.decode import DecodeEngine, RowSlice, SamplerSettings
 from qaig_tpu_torch.infer.graphs import GraphRunner
 from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
 from qaig_tpu_torch.parallel import comm
+from qaig_tpu_torch.parallel.local import (LocalMesh, local_devices,
+                                           local_mesh_for_batch,
+                                           shard_mlps_local_)
 from qaig_tpu_torch.parallel.mesh import make_mesh_for_batch
 from qaig_tpu_torch.parallel.sharding import shard_mlps_
 from qaig_tpu_torch.train import common
@@ -68,11 +89,22 @@ def transformer_from_checkpoint(ckpt, device, logging=print, use_ema=False):
     return model, ckpt
 
 
-def make_decode_mesh(num_images, n_model=1, device=None):
+def make_decode_mesh(num_images, n_model=1, device=None, devices=None):
     """The mesh of sharded generation: the images split over the data
-    axis; with ``n_model > 1`` each stage's MLPs tensor-parallel over the
-    model axis."""
-    return make_mesh_for_batch(num_images, n_model=n_model, device=device)
+    axis, whose size is the largest divisor of ``num_images`` that fits;
+    with ``n_model > 1`` each stage's MLPs tensor-parallel over the model
+    axis.  Under ``--multihost``, the run's processes
+    (``parallel/mesh.py``: an idle process raises); else a
+    :class:`LocalMesh` over ``devices``, by default every visible card
+    (one CPU device on the CPU, only ``device`` when it names its index):
+    idle cards are logged."""
+    if comm.active():
+        return make_mesh_for_batch(num_images, n_model=n_model, device=device)
+    if devices is None:
+        device = torch.device(device or "cuda")
+        devices = (local_devices(device) if device.index is None
+                   else [device])
+    return local_mesh_for_batch(num_images, n_model, devices)
 
 
 def _random_tokens(shape, high, generator):
@@ -235,8 +267,9 @@ def _load_decoder(decoder_path, device, dtype):
 def use_fused(fused, device, sharded=False):
     """The path ``generate.run`` takes: ``fused`` (``--fused`` /
     ``--no-fused``) when given, else fused on CUDA and dispatched on the
-    CPU; ``sharded`` generation (a mesh over processes) is dispatched, and
-    ``--fused`` raises there, as in ``qaig_tpu``."""
+    CPU; ``sharded`` generation (a mesh larger than 1x1, or over
+    processes) is dispatched, and ``--fused`` raises there, as in
+    ``qaig_tpu``."""
     if sharded:
         if fused:
             raise ValueError(
@@ -248,10 +281,14 @@ def use_fused(fused, device, sharded=False):
 
 
 @torch.inference_mode()
-def run(args, cache=None):
+def run(args, cache=None, devices=None):
     """Generate ``num_images`` images through every stage of the config;
     returns the last stage's tokens (N, seq).  ``args`` holds the CLI
     flags; ``device`` defaults to ``cuda``, ``fused`` to :func:`use_fused`.
+
+    ``devices``: the devices of the in-process mesh (every visible card by
+    default; a list may repeat a device), as ``CascadePipeline(mesh=...)``
+    takes them; :func:`make_decode_mesh`.
 
     ``cache``: a dict the caller keeps between calls.  The fused path
     keeps its loaded stages, generator and CUDA graphs there, so a later
@@ -271,9 +308,13 @@ def run(args, cache=None):
     try:
         mesh = make_decode_mesh(args.get("num_images", 25),
                                 int(args.get("num_model_shards") or 1),
-                                device)
-        if use_fused(args.get("fused"), device,
-                     sharded=comm.world_size() > 1):
+                                device, devices)
+        print(f"Generation mesh: {mesh.describe()}")
+        sharded = (comm.world_size() > 1
+                   or mesh.size("data") * mesh.size("model") > 1)
+        if use_fused(args.get("fused"), device, sharded=sharded):
+            if devices is not None:
+                device = mesh.grid[0][0]
             return _generate_fused(args, device, dtype, cache)
         return _generate_dispatched(args, device, dtype, mesh)
     finally:
@@ -286,48 +327,92 @@ def _synchronize(device):
         torch.cuda.synchronize(device)
 
 
+def _stage_to(st, device):
+    """A copy of a loaded stage (:func:`_load_stage`) on ``device``: the
+    checkpoints are read once for every replica."""
+    copied = dict(st)
+    for key in ("model", "lr_codebook", "hr_codebook"):
+        if st[key] is not None:
+            copied[key] = copy.deepcopy(st[key]).to(device)
+    return copied
+
+
+def _on(device):
+    """``device`` as the current CUDA device around a replica's work."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
 def _generate_dispatched(args, device, dtype, mesh):
     """The dispatched loop: load, generate and save one stage at a time.
-    Over a sharded ``mesh`` each rank decodes its images (and its MLP
-    shards), and rank 0 gathers the tokens, decodes the pixels and writes.
-    Returns all the images' last tokens (on the host when sharded)."""
+    Over a sharded ``mesh`` each replica decodes its images (and its MLP
+    shards): on a :class:`LocalMesh` every data row's replica in this
+    process, one after the other, else this rank's.  The first replica
+    gathers the tokens, decodes the pixels and writes.  Returns all the
+    images' last tokens (on the host under ``--multihost``)."""
     num_images = args.get("num_images", 25)
-    generator = torch.Generator(device=device).manual_seed(
-        args.get("seed") or 0)
     n_data = mesh.size("data")
-    draw = (RowSlice(generator, mesh.index("data"), n_data) if n_data > 1
-            else generator)
+    local = isinstance(mesh, LocalMesh)
+    if local:
+        rows = mesh.grid
+        homes = [row[0] for row in rows]
+        coords = range(n_data)
+    else:
+        rows, homes, coords = [None], [device], [mesh.index("data")]
+    draws = []
+    for home, d in zip(homes, coords):
+        generator = torch.Generator(device=home).manual_seed(
+            args.get("seed") or 0)
+        draws.append(RowSlice(generator, d, n_data) if n_data > 1
+                     else generator)
     local_images = num_images // n_data
     main = common.is_main_process()
-    if mesh.distributed:
-        print(f"Generation mesh: {mesh.describe()}")
-    decoder = _load_decoder(args["decoder_path"], device, dtype)
-    prev_tokens = tokens = None
+
+    def gather(parts):
+        if local:
+            return (parts[0] if len(parts) == 1
+                    else torch.cat([p.to(homes[0]) for p in parts]))
+        if mesh.distributed:   # every image's rows, on every rank
+            return common.gather_replicated(parts[0], mesh).to(device)
+        return parts[0]
+
+    decoder = _load_decoder(args["decoder_path"], homes[0], dtype)
+    prev = [None] * len(homes)
+    tokens = None
     for index, stage_cfg in common.load_config(args["config_path"]).items():
         print(f"Model: {int(index):,}")
-        st = _load_stage(index, stage_cfg,
-                         lambda m: common.cast_floats(m, dtype), device,
-                         use_ema=bool(args.get("use_ema")))
-        shard_mlps_(st["model"], mesh)
-        _synchronize(device)
+        loaded = _load_stage(index, stage_cfg,
+                             lambda m: common.cast_floats(m, dtype),
+                             homes[0], use_ema=bool(args.get("use_ema")))
+        stages = [loaded] + [_stage_to(loaded, home) for home in homes[1:]]
+        for st, row in zip(stages, rows):
+            if local:
+                shard_mlps_local_(st["model"], row)
+            else:
+                shard_mlps_(st["model"], mesh)
+        for home in homes:
+            _synchronize(home)
         t0 = time.perf_counter()
-        init_tokens, prev_tokens = _stage_tokens(st, local_images, draw,
-                                                 prev_tokens)
-        tokens = prev_tokens
-        if mesh.distributed:   # every image's tokens, on every rank
-            tokens = common.gather_replicated(prev_tokens, mesh).to(device)
-            if init_tokens is not None:
-                init_tokens = common.gather_replicated(
-                    init_tokens, mesh).to(device)
+        inits = []
+        for i, (st, home, draw) in enumerate(zip(stages, homes, draws)):
+            with _on(home):
+                init_tokens, prev[i] = _stage_tokens(st, local_images, draw,
+                                                     prev[i])
+            inits.append(init_tokens)
+        tokens = gather(prev)
+        init_tokens = None if inits[0] is None else gather(inits)
         if main:
-            cond, recon = _stage_images(st, decoder, init_tokens, tokens)
+            cond, recon = _stage_images(stages[0], decoder, init_tokens,
+                                        tokens)
             if cond is not None:
                 save_images(cond.cpu().numpy(), "recon_model_Cond",
                             args["out_dir"], logging=print)
             recon = recon.cpu().numpy()
-        _synchronize(device)
-        print(f"Stage {index}: {st['total_seq']} tokens x {num_images} "
-              f"images in {time.perf_counter() - t0:.3f} s")
+        for home in homes:
+            _synchronize(home)
+        print(f"Stage {index}: {stages[0]['total_seq']} tokens x "
+              f"{num_images} images in {time.perf_counter() - t0:.3f} s")
         if main:
             save_images(recon, f"recon_model_{index}", args["out_dir"],
                         logging=print)

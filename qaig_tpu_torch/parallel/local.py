@@ -27,11 +27,14 @@ either link.
 """
 
 import copy
+import logging as _logging
 
 import torch
 
 from qaig_tpu_torch.models import core
 from qaig_tpu_torch.parallel.sharding import mlp_rule, shard_of
+
+_log = _logging.getLogger("qaig_tpu_torch")
 
 
 def local_devices(device="cuda"):
@@ -77,6 +80,25 @@ class LocalMesh:
 
     def describe(self):
         return f"data={self.size('data')} x model={self.size('model')}"
+
+
+def local_mesh_for_batch(batch_size, n_model=1, devices=None):
+    """A :class:`LocalMesh` whose data axis is the largest divisor of
+    ``batch_size`` that fits ``len(devices) // n_model`` (every visible
+    card by default), as ``qaig_tpu``'s ``make_mesh_for_batch`` builds
+    it.  Devices left over are logged with ``qaig_tpu``'s warning; one
+    process drives them all, so they idle and nothing fails."""
+    devices = [torch.device(d) for d in (devices or local_devices())]
+    cap = max(len(devices) // n_model, 1)
+    n_data = max(d for d in range(1, cap + 1) if batch_size % d == 0)
+    used = n_data * n_model
+    if used < len(devices):
+        _log.warning(
+            "Mesh %s uses %d of %d devices (%s %d not divisible by "
+            "more); %d chips idle — pad the %s to a multiple of %d to "
+            "use them all.", f"{n_data}x{n_model}", used, len(devices),
+            "batch", batch_size, len(devices) - used, "batch", cap)
+    return LocalMesh(n_data=n_data, n_model=n_model, devices=devices)
 
 
 class LocalShards:

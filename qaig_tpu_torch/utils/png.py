@@ -1,7 +1,8 @@
 """PNG encoder and decoder, standard library only (``zlib`` + ``struct``).
 
-:func:`encode` writes 8-bit gray or RGB with filter 0 on every row and one
-zlib stream (the server's images and test fixtures).  :func:`decode`
+:func:`encode` writes 8-bit gray or RGB with one zlib stream (the server's
+images and test fixtures), filter 0 on every row unless given the rows'
+filters.  :func:`decode`
 reads every non-interlaced PNG of bit depth 1-16: gray, gray + alpha,
 RGB, RGBA and palette images, all five row filters; interlaced (Adam7)
 files raise.  :func:`read_bgr` gives what ``cv2.imread(path)`` gives:
@@ -10,7 +11,9 @@ files raise.  :func:`read_bgr` gives what ``cv2.imread(path)`` gives:
 
 The filters Average and Paeth run in a Python loop per byte, so decoding
 such images is slow (tens of ms for 128 x 128 x 3); filters None, Sub and
-Up are vectorised.
+Up are vectorised.  :func:`decode` is the plain version of the data
+plane's batch decoder (``native/image_loader.cpp``), which takes
+:func:`inflate`'s output and undoes the filters in C++.
 """
 
 import struct
@@ -27,15 +30,40 @@ def _chunk(tag, data):
             + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
 
-def encode(pixels):
-    """(H, W) or (H, W, 1 | 3) uint8 gray / RGB -> PNG bytes."""
+def encode(pixels, filters=(0,)):
+    """(H, W) or (H, W, 1 | 3) uint8 gray / RGB -> PNG bytes.  Row ``y``
+    uses filter ``filters[y % len(filters)]`` (0 None, 1 Sub, 2 Up, 3
+    Average, 4 Paeth)."""
     pixels = np.asarray(pixels, np.uint8)
     if pixels.ndim == 2:
         pixels = pixels[:, :, None]
     height, width, channels = pixels.shape
-    rows = np.concatenate(
-        [np.zeros((height, 1), np.uint8),
-         np.ascontiguousarray(pixels).reshape(height, -1)], axis=1)
+    raw = np.ascontiguousarray(pixels).reshape(height, -1).astype(np.int64)
+    rows = np.empty((height, raw.shape[1] + 1), np.uint8)
+    for y in range(height):
+        kind = filters[y % len(filters)]
+        row = raw[y]
+        up = raw[y - 1] if y else np.zeros_like(row)
+        left = np.concatenate([np.zeros(channels, np.int64), row[:-channels]])
+        if kind == 0:
+            pred = 0
+        elif kind == 1:
+            pred = left
+        elif kind == 2:
+            pred = up
+        elif kind == 3:
+            pred = (left + up) // 2
+        elif kind == 4:
+            upleft = np.concatenate([np.zeros(channels, np.int64),
+                                     up[:-channels]])
+            est = left + up - upleft
+            pa, pb, pc = abs(est - left), abs(est - up), abs(est - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, upleft))
+        else:
+            raise ValueError(f"PNG filter type {kind}: 0-4 only")
+        rows[y, 0] = kind
+        rows[y, 1:] = (row - pred) % 256
     header = struct.pack(">IIBBBBB", width, height, 8,
                          {1: 0, 3: 2}[channels], 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", header)
@@ -49,6 +77,8 @@ def _chunks(data):
     pos = 8
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
+        if pos + 12 + length > len(data):
+            break
         tag = data[pos + 4:pos + 8]
         body = data[pos + 8:pos + 8 + length]
         (crc,) = struct.unpack(">I", data[pos + 8 + length:
@@ -97,11 +127,11 @@ def _unfilter(raw, height, stride, bpp):
     return out
 
 
-def decode(data):
-    """PNG bytes -> (H, W, C) samples: uint8 for bit depths up to 8 (1/2/4-
-    bit gray scaled to 0-255, palette indices expanded to RGB, or RGBA
-    when the palette has transparency), uint16 for 16-bit files; C is 1
-    gray, 2 gray + alpha, 3 RGB, 4 RGBA."""
+def inflate(data):
+    """PNG bytes -> ((width, height, bit depth, color type), PLTE entries
+    (K, 3) uint8 or None, tRNS bytes or None, the inflated scanlines: a
+    filter byte before each row).  Checks every chunk's CRC and the header;
+    interlaced files, and data too short for the rows, raise."""
     header, palette, alpha, idat = None, None, None, []
     for tag, body in _chunks(data):
         if tag == b"IHDR":
@@ -119,13 +149,26 @@ def decode(data):
         raise ValueError("interlaced PNG files are not supported")
     if color not in _CHANNELS or depth not in (1, 2, 4, 8, 16):
         raise ValueError(f"PNG color type {color}, bit depth {depth}")
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < height * (_stride(width, depth, color) + 1):
+        raise ValueError("PNG image data is truncated")
+    return (width, height, depth, color), palette, alpha, raw
+
+
+def _stride(width, depth, color):
+    return (width * depth * _CHANNELS[color] + 7) // 8
+
+
+def decode(data):
+    """PNG bytes -> (H, W, C) samples: uint8 for bit depths up to 8 (1/2/4-
+    bit gray scaled to 0-255, palette indices expanded to RGB, or RGBA
+    when the palette has transparency), uint16 for 16-bit files; C is 1
+    gray, 2 gray + alpha, 3 RGB, 4 RGBA."""
+    (width, height, depth, color), palette, alpha, raw = inflate(data)
     channels = _CHANNELS[color]
     bits = depth * channels
-    stride = (width * bits + 7) // 8
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < height * (stride + 1):
-        raise ValueError("PNG image data is truncated")
-    rows = _unfilter(raw, height, stride, max(1, bits // 8))
+    rows = _unfilter(raw, height, _stride(width, depth, color),
+                     max(1, bits // 8))
     if depth == 16:
         return rows.view(">u2").reshape(height, width, channels).astype(
             np.uint16)

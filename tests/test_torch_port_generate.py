@@ -303,5 +303,6 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
                  "utils.torch_export", "utils.torch_optim",
                  "cli.export_torch", "parallel.comm", "parallel.mesh",
                  "parallel.sharding", "parallel.pipeline",
-                 "parallel.local", "cli._args"):
+                 "parallel.local", "cli._args", "native",
+                 "scripts.eval_quality", "data.fmap_dataset", "data.loader"):
         assert f"'qaig_tpu_torch.{name}'" in proc.stdout, name

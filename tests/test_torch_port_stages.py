@@ -143,48 +143,13 @@ def test_encoder_and_autoencoder_match_jax(final):
 # data: PNG / JPEG decoding, the loader's order
 # ---------------------------------------------------------------------------
 
-def _filtered_png(pixels, filters):
-    """An 8-bit RGB PNG whose row ``y`` uses filter ``filters[y % 5]``
-    (the encoder side of each of the five filter types)."""
-    h, w, c = pixels.shape
-    raw = pixels.reshape(h, w * c).astype(np.int64)
-    out = bytearray()
-    for y in range(h):
-        kind = filters[y % len(filters)]
-        row = raw[y]
-        up = raw[y - 1] if y else np.zeros_like(row)
-        left = np.concatenate([np.zeros(c, np.int64), row[:-c]])
-        upleft = np.concatenate([np.zeros(c, np.int64), up[:-c]])
-        if kind == 0:
-            pred = np.zeros_like(row)
-        elif kind == 1:
-            pred = left
-        elif kind == 2:
-            pred = up
-        elif kind == 3:
-            pred = (left + up) // 2
-        else:
-            p = left + up - upleft
-            pa, pb, pc = abs(p - left), abs(p - up), abs(p - upleft)
-            pred = np.where((pa <= pb) & (pa <= pc), left,
-                            np.where(pb <= pc, up, upleft))
-        out += bytes([kind]) + ((row - pred) % 256).astype(np.uint8).tobytes()
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(bytes(out)))
-            + chunk(b"IEND", b""))
-
-
 def _write_kind(path, kind, rng):
     import cv2
     from PIL import Image
+    from qaig_tpu_torch.utils import png
     rgb = rng.integers(0, 256, (11, 13, 3), dtype=np.uint8)
     if kind == "filters":
-        path.write_bytes(_filtered_png(rgb, [0, 1, 2, 3, 4]))
+        path.write_bytes(png.encode(rgb, [0, 1, 2, 3, 4]))
     elif kind == "gray":
         Image.fromarray(rgb[:, :, 0]).save(path)
     elif kind == "gray_1bit":
