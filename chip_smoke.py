@@ -91,8 +91,9 @@ Phases (any failure exits non-zero and prints no result line):
    in
    float32 (the trainer's default), which runs the backward kernel's
    float32 form;
-7. serving -- ``CascadePipeline`` on phase 5's checkpoints (fused, one
-   CUDA graph per batch size): float32
+7. serving -- ``CascadePipeline`` on phase 5's cascade cut to 1 encoder
+   and 2 decoder layers (``SHALLOW``, as phases 11 (c) and 12 are), fused,
+   one CUDA graph per batch size: float32
    composition invariance of row-keyed sampling (asserted) and the bf16
    share of equal tokens (reported), fused tokens equal to the
    dispatched loop's in both; a bf16 1-image request fused (first call,
@@ -135,17 +136,19 @@ Phases (any failure exits non-zero and prints no result line):
    ``--zero-opt``, bit-equal to phase 6, the train step's graph holding
    NCCL's nodes as predicted; (b) DP 2, TP 2 and DP 2 + ZeRO-1 training
    in 2 processes sharing the card (gloo over CUDA tensors, eager steps),
-   float32, 3 steps, against a 1-process eager run (PP 2, at 6 decoder
-   layers, is left out: gloo's send/recv cannot take CUDA tensors; its
-   refusal is checked); (c) ``generate.run`` in 2 processes, data 2
-   (tokens equal to 1 process) and ``--num-model-shards 2`` at greedy;
+   float32, 3 steps, at ``SHALLOW``'s depth, against a 1-process eager
+   run (PP 2 is left out: gloo's send/recv cannot take CUDA tensors; its
+   refusal is checked); (c) ``generate.run`` on the ``SHALLOW`` cascade
+   in 2 processes, data 2 (tokens equal to 1 process) and
+   ``--num-model-shards 2`` at greedy;
    (d) phase 6's run with ``--checkpoint-backend pickle-async``: save
    seconds, overlapping steps, files byte-equal, a resume.
 12. serving over several cards in one process -- ``CascadePipeline``
-   on ``parallel/local.py::LocalMesh`` meshes that repeat the one card:
-   (a) data 2, bf16, fused (a graph a replica), 8 images, each replica's
-   block bit-equal to the one-card pipeline at batch 4, A 2 x 37 and B 2
-   x 2345 a call, cold and warm; float32 tokens equal to one card's at 8;
+   (the ``SHALLOW`` cascade) on ``parallel/local.py::LocalMesh`` meshes
+   that repeat the one card: (a) data 2, bf16, fused (a graph a
+   replica), 8 images, each replica's block bit-equal to the one-card
+   pipeline at batch 4, A 2 x 9 and B 2 x 670 a call, cold and warm;
+   float32 tokens equal to one card's at 8;
    (b) data 1 x model 2, float32, greedy, dispatched, 4 images: tokens
    equal to one card's, MLP shards of hidden/2 rows, ``fused=True``
    raises; (d) the serve CLI with ``--shard-batch`` as a subprocess
@@ -166,7 +169,19 @@ Phases (any failure exits non-zero and prints no result line):
    the reconstruction's; (d) ``generate.run`` with ``devices=[cuda:0,
    cuda:0]`` (data 2), float32, greedy, dispatched by default: tokens
    equal the one-card run's, the mesh line printed, ``fused=True``
-   raises.
+   raises;
+14. quality -- ``python -m qaig_tpu_torch.scripts.quality_run``'s
+   ``main`` in this process at its full widths (128x128 images, AE 256
+   -> 512, K 512, in_dim 512 / hidden 2048 / 7 + 5 layers / 64 heads,
+   window 256, the reference beam plan) on 64 images with few steps
+   (``QUALITY``), then ``sampling_sweep`` (one temperature) and
+   ``quality_bf16_ab`` (2 steps) on its run and ``render_quality`` over
+   it: the report's schema as ``tests/test_quality_run.py`` asserts it,
+   every PSNR and CE finite, BMU, A, A' and B launched as predicted from
+   the control flow, the reserved memory after each later stage within
+   24 MiB of the first transformer stage's (every trainer's graphs and
+   pools let go); then the last cascade stage's step (remat, EMA 0.999,
+   clip 1.0, float32) graphed against eager at full width, bit for bit.
 
 Each phase's wall seconds are printed on a line of their own
 (``[seconds] phase ...``), and the run's total after the last.  The
@@ -176,7 +191,8 @@ read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
 ``--json-out PATH`` also writes every per-shape measurement there;
 ``--profile`` adds ``torch.profiler`` windows over the first 64 stage-2
 tokens and over train steps 2-5 (device busy share and the kernels that
-take the time).
+take the time).  ``--parallel-only``, ``--serving-only``, ``--data-only``
+and ``--quality-only`` run phases 1-2 and one phase (with what it needs).
 """
 
 import argparse
@@ -1377,10 +1393,12 @@ def seq_len(patch):
     return (h // ph) * (w // pw)
 
 
-def write_full_cascade(torch, root, seed, device="cuda"):
+def write_full_cascade(torch, root, seed, device="cuda", layers=None):
     """Seeded random weights of ``bench.py --scale full``'s cascade,
-    written as ``qaig_tpu``-schema checkpoints with the port's writer.
-    Returns (config path, decoder path, stage-2 checkpoint path)."""
+    written as ``qaig_tpu``-schema checkpoints with the port's writer;
+    ``layers``: (encoder, decoder) layers in place of FULL's (the depth cut
+    of phases 7, 11 (c) and 12: ``SHALLOW``).  Returns (config path,
+    decoder path, stage-2 checkpoint path)."""
     from qaig_tpu_torch.convert import to_jax_state
     from qaig_tpu_torch.models.codebook import Codebook
     from qaig_tpu_torch.models.conv_nets import ConvNetConfig, FCDecoder
@@ -1389,7 +1407,9 @@ def write_full_cascade(torch, root, seed, device="cuda"):
                                                    TransformerConfig)
     from qaig_tpu_torch.utils.checkpoint import save_model
 
-    f = FULL
+    f = dict(FULL)
+    if layers is not None:
+        f["enc_layers"], f["dec_layers"] = layers
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def weights(module):
@@ -2033,7 +2053,7 @@ def _adam_position(optimizer):
 # phase 5b: the flat-decode cascade (bench.py --flat-decode [--int8-kv])
 # ---------------------------------------------------------------------------
 
-def expected_decode_launches(flat):
+def expected_decode_launches(flat, dec_layers=FULL["dec_layers"]):
     """Decode-kernel launches of the cascade, from FULL and the engine's
     control flow: per stage, cached rollout segments of ``beam_width``
     steps, then (with a window) one crossing segment whose cached part has
@@ -2058,7 +2078,7 @@ def expected_decode_launches(flat):
             if steps:
                 route = ("flat" if flat and FULL["heads"] * num_beam <= 64
                          and steps % 8 == 0 else "slot_minor")
-                counts[route] += FULL["dec_layers"] * steps
+                counts[route] += dec_layers * steps
             gen += bw
         out[i] = counts
     return out
@@ -3730,31 +3750,33 @@ def _finish_world(name, procs, refused=False):
 def run_shared_card_training(torch, workdir, device="cuda"):
     """Phase 11 (b): DP 2, TP 2 and DP 2 with ``--zero-opt`` in 2
     processes sharing the card (gloo over CUDA tensors, eager steps), at
-    phase 6's widths in float32, batch 8, 3 steps, previews off, one
-    checkpoint written in the background; against a 1-process eager
-    float32 run of the same steps (losses rtol 1e-5, parameters atol
-    1e-5: the CPU tests' tolerances).  PP 2 (at 6 decoder layers, since 7
-    do not split in 2) is left out (``LEFT_OUT_SHARED_CARD``); its
+    phase 6's widths cut to ``SHALLOW``'s depth (1 encoder, 2 decoder
+    layers) in float32, batch 8, 3 steps, previews off, one checkpoint
+    written in the background; against a 1-process eager float32 run of
+    the same steps (losses rtol 1e-5, parameters atol 1e-5: the CPU
+    tests' tolerances).  PP 2 is left out (``LEFT_OUT_SHARED_CARD``); its
     refusal is checked.  Launches of A, A' and BMU per rank predicted from
     the control flow."""
     import numpy as np
     from qaig_tpu_torch.train import transformer as train
     steps = 3
+    root = Path(workdir) / "parallel"
+    config = json.loads((Path(__file__).resolve().parent
+                         / TRAIN["config"]).read_text())
+    config.update(num_enc_layers=SHALLOW[0], num_dec_layers=SHALLOW[1])
+    shallow_config = root / "transformer_cascade_shallow.json"
+    shallow_config.write_text(json.dumps(config))
     extra = dict(max_steps=steps, skip_preview=True, checkpoint_step=1000,
-                 checkpoint_backend="pickle-async")
+                 checkpoint_backend="pickle-async",
+                 config_path=str(shallow_config))
     forms = {"dp2": {}, "tp2": {"num_model_shards": 2},
              "zero2": {"zero_opt": True}}
-    root = Path(workdir) / "parallel"
     worlds = {name: _start_world(workdir, f"b_{name}", "train", phase6_args(
         workdir, "float32", root / f"b_{name}", **extra, **opts))
         for name, opts in forms.items()}
-    config = json.loads((Path(__file__).resolve().parent
-                         / TRAIN["config"]).read_text())
-    pp_config = root / "transformer_cascade_6_layers.json"
-    pp_config.write_text(json.dumps(dict(config, num_dec_layers=6)))
     pp = _start_world(workdir, "b_pp2", "train", phase6_args(
-        workdir, "float32", root / "b_pp2", config_path=str(pp_config),
-        num_pipeline_stages=2, **extra))
+        workdir, "float32", root / "b_pp2", num_pipeline_stages=2,
+        **extra))
     for name, reason in LEFT_OUT_SHARED_CARD.items():
         log(f"[parallel] 11 (b) left out: {name} ({reason})")
 
@@ -3775,7 +3797,7 @@ def run_shared_card_training(torch, workdir, device="cuda"):
         raise SystemExit(f"11 (b) pp2: unexpected refusal {refusal}")
     out = {"left_out": LEFT_OUT_SHARED_CARD, "pp2_refusal": refusal[0],
            "reference_losses": ref_losses}
-    enc_dec = _enc_dec()
+    enc_dec = sum(SHALLOW)
     predicted = {"flash_attention": enc_dec * steps,
                  "flash_attention_backward": enc_dec * steps,
                  "flash_attention_backward_calls": enc_dec * steps,
@@ -3813,9 +3835,29 @@ def run_shared_card_training(torch, workdir, device="cuda"):
     return out
 
 
-def run_sharded_generation(torch, workdir, paths, device="cuda"):
-    """Phase 11 (c): ``generate.run`` on phase 5's checkpoints, 8 images,
-    dispatched, in 2 processes sharing the card: data 2 (each rank 4
+def _generation_args(paths, device):
+    config_path, decoder_path, _ = paths
+    return {"device": device, "config_path": str(config_path),
+            "decoder_path": str(decoder_path), "num_images": 8, "seed": 0,
+            "fused": False}
+
+
+def start_sharded_generation(workdir, paths, device="cuda"):
+    """Phase 11 (c)'s two worlds, started (they run beside 11 (b)'s)."""
+    root = Path(workdir) / "parallel"
+    args = _generation_args(paths, device)
+    return {
+        "data2": _start_world(workdir, "c_data2", "generate", dict(
+            args, out_dir=str(root / "c_data2"))),
+        "tp2": _start_world(workdir, "c_tp2", "generate", dict(
+            args, out_dir=str(root / "c_tp2"), num_model_shards=2,
+            greedy=True))}
+
+
+def run_sharded_generation(torch, workdir, paths, worlds, device="cuda"):
+    """Phase 11 (c): ``generate.run`` on the cascade ``paths``
+    (``SHALLOW``), 8 images, dispatched, in 2 processes sharing the card
+    (``worlds``, :func:`start_sharded_generation`): data 2 (each rank 4
     images, its rows of every draw), whose tokens must equal the
     1-process dispatched run's; and ``--num-model-shards 2`` at greedy,
     whose tokens are held to the 1-process greedy run's (equal, or the
@@ -3823,17 +3865,8 @@ def run_sharded_generation(torch, workdir, paths, device="cuda"):
     with the batch's composition (phase 7 reports it), float32 ones do
     not."""
     from qaig_tpu_torch.infer import decode, generate
-    config_path, decoder_path, _ = paths
     root = Path(workdir) / "parallel"
-    args = {"device": device, "config_path": str(config_path),
-            "decoder_path": str(decoder_path), "num_images": 8, "seed": 0,
-            "fused": False}
-    worlds = {
-        "data2": _start_world(workdir, "c_data2", "generate", dict(
-            args, out_dir=str(root / "c_data2"))),
-        "tp2": _start_world(workdir, "c_tp2", "generate", dict(
-            args, out_dir=str(root / "c_tp2"), num_model_shards=2,
-            greedy=True))}
+    args = _generation_args(paths, device)
     ref = {}
     categorical = decode._categorical
     for name, greedy in (("sampled", False), ("greedy", True)):
@@ -3860,8 +3893,8 @@ def run_sharded_generation(torch, workdir, paths, device="cuda"):
                      "differing_tokens": len(differ),
                      "seconds": [r["seconds"] for r in ranks],
                      "launches": ranks[0]["launches"]}
-        log(f"[parallel] 11 (c) {name}: 2 ranks on one card (both worlds "
-            f"and the references ran at the same time), 8 images "
+        log(f"[parallel] 11 (c) {name}: 2 ranks on one card (both worlds, "
+            f"11 (b)'s and the references ran at the same time), 8 images "
             f"dispatched in {[round(r['seconds'], 3) for r in ranks]} s; "
             f"tokens {'equal to' if first is None else 'differ from'} the "
             f"1-process run's"
@@ -3877,7 +3910,8 @@ def run_sharded_generation(torch, workdir, paths, device="cuda"):
 
 def run_async_checkpoint(torch, workdir, device="cuda"):
     """Phase 11 (d): phase 6's bf16 run with ``--checkpoint-backend
-    pickle-async``: the checkpoint steps' seconds (snapshot and return;
+    pickle-async`` (previews off, which change no step or file): the
+    checkpoint steps' seconds (snapshot and return;
     the first also allocates the pinned buffers, and the second starts
     after the first write ended, as when checkpoints lie further apart
     than a write takes) against phase 6's synchronous ones, the seconds
@@ -3929,7 +3963,7 @@ def run_async_checkpoint(torch, workdir, device="cuda"):
     train.make_train_step, train.save_checkpoint = timed_make, timed_save
     checkpoint.wait_pending_saves = timed_wait
     try:
-        train.run(phase6_args(workdir, "bf16", root,
+        train.run(phase6_args(workdir, "bf16", root, skip_preview=True,
                               checkpoint_backend="pickle-async"))
     finally:
         train.make_train_step, train.save_checkpoint = make, save
@@ -3987,10 +4021,11 @@ def run_parallel_path(torch, workdir, paths, device="cuda"):
     Returns (launches by path, timings)."""
     (Path(workdir) / "parallel").mkdir()
     timings = {"nccl_one_rank": run_nccl_one_rank(torch, workdir, device)}
+    generation_worlds = start_sharded_generation(workdir, paths, device)
     timings["shared_card_training"] = run_shared_card_training(
         torch, workdir, device)
     timings["sharded_generation"] = run_sharded_generation(
-        torch, workdir, paths, device)
+        torch, workdir, paths, generation_worlds, device)
     timings["async_checkpoint"] = run_async_checkpoint(torch, workdir,
                                                        device)
     launches = {f"parallel_nccl_{k}": v["launches"]
@@ -4007,10 +4042,28 @@ def run_parallel_path(torch, workdir, paths, device="cuda"):
 # phase 12: serving over several cards in one process
 # ---------------------------------------------------------------------------
 
-# a stage's launches per cascade call (phase 5's control flow; the same at
-# any batch size)
-CASCADE_LAUNCHES = {"flash_attention": 37,
-                    "shared_prefix_attention_fused_t": 2345}
+def cascade_launches(enc=FULL["enc_layers"], dec=FULL["dec_layers"]):
+    """Launches of kernels A and B per call of FULL's cascade (its beam
+    plan and window) at ``enc`` / ``dec`` layers, from the engine's control
+    flow, the same at any batch size: A for each stage's encoder layers
+    and its prefill's decoder layers, and for every windowed step after
+    the window fills (all decoder layers but the last, which reads one
+    query); B for every cached rollout step of every decoder layer
+    (:func:`expected_decode_launches`).  FULL's: A 37, B 2345."""
+    a = 0
+    for i in range(3):
+        window = FULL["sliding"].get(i)
+        windowed = 0 if window is None else max(
+            0, 1 + seq_len(FULL["patches"][i + 1]) - window)
+        a += (0 if i == 0 else enc) + dec + windowed * (dec - 1)
+    b = sum(c["slot_minor"] for c in
+            expected_decode_launches(False, dec).values())
+    return {"flash_attention": a, "shared_prefix_attention_fused_t": b}
+
+
+# phases 7, 11 (c) and 12 run the cascade at this depth (encoder, decoder
+# layers): their paths and kernel checks, at a fraction of FULL's seconds
+SHALLOW = (1, 2)
 
 
 def _mesh_call(torch, pipe, *args, **kw):
@@ -4036,16 +4089,17 @@ def _free(torch):
 
 
 def run_mesh_serve_path(torch, paths, device="cuda"):
-    """Phase 12: ``CascadePipeline(mesh=...)`` on phase 5's checkpoints,
-    every mesh repeating the one card (``LocalMesh(devices=[cuda:0] *
-    2)``).  (a) Data 2, bf16, fused (one graph a replica), 8 images: each
-    replica's block bit-equal to a one-card pipeline's call at batch 4 on
-    the same rows' keys (bf16 products depend on the batch); A 2 x 37 and
-    B 2 x 2345 a call, cold (two captures) and warm; in float32 the 8
-    images' tokens equal the one-card pipeline's at 8.  (b) Data 1 x model
-    2, float32, greedy, dispatched, 4 images: tokens equal the one-card
+    """Phase 12: ``CascadePipeline(mesh=...)`` on the cascade ``paths``
+    (``SHALLOW`` in the full run), every mesh repeating the one card
+    (``LocalMesh(devices=[cuda:0] * 2)``).  (a) Data 2, bf16, fused (one
+    graph a replica), 8 images: each replica's block bit-equal to a
+    one-card pipeline's call at batch 4 on the same rows' keys (bf16
+    products depend on the batch); twice :func:`cascade_launches` a call,
+    cold (two captures) and warm; in float32 the 8 images' tokens equal
+    the one-card pipeline's at 8.  (b) Data 1 x model 2, float32, greedy,
+    dispatched, 4 images: tokens equal the one-card
     dispatched pipeline's, each MLP shard holds hidden/2 rows of ``l0``,
-    A 37 and B 2345, ``fused=True`` raises.  (d) ``python -m
+    :func:`cascade_launches`, ``fused=True`` raises.  (d) ``python -m
     qaig_tpu_torch.cli.serve_generation --bf16 --shard-batch`` as a
     subprocess: ``data=1 x model=1``, a 2-image request's tokens equal a
     one-card bf16 pipeline's; ``--num-model-shards 2`` exits non-zero
@@ -4070,7 +4124,7 @@ def run_mesh_serve_path(torch, paths, device="cuda"):
 
     launches, out = {}, {}
     keys = derive_row_keys(12, 8)
-    predicted = {k: 2 * v for k, v in CASCADE_LAUNCHES.items()}
+    predicted = {k: 2 * v for k, v in cascade_launches(*SHALLOW).items()}
 
     # (a) data 2, bf16, fused: cold (two captures), then warm
     pipe = load(torch.bfloat16, LocalMesh(2, 1, [card] * 2))
@@ -4171,7 +4225,8 @@ def run_mesh_serve_path(torch, paths, device="cuda"):
                     f"{first[0]}, position {first[1]}")
     finally:
         decode._categorical = sample
-    _check_launches("12 (b)", launches["serve_mesh_tp2"], CASCADE_LAUNCHES)
+    _check_launches("12 (b)", launches["serve_mesh_tp2"],
+                    cascade_launches(*SHALLOW))
     del pipe, plain
     _free(torch)
     out["tp2_f32_greedy"] = seconds
@@ -4181,7 +4236,7 @@ def run_mesh_serve_path(torch, paths, device="cuda"):
         f"{[round(s, 3) for s in seconds['one_card']]} s ({shared}); "
         f"tokens equal; shards of hidden/2 rows; fused=True raises; "
         f"launches (the first TP call) "
-        f"{ {k: launches['serve_mesh_tp2'][k] for k in CASCADE_LAUNCHES} }")
+        f"{ {k: launches['serve_mesh_tp2'][k] for k in cascade_launches()} }")
 
     # (d) the server CLI
     out["server"] = run_mesh_server(torch, config_path, decoder_path,
@@ -4693,7 +4748,8 @@ def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
             raise SystemExit(f"13 (d) {name}: tokens differ from the "
                              f"one-card run's (first at {first})")
         _check_launches(f"13 (d) {name}", runs[name]["launches"],
-                        {k: n_data * v for k, v in CASCADE_LAUNCHES.items()})
+                        {k: n_data * v
+                         for k, v in cascade_launches().items()})
         line = f"Generation mesh: data={n_data} x model=1"
         if line not in log_text or "Fused" in log_text:
             raise SystemExit(f"13 (d) {name}: no '{line}' line, or not "
@@ -4707,9 +4763,309 @@ def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
         f"'{runs['data2']['log'].splitlines()[0]}' printed; seconds "
         f"{seconds} (both replicas on one card, in turn: no scaling is "
         f"measured); launches "
-        f"{ {k: launches['generate_mesh'][k] for k in CASCADE_LAUNCHES} }; "
+        f"{ {k: launches['generate_mesh'][k] for k in cascade_launches()} }; "
         f"fused=True raises: {refusal}")
     return launches, out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the quality ledger at full width
+# ---------------------------------------------------------------------------
+
+QUALITY = dict(
+    # quality_run's default scale table (128x128 images, AE 256 -> 512, K
+    # 512, in_dim 512 / hidden 2048 / 7 + 5 layers / 64 heads, window 256,
+    # the reference beam plan) at its default batches, cut in steps and
+    # images: 2 checkpoints an autoencoder or codebook (the trajectories
+    # need 2), 1 a transformer; 64 training images (one codebook batch).
+    # 40 autoencoder steps: after 4 it decodes every latent to one grey
+    # image, and a preview equal to its ground truth has an infinite PSNR
+    num_images=64, eval_images=8, ae_steps=40, cb_steps=40, tf_steps=2,
+    ckpt_every=20, gen_images=2, sweep_images=2, temperature=2.0,
+    ab_steps=2, compare_steps=3, compare_batch=8,
+    # reserved memory after any later stage may exceed the first
+    # transformer stage's by this much (segment rounding): well under the
+    # ~64 MiB of cuBLAS workspace a graphed trainer left behind when each
+    # graph runner captured on a stream of its own
+    memory_margin=24 << 20)
+
+
+def quality_argv(out, device="cuda"):
+    q = QUALITY
+    return ["--out-dir", str(out), "--device", device,
+            "--num-images", str(q["num_images"]),
+            "--eval-images", str(q["eval_images"]),
+            "--ae-steps", str(q["ae_steps"]), "--cb-steps", str(q["cb_steps"]),
+            "--tf-steps", str(q["tf_steps"]),
+            "--ckpt-every", str(q["ckpt_every"]),
+            "--gen-images", str(q["gen_images"])]
+
+
+def predicted_quality_launches(report, sweep_settings):
+    """BMU, A, A' and B launches of phase 14's run, from its control flow:
+
+    - BMU: a codebook trainer one a step and one a checkpoint's preview;
+      ``QualityEval`` one a batch (of 32) for each evaluated codebook
+      checkpoint and pruned codebook; pruning one a batch of
+      ``--cb-batch``; a transformer trainer two a step (the LR and HR
+      tokens) and three a checkpoint's preview;
+    - A: a transformer step twice per encoder and decoder layer (the
+      forward, and its recompute under remat in the backward); a preview
+      the encoder's layers, the prefill's and, past the window, the
+      decoder's but the last; each cascade call (generation and every
+      sweep setting) :func:`cascade_launches`;
+    - A': a transformer step once per layer;
+    - B: :func:`cascade_launches` per cascade call; the previews decode
+      single-path (``decode_step``), which does not run B.
+
+    The A/B trains the base stage twice, with one checkpoint each."""
+    q = QUALITY
+    stages = report["stages"]
+    per_eval = -(-q["eval_images"] // 32)
+    cb_ckpts = len(range(0, q["cb_steps"], q["ckpt_every"]))
+    n_cb = len([k for k in stages if k.startswith("codebook_")])
+    n_books = n_cb + len(report.get("experiments", {}))
+    bmu = (n_books * (q["cb_steps"] + cb_ckpts)
+           + per_eval * (n_books * cb_ckpts + n_cb)
+           + n_cb * -(-q["num_images"] // 64))
+    a = a_bwd = 0
+
+    def transformer(enc, dec, windowed, steps, ckpts):
+        return (2 * steps + 3 * ckpts,
+                2 * (enc + dec) * steps
+                + ckpts * (enc + dec + windowed * (dec - 1)),
+                (enc + dec) * steps)
+
+    runs = []
+    tf_ckpts = len(range(0, q["tf_steps"], q["ckpt_every"]))
+    for name in (k for k in stages if k.startswith("transformer_")):
+        cfg = json.loads(Path(stages[name]["checkpoint"]).parent.parent
+                         .with_suffix(".json").read_text())
+        enc = cfg.get("num_enc_layers", 0)
+        windowed = max(0, 1 + seq_len(FULL["patches"][-1])
+                       - cfg["sliding_window"]) \
+            if cfg["use_sliding_window"] else 0
+        runs.append((enc, cfg["num_dec_layers"], windowed, q["tf_steps"],
+                     tf_ckpts))
+        if name == "transformer_base":
+            base = (enc, cfg["num_dec_layers"], 0, q["ab_steps"], 1)
+    runs += [base, base]
+    for run in runs:
+        b, fa, fb = transformer(*run)
+        bmu, a, a_bwd = bmu + b, a + fa, a_bwd + fb
+    calls = 1 + sweep_settings
+    cascade = cascade_launches()
+    return {"fused_bmu": bmu,
+            "flash_attention": a + calls * cascade["flash_attention"],
+            "flash_attention_backward": a_bwd,
+            "flash_attention_backward_calls": a_bwd,
+            "shared_prefix_attention_fused_t":
+                calls * cascade["shared_prefix_attention_fused_t"]}
+
+
+def check_quality_report(report, out):
+    """``tests/test_quality_run.py``'s schema asserts over the report, and
+    every PSNR and CE value finite."""
+    import math
+    stages = report["stages"]
+
+    def need(ok, what):
+        if not ok:
+            raise SystemExit(f"14: quality.json: {what}")
+
+    for key in ("autoencoder", "transformer_base", "generation"):
+        need(key in stages, f"no {key} stage")
+    need(any(k.startswith("codebook_") for k in stages), "no codebook")
+    need(any(k.startswith("transformer_casc") for k in stages),
+         "no cascade transformer")
+    ae = stages["autoencoder"]
+    need(len(ae["psnr_trajectory"]) >= 2 and len(ae["loss_curve"]) >= 2,
+         "autoencoder trajectory or loss curve shorter than 2")
+    values = [p["psnr_recon_db"] for p in ae["psnr_trajectory"]]
+    for key, st in stages.items():
+        if key.startswith("codebook_"):
+            pr = st["prune"]
+            need(len(st["psnr_trajectory"]) >= 2, f"{key} trajectory")
+            need(1 <= pr["kept"] <= pr["of"]
+                 and Path(pr["checkpoint"]).exists(), f"{key} prune")
+            values += [p["psnr_quantized_db"] for p in st["psnr_trajectory"]]
+            values += [pr["psnr_quantized_db_before"],
+                       pr["psnr_quantized_db_after"]]
+        if key.startswith("transformer_"):
+            need(len(st["loss_curve"]) >= 2, f"{key} loss curve")
+            need(st["ce_max_last_half"] is not None, f"{key} max CE")
+            need(isinstance(st["preview_psnr"], list), f"{key} preview")
+            values += [v for _, v in st["loss_curve"]]
+            values += [st["ce_max_last_half"]]
+            values += [p["psnr_db"] for p in st["preview_psnr"]]
+    exp = next(iter(report["experiments"].values()))
+    need(len(exp["psnr_trajectory"]) >= 2
+         and exp["num_embeddings"] == 2 * exp["baseline_k"],
+         "K experiment")
+    values += [p["psnr_quantized_db"] for p in exp["psnr_trajectory"]]
+    last = [k for k in stages if k.startswith("transformer_casc")][-1]
+    need(stages[last]["stability"]["ema_decay"] > 0
+         and stages[last]["stability"]["grad_clip"] > 0,
+         f"{last} not under EMA and clipping")
+    need(Path(stages["generation"]["grid"]).exists()
+         and (out / "grids" / "generated_final.jpg").exists()
+         and (out / "grids" / "dataset_sample.png").exists(), "grids")
+    bad = [v for v in values if not isinstance(v, float)
+           or not math.isfinite(v)]
+    need(not bad, f"values not finite: {bad}")
+    return len(values)
+
+
+def last_stage_steps(torch, out, device="cuda"):
+    """Phase 14's graphed-against-eager steps: the quality run's last
+    cascade stage (at full width ``tf_casc2.json``: encoder, window 256)
+    with remat, EMA 0.999 and clip 1.0 in float32, over the pruned
+    codebooks ``gen.json`` gives it and the first feature maps of the run.
+    The compared parameters are the model's and the EMA's.  Returns
+    (``build(graphed, capturable) -> (step, model and EMA)``,
+    ``inputs(i)``, steps)."""
+    import copy
+    import numpy as np
+    from qaig_tpu_torch.models.core import init_parameters
+    from qaig_tpu_torch.models.transformer import Transformer
+    from qaig_tpu_torch.train import common, optim
+    from qaig_tpu_torch.train import transformer as train
+    from qaig_tpu_torch.utils.checkpoint import load_model
+
+    q = QUALITY
+    stage = json.loads((out / "gen.json").read_text())
+    stage = stage[max(stage, key=int)]
+    config = json.loads(Path(stage["model_path"]).parent.parent
+                        .with_suffix(".json").read_text())
+    lr_cb, hr_cb = (common.codebook_from_checkpoint(
+        load_model(stage[key])[1], torch.device(device))
+        for key in ("lr_codebook_path", "hr_codebook_path"))
+    lr_k, hr_k = lr_cb.num_embeddings, hr_cb.num_embeddings
+    cfg = train.build_transformer_config(config, False, lr_k, hr_k,
+                                         use_remat=True)
+    rows = json.loads((out / "fmaps" / "all_dataset.json").read_text())
+    paths = [r["fmap_path"] for r in rows["_default"].values()]
+    steps, batch = q["compare_steps"], q["compare_batch"]
+    batches = [torch.from_numpy(np.stack([
+        np.load(p) for p in paths[i * batch:(i + 1) * batch]])).to(device)
+        for i in range(steps)]
+
+    def build(graphed, capturable):
+        model = init_parameters(Transformer(cfg, device=device),
+                                torch.Generator(device=device).manual_seed(0))
+        ema = copy.deepcopy(model).requires_grad_(False)
+        optimizer, scheduler = optim.make_adam(
+            model.parameters(), config["model_lr"], 50_000,
+            capturable=capturable)
+        step = train.make_train_step(
+            model, optimizer, lr_cb, hr_cb, False, lr_k, hr_k,
+            config.get("sliding_window"), scheduler=scheduler, grad_clip=1.0,
+            ema_model=ema, ema_decay=0.999, graphed=graphed)
+        windows = torch.Generator().manual_seed(0)
+
+        def windowed(x):
+            return step(x, windows)
+        windowed.runner = step.runner
+        return windowed, torch.nn.ModuleList([model, ema])
+
+    return build, lambda i: (batches[i],), steps
+
+
+def run_quality_path(torch, workdir, device="cuda"):
+    """Phase 14: ``qaig_tpu_torch.scripts.quality_run``'s ``main`` in this
+    process at full width with ``QUALITY``'s steps, then
+    ``sampling_sweep`` (one temperature) and ``quality_bf16_ab`` on its
+    run, and ``render_quality`` over it: the report's schema and finite
+    values, BMU / A / A' / B launched as :func:`predicted_quality_launches`
+    says, the reserved memory after every later stage within
+    ``memory_margin`` of the first transformer stage's (each trainer's
+    graphs and pools let go).  Then the last cascade stage's kind (remat,
+    EMA, clip) graphed against eager at full width, bit for bit
+    (:func:`graphed_against_eager`).  Returns (launches, timings)."""
+    from qaig_tpu_torch.scripts import (quality_bf16_ab, quality_run,
+                                        render_quality, sampling_sweep)
+    q = QUALITY
+    out = Path(workdir) / "quality"
+    card = torch.device(device, torch.cuda.current_device()) \
+        if device == "cuda" else torch.device(device)
+    timings = {}
+    _free(torch)
+    reset_launches()
+    t0 = time.perf_counter()
+    report = quality_run.main(quality_argv(out, device))
+    timings["quality_run_s"] = time.perf_counter() - t0
+    memory = list(report["memory"])
+    t0 = time.perf_counter()
+    sweep = sampling_sweep.main([
+        "--qrun-dir", str(out), "--num-images", str(q["sweep_images"]),
+        "--temperatures", f"{q['temperature']:g}", "--device", device])
+    timings["sweep_s"] = time.perf_counter() - t0
+
+    def after(what):
+        held = quality_run.release(card)
+        if held is not None:
+            memory.append({"after": what, "allocated": held[0],
+                           "reserved": held[1]})
+    after("sweep")
+    t0 = time.perf_counter()
+    ab = quality_bf16_ab.main([
+        "--qrun-dir", str(out), "--steps", str(q["ab_steps"]), "--device",
+        device])
+    timings["ab_s"] = time.perf_counter() - t0
+    after("bf16_ab")
+    launches = read_launches()
+
+    n_values = check_quality_report(report, out)
+    if set(sweep["settings"]) != {"config", "single_path",
+                                  f"beams_t{q['temperature']:g}"} or \
+            not all(0 <= r["unique_frac"] <= 1
+                    for r in sweep["settings"].values()):
+        raise SystemExit(f"14: sweep settings {sweep['settings']}")
+    import math
+    if not all(math.isfinite(ab[t]["final_ce"]) for t in ("fp32", "bf16")):
+        raise SystemExit(f"14: the A/B's CE not finite: {ab}")
+    render_quality.main(["--report", str(out / "quality.json"), "--doc",
+                         str(out / "QUALITY_TORCH.md"), "--grids-dir",
+                         str(out / "docs")])
+    predicted = predicted_quality_launches(report, len(sweep["settings"]))
+    for name, n in predicted.items():
+        if n <= 0 or launches[name] != n:
+            raise SystemExit(f"14: the quality path launched {name} "
+                             f"{launches[name]} times, predicted {n}")
+    first = next((m for m in memory if m["after"] == "transformer_base"),
+                 None)
+    if first is None and device == "cuda":
+        raise SystemExit(f"14: no memory reading after transformer_base: "
+                         f"{memory}")
+    later = memory[memory.index(first) + 1:] if first else []
+    grown = [m for m in later
+             if m["reserved"] > first["reserved"] + q["memory_margin"]]
+    mib = {m["after"]: (round(m["allocated"] / 2**20, 1),
+                        round(m["reserved"] / 2**20, 1)) for m in memory}
+    if grown:
+        raise SystemExit(f"14: reserved memory grew past the first "
+                         f"transformer stage's + {q['memory_margin'] >> 20} "
+                         f"MiB: (allocated, reserved) MiB after each stage "
+                         f"{mib}")
+    timings.update(stage_seconds=report["stage_seconds"], memory_mib=mib,
+                   values_checked=n_values)
+    log(f"[quality] 14 quality_run at full width "
+        f"({' '.join(quality_argv(out)[2:])}): "
+        f"{timings['quality_run_s']:.1f} s, stage seconds "
+        f"{report['stage_seconds']}; sampling_sweep ({len(sweep['settings'])} "
+        f"settings, {q['sweep_images']} images) {timings['sweep_s']:.1f} s; "
+        f"quality_bf16_ab ({q['ab_steps']} steps) {timings['ab_s']:.1f} s; "
+        f"schema as tests/test_quality_run.py, {n_values} PSNR/CE values "
+        f"finite; rendered; launches as predicted "
+        f"{ {k: launches[k] for k in predicted} }")
+    log(f"[quality] 14 (allocated, reserved) MiB after each stage: {mib}; "
+        f"none past the first transformer stage's reserved + "
+        f"{q['memory_margin'] >> 20} MiB")
+    _free(torch)
+    timings["compare"] = graphed_against_eager(
+        torch, "quality casc2 float32 (remat, EMA 0.999, clip 1.0)",
+        *last_stage_steps(torch, out, device), device)
+    return launches, timings
 
 
 def repeat_paths(torch, runs):
@@ -4806,6 +5162,10 @@ def main():
                              "front's checkpoints), then phase 13 (the data "
                              "plane) only; prints its timings, no result "
                              "line")
+    parser.add_argument("--quality-only", action="store_true",
+                        help="phases 1-2, then phase 14 (the quality "
+                             "ledger at full width) only; prints its "
+                             "timings, no result line")
     args = parser.parse_args()
 
     import torch
@@ -4819,16 +5179,25 @@ def main():
         with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as wd:
             paths = write_full_cascade(torch, wd, 0)
             run_train_path(torch, wd)
-            _, timings = run_parallel_path(torch, wd, paths)
+            _, timings = run_parallel_path(torch, wd, write_full_cascade(
+                torch, Path(wd) / "shallow", 0, layers=SHALLOW))
         print(json.dumps({"parallel": timings}))
         return 0
 
     if args.serving_only:
         phase_build()
         with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as wd:
-            paths = write_full_cascade(torch, wd, 0)
-            _, timings = run_mesh_serve_path(torch, paths)
+            _, timings = run_mesh_serve_path(torch, write_full_cascade(
+                torch, wd, 0, layers=SHALLOW))
         print(json.dumps({"mesh": timings}))
+        return 0
+
+    if args.quality_only:
+        phase_build()
+        with tempfile.TemporaryDirectory(prefix="qaig_chip_smoke_") as wd:
+            with phase("14 quality"):
+                _, timings = run_quality_path(torch, wd)
+        print(json.dumps({"quality": timings}, default=str))
         return 0
 
     if args.data_only:
@@ -4887,8 +5256,10 @@ def main():
             timings["train_f32"]["compare"] = compare_train_steps(
                 torch, workdir, bf16=False)
         with phase("7 serving"):
+            shallow = write_full_cascade(torch, Path(workdir) / "shallow", 0,
+                                         layers=SHALLOW)
             launches["pipeline"], timings["serve"] = run_serve_path(torch,
-                                                                    paths)
+                                                                    shallow)
         with phase("8 probe"):
             launches["probe"], timings["probe"] = run_probe_path(torch)
         with phase("9 front"):
@@ -4906,16 +5277,19 @@ def main():
                 run_interchange_path(torch, workdir, paths, fused_ref)
         with phase("11 parallel"):
             parallel_launches, timings["parallel"] = run_parallel_path(
-                torch, workdir, paths)
+                torch, workdir, shallow)
             launches.update(parallel_launches)
         with phase("12 serving over a mesh"):
             mesh_launches, timings["mesh"] = run_mesh_serve_path(torch,
-                                                                 paths)
+                                                                 shallow)
             launches.update(mesh_launches)
         with phase("13 data plane"):
             data_launches, timings["data"] = run_data_path(
                 torch, workdir, front_paths, timings["front"], paths)
             launches.update(data_launches)
+        with phase("14 quality"):
+            launches["quality"], timings["quality"] = run_quality_path(
+                torch, workdir)
     timings["phase_s"] = dict(PHASE_SECONDS)
     log(f"[seconds] total: {time.perf_counter() - START:.1f} s (phases "
         f"{ {k: round(v, 1) for k, v in PHASE_SECONDS.items()} })")

@@ -15,10 +15,14 @@ with a key and replays the graph on every later call with that key:
   the graph, so a replay draws from the generator's state at that moment
   (``manual_seed`` before a replay re-seeds it) and advances it as the
   eager function would;
-* capture runs on the runner's own side stream in ``thread_local`` mode,
-  one capture at a time in the process, into one memory pool that all of
-  the runner's graphs share, after a garbage collection (a graph that
-  dies inside another capture invalidates it);
+* capture runs on a side stream in ``thread_local`` mode, one capture at
+  a time in the process, into one memory pool that all of the runner's
+  graphs share, after a garbage collection (a graph that dies inside
+  another capture invalidates it).  The side stream is the card's one
+  capture stream, which every runner of the process shares: cuBLAS keeps
+  a workspace for each stream it has run on until the process ends
+  (PyTorch's workspace cache), so a stream of each runner's own would
+  leave one workspace behind every trainer and cascade of the process;
 * cuDNN and cuBLAS set up their handles at their first call in a thread,
   allocating device memory, which a capture forbids: before a thread's
   first capture the runner runs its ``warmup`` (a few small eager calls
@@ -53,6 +57,17 @@ from qaig_tpu_torch.ops import mlp_fused as mf
 # thread while the old one serves, so captures take this lock (replays do
 # not)
 _CAPTURE_LOCK = threading.Lock()
+# the capture stream of each card (:func:`capture_stream`)
+_CAPTURE_STREAMS = {}
+
+
+def capture_stream(device):
+    """The side stream every capture on ``device`` runs on."""
+    stream = _CAPTURE_STREAMS.get(device)
+    if stream is None:
+        stream = _CAPTURE_STREAMS.setdefault(device,
+                                             torch.cuda.Stream(device))
+    return stream
 
 
 def launch_counters():
@@ -133,7 +148,7 @@ class GraphRunner:
         self.device = device
         self.warmup = warmup
         self._warm_threads = set()
-        self.stream = torch.cuda.Stream(self.device)
+        self.stream = capture_stream(self.device)
         # One pool for all of this runner's graphs.  Sharing it is safe
         # while (1) inputs are copied in just before a replay (replay()
         # does), (2) outputs are copied out before the next replay
@@ -154,7 +169,7 @@ class GraphRunner:
     def capture(self, fn, inputs, generator=None, prepare=None):
         """Capture ``fn`` over static copies of ``inputs``; raises if the
         capture fails (the counts stay as they were).  ``prepare(*static)``
-        runs eagerly on the runner's stream just before the capture (a
+        runs eagerly on the capture stream just before the capture (a
         train step's warm-up: a forward and backward that update
         nothing); its launches are taken out of the counts too."""
         if self.warmup is not None and \

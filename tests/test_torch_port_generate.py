@@ -276,8 +276,9 @@ def test_device_cuda_without_a_gpu_raises():
 
 
 def test_port_imports_neither_jax_nor_qaig_tpu():
-    """Importing every module of the port pulls in no ``jax`` and nothing
-    of ``qaig_tpu`` (checked in a fresh interpreter)."""
+    """Importing every module of the port pulls in no ``jax``, nothing of
+    ``qaig_tpu`` and none of the JAX side's ``scripts/`` (checked in a
+    fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import qaig_tpu_torch\n"
@@ -285,7 +286,9 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
         "'qaig_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'qaig_tpu', 'flax', 'optax'))\n"
+        "('jax', 'jaxlib', 'qaig_tpu', 'flax', 'optax', 'scripts', "
+        "'eval_quality', 'quality_run', 'render_quality', "
+        "'sampling_sweep', 'quality_bf16_ab'))\n"
         "print(sorted(m for m in sys.modules "
         "if m.startswith('qaig_tpu_torch.')), bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -304,5 +307,7 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
                  "cli.export_torch", "parallel.comm", "parallel.mesh",
                  "parallel.sharding", "parallel.pipeline",
                  "parallel.local", "cli._args", "native",
-                 "scripts.eval_quality", "data.fmap_dataset", "data.loader"):
+                 "scripts.eval_quality", "data.fmap_dataset", "data.loader",
+                 "scripts.quality_run", "scripts.render_quality",
+                 "scripts.sampling_sweep", "scripts.quality_bf16_ab"):
         assert f"'qaig_tpu_torch.{name}'" in proc.stdout, name

@@ -80,6 +80,21 @@ def _counts():
             da.shared_prefix_attention_fused_t.launches)
 
 
+def test_runners_of_a_card_share_one_capture_stream(stub_cuda,
+                                                    monkeypatch):
+    """Every runner on a card captures on the card's one capture stream
+    (cuBLAS keeps a workspace for each stream it ran on until the process
+    ends); another card has its own."""
+    from qaig_tpu_torch.infer import graphs
+    monkeypatch.setattr(graphs, "_CAPTURE_STREAMS", {})
+    first, second = GraphRunner("cpu"), GraphRunner("cpu")
+    other = GraphRunner(torch.device("cuda", 1))
+    assert first.stream is second.stream
+    assert other.stream is not first.stream
+    assert graphs.capture_stream(torch.device("cuda", 1)) is other.stream
+    assert first.pool is None and len(graphs._CAPTURE_STREAMS) == 2
+
+
 def test_runner_counts_a_capture_once_per_replay(stub_cuda):
     """A capture's counter deltas are taken back out and added again at
     every replay, the first included: each call counts what one run of

@@ -324,6 +324,31 @@ def test_graphed_transformer_steps_equal_eager(cuda, bf16):
 
 
 @pytest.mark.cuda
+def test_graphed_trainers_in_turn_leave_no_memory_behind(cuda):
+    """Three graphed transformer trainers made, stepped and let go in turn,
+    as ``quality_run`` trains its stages: the card's allocated memory after
+    each is the first one's (each capture runs on the card's one capture
+    stream; a stream per runner left a cuBLAS workspace behind each)."""
+    import gc
+    latents = torch.randn((4,) + LATENT, generator=torch.Generator()
+                          .manual_seed(5)).to(cuda)
+    after = []
+    for seed in range(3):
+        model, books = _transformer_setup(cuda, seed=seed, remat=True)
+        step, optimizer = _transformer_step(model, books, True)
+        gen = torch.Generator().manual_seed(seed)
+        for _ in range(2):
+            step(latents, gen)
+        assert step.runner is not None
+        del model, books, step, optimizer
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        after.append(torch.cuda.memory_allocated(cuda))
+    assert after == [after[0]] * 3, after
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
 def test_graphed_autoencoder_steps_equal_eager(cuda, bf16):
     from qaig_tpu_torch.models.core import init_parameters
