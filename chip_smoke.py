@@ -183,6 +183,21 @@ Phases (any failure exits non-zero and prints no result line):
    pools let go); then the last cascade stage's step (remat, EMA 0.999,
    clip 1.0, float32) graphed against eager at full width, bit for bit.
 
+15. bench -- ``python -m qaig_tpu_torch.bench``'s ``main`` in this
+   process at full width, batch 8: (a) 3 iterations with the breakdown,
+   its JSON line's keys as ``bench.py``'s, the card as ``device_kind``,
+   ``mfu`` in (0, 1], stage 0-2 and the pixel decode in ``stages``, A and
+   B launched ``cascade_launches()`` times a cascade call (the captured
+   cascade's first and timed replays and the breakdown's two of each
+   stage); (b) ``--int8-kv --flat-decode``, 1 iteration, captured, C and
+   kernel 4's int8 form launched as ``expected_decode_launches(True)``
+   predicts (stage 0's 8 heads x 32 rollouts and the 7-wide crossing
+   segment stay on C); (c) the bench's cascade graph against its eager
+   cascade at one seed, tokens bit-equal; (d) each of the seven tools
+   (``qaig_tpu_torch/scripts/{bench_train,bench_stages,probe_latency,
+   bench_serve,profile_rollout,profile_decode,profile_window_shared}``) at
+   ``--scale smoke`` on the card, its line's schema checked.
+
 Each phase's wall seconds are printed on a line of their own
 (``[seconds] phase ...``), and the run's total after the last.  The
 kernels' launch counts are set to 0 before each main path's run and
@@ -191,8 +206,9 @@ read after it.  It prints a ``{"kernels": [...]}`` JSON line, the card's
 ``--json-out PATH`` also writes every per-shape measurement there;
 ``--profile`` adds ``torch.profiler`` windows over the first 64 stage-2
 tokens and over train steps 2-5 (device busy share and the kernels that
-take the time).  ``--parallel-only``, ``--serving-only``, ``--data-only``
-and ``--quality-only`` run phases 1-2 and one phase (with what it needs).
+take the time).  ``--parallel-only``, ``--serving-only``, ``--data-only``,
+``--quality-only`` and ``--bench-only`` run phases 1-2 and one phase
+(with what it needs).
 """
 
 import argparse
@@ -4769,6 +4785,256 @@ def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
 
 
 # ---------------------------------------------------------------------------
+# phase 15: the port's bench and its seven tools
+# ---------------------------------------------------------------------------
+
+# bench.py's JSON keys (with the CI keys from 2 iterations on)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "mode", "scale",
+              "n_chips", "device_kind", "batch_per_chip", "iters",
+              "decode_tokens_per_sec_per_chip",
+              "model_token_steps_per_sec_per_chip", "mfu",
+              "flops_per_image", "iter_time_mean_s", "iter_time_std_s",
+              "iter_time_min_s", "iter_time_max_s", "stages"}
+BENCH_CI_KEYS = {"iter_time_ci95_s", "img_per_sec_per_chip_ci95"}
+# the JAX tools' keys (tests/test_torch_port_tools.py holds the port's to
+# the JAX scripts' on the CPU)
+STAGES_KEYS = {"ae_train_fp32", "ae_train_bf16", "fmap_extract",
+               "codebook_train_p8", "codebook_train_p2"}
+LATENCY_KEYS = {"device", "iters", "fused_s", "fused_stage0_s",
+                "fused_stage1_s", "fused_stage2_s", "fused_b8_s",
+                "fused_b8_per_image_s", "dispatched_s",
+                "speedup_fused_vs_dispatched"}
+SERVE_KEYS = {"serial_s", "coalesced_s", "speedup", "n_requests",
+              "images_per_sec_coalesced"}
+
+
+def _in_process(main, argv):
+    """``main(argv)``'s standard output lines (echoed), run in this
+    process."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"[bench]   {line[:400]}")
+    return lines
+
+
+def _bench_line(torch, argv, calls, predicted):
+    """One in-process run of the bench; its JSON line checked against
+    ``bench.py``'s keys and the card, and its launches of ``predicted``
+    ({name: per call}) against ``calls`` cascade calls.  Returns (line,
+    launches)."""
+    from qaig_tpu_torch import bench
+    synchronize(torch, "cuda")
+    reset_launches()
+    lines = _in_process(bench.main, argv)
+    launches = read_launches()
+    line = json.loads(lines[-1])
+    want = BENCH_KEYS | (BENCH_CI_KEYS if line["iters"] > 1 else set())
+    if set(line) != want:
+        raise SystemExit(f"bench {argv}: keys {sorted(line)} are not "
+                         f"bench.py's {sorted(want)}")
+    if line["device_kind"] != torch.cuda.get_device_name(0) or \
+            line["n_chips"] != torch.cuda.device_count():
+        raise SystemExit(f"bench {argv}: device {line['device_kind']} x "
+                         f"{line['n_chips']}")
+    if not (line["mfu"] is not None and 0 < line["mfu"] <= 1):
+        raise SystemExit(f"bench {argv}: mfu {line['mfu']}")
+    if list(line["stages"]) != ["stage0", "stage1", "stage2",
+                                "pixel_decode"]:
+        raise SystemExit(f"bench {argv}: stages {line['stages']}")
+    if not lines[0].startswith("card: "):
+        raise SystemExit(f"bench {argv}: no card line")
+    for name, per_call in predicted.items():
+        if launches[name] != calls * per_call:
+            raise SystemExit(
+                f"bench {argv}: {name} launched {launches[name]} times, "
+                f"expected {calls} cascade calls x {per_call}")
+    for name, count in launches.items():
+        if count and name not in predicted:
+            raise SystemExit(f"bench {argv}: {name} launched {count} "
+                             f"times on a path that does not run it")
+    return line, launches
+
+
+def _graph_against_eager(torch, seed=5, batch=8):
+    """Phase 15 (c): the bench's cascade graph (``Replica.call``) against
+    the same cascade run eagerly, at one seed: tokens bit-equal."""
+    import types
+    from qaig_tpu_torch import bench
+    args = types.SimpleNamespace(scale="full", int8_kv=False,
+                                 flat_decode=False)
+    replica = bench.Replica(args, torch.bfloat16, torch.device("cuda", 0))
+
+    def program():
+        return bench.cascade_program(replica.stages, replica.decoder, batch,
+                                     replica.generator)
+    replica.generator.manual_seed(seed)
+    with torch.inference_mode():
+        eager_px, eager = program()
+    graph_px, graphed = replica.call("cascade", program, seed)
+    synchronize(torch, "cuda")
+    if not torch.equal(eager, graphed):
+        raise SystemExit("the bench's cascade graph gave other tokens than "
+                         f"its eager cascade at seed {seed}: first at "
+                         f"{_first_difference(graphed, eager)}")
+    return float((eager_px.float() - graph_px.float()).abs().max())
+
+
+# runs one tool as ``python -m qaig_tpu_torch.scripts.<tool>`` does, in a
+# new process (its first library call on the card is then its own), and
+# prints the kernels' launch counts last
+TOOL_RUNNER = """
+import json, runpy, sys
+import chip_smoke
+tool, argv = sys.argv[1], sys.argv[2:]
+sys.argv = [tool, *argv]
+chip_smoke.reset_launches()
+runpy.run_module(f"qaig_tpu_torch.scripts.{tool}", run_name="__main__",
+                 alter_sys=True)
+print("LAUNCHES " + json.dumps(chip_smoke.read_launches()), flush=True)
+"""
+
+
+def _start_tools():
+    """Phase 15 (d), started: each tool once at ``--scale smoke`` on the
+    card, each in a process of its own (``TOOL_RUNNER``), all at once;
+    they run beside (a)-(c), which count their own process's launches.
+    Returns (start time, {name: (process, stdout file, stderr file)})."""
+    import os
+    import tempfile
+    repo = Path(__file__).resolve().parent
+    argv = {"bench_train": ["--steps", "3"], "bench_stages": ["--iters", "3"],
+            "probe_latency": ["--iters", "2"], "bench_serve": [],
+            "profile_rollout": [], "profile_decode": [],
+            "profile_window_shared": []}
+    started = {}
+    for name, args in argv.items():
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        started[name] = (subprocess.Popen(
+            [sys.executable, "-c", TOOL_RUNNER, name, *args, "--scale",
+             "smoke"], cwd=repo, env=dict(os.environ), stdout=out,
+            stderr=err, text=True), out, err)
+    return time.perf_counter(), started
+
+
+def _stop_tools(started):
+    for proc, out, err in started.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+        err.close()
+
+
+def _check_tools(t0, started):
+    """Phase 15 (d), checked: each tool's line's schema (the keys and
+    labels of the JAX scripts).  Returns (seconds from the start to each
+    tool's end, launches summed over the tools)."""
+    import re
+    from qaig_tpu_torch.scripts import (profile_decode, profile_rollout,
+                                        profile_window_shared)
+    seconds, outputs, launches = {}, {}, {}
+    for name, (proc, out_file, err_file) in started.items():
+        proc.wait(timeout=600)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        out_file.seek(0)
+        err_file.seek(0)
+        out, err = out_file.read(), err_file.read()
+        lines = out.strip().splitlines()
+        if proc.returncode != 0 or not lines or \
+                not lines[-1].startswith("LAUNCHES "):
+            raise SystemExit(f"{name} failed (exit {proc.returncode}):"
+                             f"\n" + (out + err)[-4000:])
+        for line in lines[:-1]:
+            log(f"[bench]   {name}: {line[:400]}")
+        for kernel, count in json.loads(
+                lines[-1][len("LAUNCHES "):]).items():
+            launches[kernel] = launches.get(kernel, 0) + count
+        if not lines[0].startswith("card: "):
+            raise SystemExit(f"{name}: no card line")
+        outputs[name] = lines[1:-1]
+
+    lines = outputs["bench_train"]
+    train_re = re.compile(
+        r"^remat=(True|False) batch=\d+ bf16=(True|False): [\d.]+ ms/step,"
+        r" [\d.]+ samples/sec, [\d.]+ TFLOP/s \(mfu [\d.]+ vs "
+        r"(bf16|f32) peak\)$")
+    if len(lines) != 4 or not all(train_re.match(x) for x in lines):
+        raise SystemExit(f"bench_train lines {lines}")
+    line = json.loads(outputs["bench_stages"][-1])
+    if set(line) != {"device_kind", "n_chips", "iters", "stages"} or \
+            set(line["stages"]) != STAGES_KEYS or any(
+                st["mfu"] is None for st in line["stages"].values()):
+        raise SystemExit(f"bench_stages line {line}")
+    line = json.loads(outputs["probe_latency"][-1])
+    if set(line) != LATENCY_KEYS:
+        raise SystemExit(f"probe_latency keys {sorted(line)}")
+    line = json.loads(outputs["bench_serve"][-1])
+    if set(line) != SERVE_KEYS or line["n_requests"] != 8:
+        raise SystemExit(f"bench_serve line {line}")
+    for name, labels in (
+            ("profile_rollout",
+             [row[-1] for row in profile_rollout.plan("smoke")]),
+            ("profile_decode",
+             [kw["label"] for kw in profile_decode.plan("smoke")]),
+            ("profile_window_shared",
+             list(profile_window_shared.labels("smoke")))):
+        got = [x.split(": ")[0] for x in outputs[name]]
+        if got != labels:
+            raise SystemExit(f"{name} labels {got}, expected {labels}")
+    return seconds, launches
+
+
+def run_bench_path(torch, device="cuda"):
+    """Phase 15: (a)-(d) above.  Returns (launches by run, timings)."""
+    del device
+    t0, started = _start_tools()
+    try:
+        return _bench_runs(torch, t0, started)
+    finally:
+        _stop_tools(started)
+
+
+def _bench_runs(torch, t0, started):
+    launches, out = {}, {}
+    per_call = cascade_launches()
+    # a bench run's cascade calls: the capture's replay, the timed
+    # iterations, and the breakdown's two replays of each stage graph
+    line, launches["bench"] = _bench_line(
+        torch, ["--batch", "8", "--iters", "3"], 3 + 1 + 2, per_call)
+    out["default"] = line
+    want = expected_decode_launches(flat=True)
+    flat_predicted = {
+        "flash_attention": per_call["flash_attention"],
+        "shared_prefix_attention_fused_int8":
+            sum(c["slot_minor"] for c in want.values()),
+        "shared_prefix_attention_fused_flat_int8":
+            sum(c["flat"] for c in want.values())}
+    line, launches["bench_int8_flat"] = _bench_line(
+        torch, ["--batch", "8", "--iters", "1", "--int8-kv",
+                "--flat-decode"], 1 + 1 + 2, flat_predicted)
+    out["int8_flat"] = line
+    log(f"[bench] (a)-(b) launches as predicted: default {per_call} x 6 "
+        f"calls, --int8-kv --flat-decode {flat_predicted} x 4 calls; "
+        f"{out['default']['value']} / {out['int8_flat']['value']} images/s "
+        f"at batch 8")
+    synchronize(torch, "cuda")
+    reset_launches()
+    out["graph_vs_eager_pixels_max_abs"] = _graph_against_eager(torch)
+    log(f"[bench] (c) graph against eager: tokens bit-equal, pixels "
+        f"within {out['graph_vs_eager_pixels_max_abs']}")
+    out["tool_s"], launches["bench_tools"] = _check_tools(t0, started)
+    log(f"[bench] (d) seven tools at smoke scale, each in a process of its "
+        f"own, all started with the phase, schemas as the JAX scripts': "
+        f"seconds from the phase's start to each one's end {out['tool_s']}")
+    _free(torch)
+    return launches, out
+
+
+# ---------------------------------------------------------------------------
 # phase 14: the quality ledger at full width
 # ---------------------------------------------------------------------------
 
@@ -5162,6 +5428,10 @@ def main():
                              "front's checkpoints), then phase 13 (the data "
                              "plane) only; prints its timings, no result "
                              "line")
+    parser.add_argument("--bench-only", action="store_true",
+                        help="phases 1-2, then phase 15 (the port's bench "
+                             "and its seven tools) only; prints its "
+                             "timings, no result line")
     parser.add_argument("--quality-only", action="store_true",
                         help="phases 1-2, then phase 14 (the quality "
                              "ledger at full width) only; prints its "
@@ -5190,6 +5460,14 @@ def main():
             _, timings = run_mesh_serve_path(torch, write_full_cascade(
                 torch, wd, 0, layers=SHALLOW))
         print(json.dumps({"mesh": timings}))
+        return 0
+
+    if args.bench_only:
+        phase_build()
+        with phase("15 bench"):
+            launches, timings = run_bench_path(torch)
+        print(json.dumps({"bench": timings, "launches": launches},
+                         default=str))
         return 0
 
     if args.quality_only:
@@ -5290,6 +5568,9 @@ def main():
         with phase("14 quality"):
             launches["quality"], timings["quality"] = run_quality_path(
                 torch, workdir)
+        with phase("15 bench"):
+            bench_launches, timings["bench"] = run_bench_path(torch)
+            launches.update(bench_launches)
     timings["phase_s"] = dict(PHASE_SECONDS)
     log(f"[seconds] total: {time.perf_counter() - START:.1f} s (phases "
         f"{ {k: round(v, 1) for k, v in PHASE_SECONDS.items()} })")

@@ -45,10 +45,9 @@ import copy
 import time
 
 import torch
-import torch.nn.functional as F
 
 from qaig_tpu_torch.infer.decode import DecodeEngine, RowSlice, SamplerSettings
-from qaig_tpu_torch.infer.graphs import GraphRunner
+from qaig_tpu_torch.infer.graphs import GraphRunner, product_warmup
 from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
 from qaig_tpu_torch.parallel import comm
 from qaig_tpu_torch.parallel.local import (LocalMesh, local_devices,
@@ -241,17 +240,14 @@ def _run_fused(stages, decoder, num_images, generator):
 
 def library_warmup(decoder, codebook, dtype, device):
     """A :class:`GraphRunner`'s warm-up for the cascade: one image's pixel
-    decode (cuDNN's convolutions) and a product, a batched product and a
-    product with a bias, 8 x 8 in ``dtype`` (cuBLAS and cuBLASLt), so that
-    a capture finds both libraries set up in its thread."""
+    decode (cuDNN's convolutions) and ``graphs.product_warmup`` in
+    ``dtype`` (cuBLAS and cuBLASLt), so that a capture finds both
+    libraries set up in its thread."""
     def warmup():
         tokens = torch.zeros(1, codebook.seq_len, dtype=torch.long,
                              device=device)
         decoder(codebook.get_quantized_image(tokens))
-        a = torch.ones(8, 8, dtype=dtype, device=device)
-        a @ a
-        torch.bmm(a[None], a[None])
-        F.linear(a, a, a[0])
+        product_warmup(dtype, device)
     return warmup
 
 

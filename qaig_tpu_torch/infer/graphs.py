@@ -92,6 +92,16 @@ def launch_counters():
             ("mlp2_fused", mf.mlp2_fused, "launches")]
 
 
+def product_warmup(dtype, device):
+    """A product, a batched product and a product with a bias, 8 x 8 in
+    ``dtype`` on ``device``: sets cuBLAS and cuBLASLt up in the calling
+    thread (a runner's ``warmup`` calls it before a capture)."""
+    a = torch.ones(8, 8, dtype=dtype, device=device)
+    a @ a
+    torch.bmm(a[None], a[None])
+    torch.nn.functional.linear(a, a, a[0])
+
+
 def read_counts():
     return [getattr(fn, attr) for _, fn, attr in launch_counters()]
 

@@ -71,6 +71,31 @@ class CascadeStage:
     def lr_num_embeddings(self):
         return self.lr_codebook.num_embeddings if self.lr_codebook else 0
 
+    def rollout(self, tokens, rng, settings=None, use_beams=True):
+        """This stage's HR tokens, drawn from ``rng`` (a generator, a
+        :class:`RowSlice` of one, or per-row keys): stage 0 decodes on
+        from ``tokens`` (N, 1), a later stage from its HR start token with
+        ``tokens`` (the previous stage's) through its encoder; best of
+        ``num_beam`` rollouts, or one path without ``use_beams``."""
+        settings = settings or self.settings
+        if self.is_base:
+            init, x_enc = tokens, None
+        else:
+            init = torch.full((tokens.shape[0], 1),
+                              self.hr_codebook.num_embeddings,
+                              dtype=torch.long, device=tokens.device)
+            x_enc = tokens
+        if use_beams:
+            out = self.engine.rollout_generate(
+                init, self.total_seq, rng, settings, num_beam=self.num_beam,
+                beam_width=self.beam_width, x_enc=x_enc,
+                sliding_window=self.sliding_window)
+        else:
+            out = self.engine.generate(
+                init, self.total_seq, rng, settings, x_enc=x_enc,
+                sliding_window=self.sliding_window)
+        return out - settings.index_shift
+
 
 class CascadePipeline:
     """The full coarse-to-fine generation stack on one device, or over a
@@ -251,34 +276,35 @@ class CascadePipeline:
         tokens = (None if init_tokens is None else
                   torch.as_tensor(init_tokens).long().to(self.device))
         per_stage = []
-        for stage_idx, stage in enumerate(self.stages):
-            settings = stage.settings
-            if temperature is not None:
-                settings = dataclasses.replace(
-                    settings, temperature=float(temperature))
-            gen_rng = (rng if row_keys is None
-                       else rk.fold_in(row_keys, stage_idx))
-            if stage.is_base:
-                if tokens is None:
-                    if row_keys is not None:
-                        tokens = rk.randint(rk.fold_in(gen_rng, _INIT_TAG),
-                                            stage.lr_num_embeddings)[:, None]
-                    else:
-                        tokens = _random_tokens((num_images, 1),
-                                                stage.lr_num_embeddings, rng)
-                init, x_enc = tokens, None
-            else:
-                init = torch.full((num_images, 1),
-                                  stage.hr_codebook.num_embeddings,
-                                  dtype=torch.long, device=self.device)
-                x_enc = tokens
-            out = stage.engine.rollout_generate(
-                init, stage.total_seq, gen_rng, settings,
-                num_beam=stage.num_beam, beam_width=stage.beam_width,
-                x_enc=x_enc, sliding_window=stage.sliding_window)
-            tokens = out - settings.index_shift
+        for stage_idx in range(len(self.stages)):
+            tokens = self.stage_tokens(stage_idx, tokens, num_images, rng,
+                                       row_keys, temperature)
             per_stage.append(tokens)
         return tokens, per_stage
+
+    def stage_tokens(self, stage_idx, tokens, num_images, rng=None,
+                     row_keys=None, temperature=None):
+        """Stage ``stage_idx`` alone, as :meth:`generate_tokens` runs it:
+        drawn from ``rng`` or, row-keyed, from ``fold_in(row_keys,
+        stage_idx)``; stage 0 conditioned on ``tokens`` or, when they are
+        None, on one random LR token an image (row-keyed: from a further
+        ``_INIT_TAG`` fold), a later stage on the previous stage's
+        ``tokens``."""
+        stage = self.stages[stage_idx]
+        settings = stage.settings
+        if temperature is not None:
+            settings = dataclasses.replace(settings,
+                                           temperature=float(temperature))
+        gen_rng = (rng if row_keys is None
+                   else rk.fold_in(row_keys, stage_idx))
+        if stage.is_base and tokens is None:
+            if row_keys is not None:
+                tokens = rk.randint(rk.fold_in(gen_rng, _INIT_TAG),
+                                    stage.lr_num_embeddings)[:, None]
+            else:
+                tokens = _random_tokens((num_images, 1),
+                                        stage.lr_num_embeddings, rng)
+        return stage.rollout(tokens, gen_rng, settings)
 
     def _images(self, num_images, row_keys, temperature, init_tokens=None):
         """Every stage, the codebook lookup and the pixel decode on this

@@ -373,11 +373,32 @@ def scale_table(args):
     }
 
 
+def codebook_subset(parser, args, cbs):
+    """The (name, patch) codebooks this run trains: every one of the
+    scale, or the ``--cb-patches`` subset.  Unknown names, and a subset
+    without ``--stop-after codebooks``, are parser errors (raised before
+    any stage runs)."""
+    if not args.cb_patches:
+        return cbs
+    wanted = args.cb_patches.split(",")
+    unknown = [n for n in wanted if n not in dict(cbs)]
+    if unknown:
+        parser.error(f"--cb-patches: unknown codebook name(s) "
+                     f"{', '.join(unknown)} (this scale has "
+                     f"{', '.join(n for n, _ in cbs)})")
+    if args.stop_after != "codebooks" and not set(wanted).issuperset(
+            n for n, _ in cbs):
+        parser.error("--cb-patches subsets require --stop-after "
+                     "codebooks (transformers consume every codebook)")
+    return [(n, p) for n, p in cbs if n in wanted]
+
+
 def main(argv=None):
     """The whole run; returns the report (also written to
     ``<out>/quality.json``)."""
     parser, args = parse_args(argv)
     scale = scale_table(args)
+    cbs = codebook_subset(parser, args, scale["cbs"])
     device = common.select_device(args.device)
 
     out = args.out_dir
@@ -524,17 +545,6 @@ def main(argv=None):
 
     cb_ckpts, cb_traj = {}, {}
     hw, K = scale["latent_hw"], scale["K"]
-    cbs = scale["cbs"]
-    if args.cb_patches:
-        wanted = set(args.cb_patches.split(","))
-        if args.stop_after != "codebooks" and not wanted.issuperset(
-                n for n, _ in cbs):
-            parser.error("--cb-patches subsets require --stop-after "
-                         "codebooks (transformers consume every codebook)")
-        cbs = [(n, p) for n, p in cbs if n in wanted]
-        if not cbs:
-            parser.error(f"--cb-patches {args.cb_patches!r} matches no "
-                         f"codebook at this scale")
     for name, patch in cbs:
         cfg = out / f"cb_{name}.json"
         cfg.write_text(json.dumps({
@@ -605,9 +615,11 @@ def main(argv=None):
             stage_done(f"prune_{name}")
 
     # -- side experiment: is the quantization ceiling K-bound?  The finest
-    # patch size again at 2x the embeddings (not consumed downstream).
-    if not args.no_k_exp:
-        exp_name, exp_patch = scale["cbs"][-1]
+    # patch size again at 2x the embeddings (not consumed downstream),
+    # beside the finest codebook trained above: skipped when a
+    # --cb-patches subset left that codebook out.
+    exp_name, exp_patch = scale["cbs"][-1]
+    if not args.no_k_exp and exp_name in cb_traj:
         exp_K = 2 * K
         cfg = out / f"cb_{exp_name}_k{exp_K}.json"
         cfg.write_text(json.dumps({

@@ -288,7 +288,9 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'qaig_tpu', 'flax', 'optax', 'scripts', "
         "'eval_quality', 'quality_run', 'render_quality', "
-        "'sampling_sweep', 'quality_bf16_ab'))\n"
+        "'sampling_sweep', 'quality_bf16_ab', 'bench', 'bench_train', "
+        "'bench_stages', 'bench_serve', 'probe_latency', "
+        "'profile_rollout', 'profile_decode', 'profile_window_shared'))\n"
         "print(sorted(m for m in sys.modules "
         "if m.startswith('qaig_tpu_torch.')), bad)\n"
         "sys.exit(1 if bad else 0)\n")
@@ -309,5 +311,9 @@ def test_port_imports_neither_jax_nor_qaig_tpu():
                  "parallel.local", "cli._args", "native",
                  "scripts.eval_quality", "data.fmap_dataset", "data.loader",
                  "scripts.quality_run", "scripts.render_quality",
-                 "scripts.sampling_sweep", "scripts.quality_bf16_ab"):
+                 "scripts.sampling_sweep", "scripts.quality_bf16_ab",
+                 "bench", "scripts.bench_train", "scripts.bench_stages",
+                 "scripts.probe_latency", "scripts.bench_serve",
+                 "scripts.profile_rollout", "scripts.profile_decode",
+                 "scripts.profile_window_shared"):
         assert f"'qaig_tpu_torch.{name}'" in proc.stdout, name

@@ -292,8 +292,10 @@ def background_runs(tmp_path_factory):
     in new processes before the first test, so that they overlap the
     in-process comparisons; a test that needs one waits for it."""
     runs = {}
-    for name, extra in (("smoke", ()), ("stop", ("--stop-after",
-                                                 "codebooks"))):
+    for name, extra in (("smoke", ()),
+                        ("stop", ("--stop-after", "codebooks")),
+                        ("coarsest", ("--stop-after", "codebooks",
+                                      "--cb-patches", "p4"))):
         out = tmp_path_factory.mktemp(name)
         runs[name] = (out, subprocess.Popen(
             _command("quality_run", "--smoke", *extra, "--out-dir",
@@ -439,6 +441,36 @@ def test_stop_after_codebooks(background_runs, tmp_path):
     with pytest.raises(SystemExit, match="partial run"):
         render_quality.main(["--report", str(run_dir / "quality.json"),
                              "--doc", str(tmp_path / "Q.md")])
+
+
+def test_coarsest_codebook_subset_skips_the_k_experiment(background_runs):
+    """``--cb-patches`` naming only the coarsest codebook, with the K
+    experiment on: the run finishes (the experiment sits beside the finest
+    codebook, which this subset does not train, so it is skipped) and the
+    report holds that one codebook and no experiment."""
+    run_dir, proc = background_runs["coarsest"]
+    _finish(proc)
+    report = json.loads((run_dir / "quality.json").read_text())
+    assert report["stopped_after"] == "codebooks"
+    assert [k for k in report["stages"] if k.startswith("codebook_")] == [
+        "codebook_p4"]
+    assert "experiments" not in report
+    assert not (run_dir / "cb_p1_k32").exists()
+
+
+def test_unknown_codebook_name_is_a_parser_error(tmp_path):
+    """An unknown ``--cb-patches`` name exits non-zero before any stage
+    runs, naming the unknown name (a known one beside it is no excuse)."""
+    proc = subprocess.run(
+        _command("quality_run", "--smoke", "--stop-after", "codebooks",
+                 "--cb-patches", "p2,p3", "--out-dir", str(tmp_path / "q"),
+                 "--device", "cpu"),
+        cwd=REPO, env=ENV, text=True, capture_output=True, timeout=120)
+    assert proc.returncode == 2, proc.stdout + proc.stderr
+    assert "unknown codebook name(s) p3" in proc.stderr, proc.stderr
+    assert "p2" not in proc.stderr.split("unknown codebook name(s)")[1] \
+        .split("(")[0]
+    assert not (tmp_path / "q").exists()
 
 
 # ---------------------------------------------------------------------------

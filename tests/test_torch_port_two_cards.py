@@ -188,3 +188,18 @@ def test_data_2_pipeline_over_two_cards(cards, cascade, fused):
     if fused:
         assert [list(r._graphs.graphs) for r in pipe.replicas] == \
             [[(2, None)], [(2, None)]]
+
+
+def test_bench_over_every_card(cards, capsys):
+    """``python -m qaig_tpu_torch.bench`` over every visible card: one
+    replica and one graph a card, every replay launched before the one
+    synchronise; the per-card figures divide by the cards."""
+    from qaig_tpu_torch import bench
+    bench.main(["--scale", "smoke", "--batch", "4", "--iters", "2",
+                "--no-breakdown"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    n = torch.cuda.device_count()
+    assert line["n_chips"] == n and line["batch_per_chip"] == 4
+    assert line["device_kind"] == torch.cuda.get_device_name(0)
+    assert line["value"] == pytest.approx(
+        4 * 2 / (line["iter_time_mean_s"] * 2), rel=1e-2)
