@@ -156,7 +156,8 @@ Phases (any failure exits non-zero and prints no result line):
    2``'s refusal on one card;
 13. data plane -- the native batch loaders (``qaig_tpu_torch/native``,
    built with ``g++``): (a) 64 seeded 128x128x3 PNGs whose rows use all
-   five filters, mostly Paeth and Average, decoded by the plain decoder
+   five filters, mostly Paeth and Average, 8 of them interlaced (Adam7),
+   decoded by the plain decoder
    (``utils/png.py``) and by ``load_image_batch``, bit-equal, seconds per
    image of both and the ``DataLoader``'s batches per second at batch 8;
    (b) ``train_autoencoder`` (6 bf16 steps) and ``generate_fmap_dataset``
@@ -167,9 +168,11 @@ Phases (any failure exits non-zero and prints no result line):
    (one BMU launch a batch a codebook, the LR codebook's small-M), PSNRs
    within 1e-3 dB of a CPU run, the codebook PSNRs more than 0.01 dB from
    the reconstruction's; (d) ``generate.run`` with ``devices=[cuda:0,
-   cuda:0]`` (data 2), float32, greedy, dispatched by default: tokens
-   equal the one-card run's, the mesh line printed, ``fused=True``
-   raises;
+   cuda:0]`` (data 2), float32, greedy, fused by default (a graph a
+   replica: two captures, then a warm replay) and ``--no-fused``: tokens
+   equal to each other and to the one-card run's, each replica's graph
+   launching one card's cascade, the first-call, warm and dispatched
+   seconds; ``fused=True`` with a model axis of 2 raises;
 14. quality -- ``python -m qaig_tpu_torch.scripts.quality_run``'s
    ``main`` in this process at its full widths (128x128 images, AE 256
    -> 512, K 512, in_dim 512 / hidden 2048 / 7 + 5 layers / 64 heads,
@@ -1812,7 +1815,7 @@ def run_fused_path(torch, workdir, paths, reference, seed=0, num_images=8,
                      profile_dir=str(Path(workdir) / "fused_trace"))
     finally:
         generate.save_images, generate._load_stage = save_images, load_stage
-    runner = cache["runner"]
+    runner = cache["replicas"][0]["runner"]
     if list(runner.graphs) != [num_images]:
         raise SystemExit(f"expected one graph, got keys {list(runner.graphs)}")
     graph = runner.graphs[num_images]
@@ -4395,12 +4398,15 @@ DATA = dict(images=64, side=128, batch=8, steps=6, checkpoint_step=3,
             # each row's filter, cycled: mostly Paeth and Average, as
             # libpng's adaptive choice leaves photographs, and the others
             filters=(4, 3, 4, 4, 3, 1, 4, 3, 2, 4, 3, 0),
+            # every such image is interlaced (Adam7), the others not
+            adam7_every=8,
             eval_batch=8, eval_images=16, gen_images=4, gen_seed=3)
 
 
 def write_filtered_images(root, n, side, seed=1):
     """``n`` seeded side x side x 3 PNGs with filtered rows
-    (``DATA["filters"]``) and their manifest; returns (manifest, paths)."""
+    (``DATA["filters"]``), every ``DATA["adam7_every"]``-th interlaced
+    (Adam7), and their manifest; returns (manifest, paths)."""
     import numpy as np
     from qaig_tpu_torch.data.manifest import write_manifest
     from qaig_tpu_torch.utils import png
@@ -4415,8 +4421,9 @@ def write_filtered_images(root, n, side, seed=1):
                                                  + yy[..., None]) + phase)
         pixels = np.clip(base + rng.normal(0, 10, (side, side, 3)), 0, 255)
         path = folder / f"{i}.png"
-        path.write_bytes(png.encode(pixels.astype(np.uint8),
-                                    DATA["filters"]))
+        path.write_bytes(png.encode(
+            pixels.astype(np.uint8), DATA["filters"],
+            interlace=i % DATA["adam7_every"] == DATA["adam7_every"] - 1))
         paths.append(str(path))
     manifest = write_manifest(Path(root) / "dataset.json", [
         {"image_fpath": p, "labels": []} for p in paths])
@@ -4538,7 +4545,8 @@ def run_fmap_split(argv, device="cuda"):
 def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
                   device="cuda"):
     """Phase 13: the data plane (``qaig_tpu_torch/native``).  (a) 64
-    seeded 128x128x3 PNGs with filtered rows (``DATA["filters"]``) decoded
+    seeded 128x128x3 PNGs with filtered rows (``DATA["filters"]``), 8 of
+    them interlaced (Adam7), decoded
     item by item by the plain decoder (``utils/png.py``) and in batches of
     8 by ``native.load_image_batch``: bit-equal slabs, seconds per image
     of both, and the ``DataLoader``'s batches per second at batch 8.  (b)
@@ -4552,9 +4560,12 @@ def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
     run, and the codebook PSNRs more than 0.01 dB from the
     reconstruction's, so that a wrong code would show.  (d)
     ``generate.run`` with ``devices=[cuda:0, cuda:0]`` (data 2), float32,
-    greedy, dispatched by default, 4 images: tokens equal to the one-card
-    run's, the mesh line printed, A 2 x 37 and B 2 x 2345, ``fused=True``
-    raises.  Returns (launches by path, timings)."""
+    greedy, 4 images, fused by default (a graph a replica, captured at the
+    first call and replayed at the second) and ``fused=False``: tokens
+    equal to each other and to the one-card run's, the mesh line printed,
+    A 2 x 37 and B 2 x 2345 a call, A 37 and B 2345 in each replica's
+    graph; ``fused=True`` with a model axis of 2 raises.  Returns
+    (launches by path, timings)."""
     import contextlib
     import io
     import numpy as np
@@ -4615,13 +4626,19 @@ def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
         batch_s / n, "native_item_s_per_image": item_s / n,
         "loader_batches_per_s": len(batches) / loader_s,
         "write_s": write_s, "build_s": build_s}
-    log(f"[data] 13 (a) {n} PNGs of {d['side']}x{d['side']}x3, rows "
+    adam7 = sum(png.inflate(Path(p).read_bytes())[0][4] for p in paths)
+    if adam7 != n // d["adam7_every"]:
+        raise SystemExit(f"13 (a): {adam7} interlaced files, expected "
+                         f"{n // d['adam7_every']}")
+    log(f"[data] 13 (a) {n} PNGs of {d['side']}x{d['side']}x3 ({adam7} "
+        f"interlaced, Adam7), rows "
         f"filtered {d['filters']} (cycled), written in {write_s:.1f} s; "
         f"{pil}; native library built in {build_s:.1f} s (g++)")
     log(f"[data] 13 (a) decode, host seconds per image: plain (utils/png.py, "
         f"one by one) {plain_s / n:.5f}, native in batches of {b} "
         f"{batch_s / n:.6f} ({plain_s / batch_s:.1f}x), native one by one "
-        f"{item_s / n:.6f}; slabs bit-equal; DataLoader at batch {b} "
+        f"{item_s / n:.6f}; slabs bit-equal, the Adam7 files' too; "
+        f"DataLoader at batch {b} "
         f"(load_batch): {len(batches) / loader_s:.1f} batches/s")
 
     # (b) the front of the pipeline over the filtered files
@@ -4722,41 +4739,50 @@ def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
                          f"the reconstruction's ({apart}), so the comparison "
                          f"could not see a wrong code")
 
-    # (d) generate.run over a mesh of cuda:0 twice
+    # (d) generate.run over a mesh of cuda:0 twice: fused (a graph a
+    # replica; the first call captures both, the second replays them) and
+    # dispatched, against one card's dispatched loop
+    from qaig_tpu_torch.infer.graphs import launch_counters
     config_path, decoder_path, _ = cascade_paths
     args = {"device": device, "config_path": str(config_path),
             "decoder_path": str(decoder_path), "num_images": d["gen_images"],
             "seed": d["gen_seed"]}
     two = [f"{device}:0"] * 2
     try:
-        generate.run(dict(args, fused=True, out_dir=str(root / "gen_f")),
-                     devices=two)
-        raise SystemExit("13 (d): fused=True on a 2-card mesh did not raise")
+        generate.run(dict(args, fused=True, num_model_shards=2,
+                          out_dir=str(root / "gen_f")), devices=two)
+        raise SystemExit("13 (d): fused=True with a model axis of 2 did "
+                         "not raise")
     except ValueError as e:
         refusal = str(e)
-    plan = [("one_card", two[:1], {"fused": False}, 1),
-            ("data2", two, {}, 2)]
+    cache = {}
+    plan = [("one_card", two[:1], {"fused": False}, 1, None),
+            ("data2_first", two, {}, 2, cache),
+            ("data2_warm", two, {}, 2, cache),
+            ("data2_dispatched", two, {"fused": False}, 2, None)]
     sample = decode._categorical
     decode._categorical = lambda logits, draw: logits.argmax(dim=-1)
     runs = {}
     try:
-        for name, devices, extra, _ in plan:
+        for name, devices, extra, _, held in plan:
             buf = io.StringIO()
             synchronize(torch, device)
             reset_launches()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 tokens = generate.run(dict(args, **extra, out_dir=str(
-                    root / f"gen_{name}")), devices=devices)
+                    root / f"gen_{name}")), cache=held, devices=devices)
             synchronize(torch, device)
             runs[name] = {"tokens": tokens.cpu(), "log": buf.getvalue(),
                           "seconds": time.perf_counter() - t0,
                           "launches": read_launches()}
     finally:
         decode._categorical = sample
-    launches["generate_mesh"] = runs["data2"]["launches"]
+    launches["generate_mesh"] = runs["data2_warm"]["launches"]
     want = runs["one_card"]["tokens"]
-    for name, _, _, n_data in plan:
+    fused_line = ("Fused single-dispatch cascade: 3 stages, a graph on each "
+                  "of 2 replicas")
+    for name, _, extra, n_data, _ in plan:
         got, log_text = runs[name]["tokens"], runs[name]["log"]
         first = _first_difference(got, want)
         if got.shape != (d["gen_images"], want.shape[1]) or \
@@ -4767,20 +4793,53 @@ def run_data_path(torch, workdir, front_paths, front_timings, cascade_paths,
                         {k: n_data * v
                          for k, v in cascade_launches().items()})
         line = f"Generation mesh: data={n_data} x model=1"
-        if line not in log_text or "Fused" in log_text:
+        fused = n_data == 2 and "fused" not in extra
+        if line not in log_text or (fused_line in log_text) != fused or \
+                ("Fused" in log_text and not fused):
             raise SystemExit(f"13 (d) {name}: no '{line}' line, or not "
-                             f"dispatched:\n{log_text}")
-    out["generate_mesh"] = {name: {"seconds": r["seconds"]}
-                            for name, r in runs.items()}
-    seconds = {name: round(r["seconds"], 3) for name, r in runs.items()}
+                             f"{'fused' if fused else 'dispatched'}:\n"
+                             f"{log_text}")
+    if runs["data2_first"]["log"].count(" instantiation ") != 2 or \
+            "first call" in runs["data2_warm"]["log"]:
+        raise SystemExit("13 (d): expected two captures at the first fused "
+                         "call and none at the second:\n"
+                         + runs["data2_first"]["log"]
+                         + runs["data2_warm"]["log"])
+    names = [name for name, _, _ in launch_counters()]
+    replicas = []
+    for i, replica in enumerate(cache["replicas"]):
+        graphs = replica["runner"].graphs
+        if list(graphs) != [d["gen_images"] // 2]:
+            raise SystemExit(f"13 (d): replica {i} holds graphs "
+                             f"{list(graphs)}")
+        graph = graphs[d["gen_images"] // 2]
+        counted = dict(zip(names, graph.launches))
+        _check_launches(f"13 (d) replica {i}'s graph", counted,
+                        cascade_launches())
+        replicas.append({"launches": {k: counted[k]
+                                      for k in cascade_launches()},
+                         "capture_s": graph.capture_s,
+                         "instantiate_s": graph.instantiate_s})
+    seconds = {name: r["seconds"] for name, r in runs.items()}
+    out["generate_mesh"] = {"seconds": seconds, "replicas": replicas}
     log(f"[data] 13 (d) generate.run, float32, greedy, {d['gen_images']} "
-        f"images: devices=[{two[0]}, {two[0]}] (data 2, dispatched by "
-        f"default, stages read once) gives the one-card run's tokens; "
-        f"'{runs['data2']['log'].splitlines()[0]}' printed; seconds "
-        f"{seconds} (both replicas on one card, in turn: no scaling is "
-        f"measured); launches "
-        f"{ {k: launches['generate_mesh'][k] for k in cascade_launches()} }; "
-        f"fused=True raises: {refusal}")
+        f"images, devices=[{two[0]}, {two[0]}] (data 2, stages read once): "
+        f"fused by default and --no-fused give the one-card run's tokens; "
+        f"'{runs['data2_warm']['log'].splitlines()[0]}' printed; "
+        f"--fused with a model axis of 2 raises: {refusal}")
+    for i, r in enumerate(replicas):
+        log(f"[data] 13 (d) replica {i}'s graph on {two[0]}: launches "
+            f"{r['launches']} a replay; capture {r['capture_s']:.3f} s, "
+            f"instantiation {r['instantiate_s']:.3f} s")
+    log(f"[data] 13 (d) data 2 fused, warm (a replay a replica, both "
+        f"launched before any read): {seconds['data2_warm']:.3f} s")
+    log(f"[data] 13 (d) data 2 fused, first call (load, two captures): "
+        f"{seconds['data2_first']:.3f} s")
+    log(f"[data] 13 (d) data 2 dispatched (--no-fused, the replicas in "
+        f"turn): {seconds['data2_dispatched']:.3f} s; one card dispatched "
+        f"{seconds['one_card']:.3f} s (PERF.md §5, an earlier run: data 2 "
+        f"dispatched 10.14 s, one card 6.71 s; both replicas share one "
+        f"card here, so no scaling is measured)")
     return launches, out
 
 

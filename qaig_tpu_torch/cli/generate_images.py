@@ -37,8 +37,9 @@ def main(argv=None):
     fused.add_argument("--fused", dest="fused", action="store_true",
                        default=None,
                        help="Run the whole cascade as one function (on "
-                            "CUDA one CUDA graph, captured then replayed; "
-                            "the default on CUDA).")
+                            "CUDA one CUDA graph a data replica, captured "
+                            "then replayed; the default on CUDA; refused "
+                            "with --num-model-shards > 1 or --multihost).")
     fused.add_argument("--no-fused", dest="fused", action="store_false",
                        help="Run the dispatched per-step loop (the default "
                             "on the CPU).")

@@ -25,14 +25,20 @@ its MLPs split over the row's cards (``shard_mlps_local_``).  Under
 (``parallel/sharding.py::shard_mlps_``).  Every draw is made for all the
 images and each replica's rows taken (``infer/decode.py::RowSlice``), so
 the tokens equal one card's.  The first replica (rank 0) gathers the
-tokens, decodes them to pixels and writes the grids.  The fused cascade
-runs only on a 1x1 mesh in one process, as in ``qaig_tpu``: ``--fused``
-with a larger mesh raises.  On a local mesh each stage's checkpoints are
-read once and copied to every replica's card, and the replicas' rollouts
-run one after the other from this thread: the dispatched loop is
-host-bound, so a mesh of several cards takes longer than one card, and
-longer than one card's fused cascade (PERF.md §5).  A thread a replica
-was tried and was slower still (the loops contend for the GIL).
+tokens and the images and writes the grids.
+
+On a local mesh whose model axis is 1 (every visible card by default) the
+fused cascade is the default on CUDA, as on one card: each replica runs
+:func:`_run_fused` for its block from its own CUDA graph on its own card,
+drawing through its ``RowSlice``, and every replica's replay is launched
+before any output is read, so the cards decode at the same time (as
+``CascadePipeline.generate`` does over a mesh).  This differs from
+``qaig_tpu``, whose sharded path is dispatched (one SPMD program a step,
+over every chip at once); the tokens are the same.  The dispatched loop
+stays for ``--no-fused`` (its replicas run one after the other from this
+thread) and for what ``qaig_tpu`` also dispatches: a model axis above 1
+and ``--multihost``, where ``--fused`` raises.  Each stage's checkpoints
+are read once and copied to every replica's card.
 
 The local mesh does not go through ``CascadePipeline(mesh=...)``: its
 batch-keyed draws are the pipeline's (one stage-0 conditioning token an
@@ -263,15 +269,15 @@ def _load_decoder(decoder_path, device, dtype):
 def use_fused(fused, device, sharded=False):
     """The path ``generate.run`` takes: ``fused`` (``--fused`` /
     ``--no-fused``) when given, else fused on CUDA and dispatched on the
-    CPU; ``sharded`` generation (a mesh larger than 1x1, or over
-    processes) is dispatched, and ``--fused`` raises there, as in
-    ``qaig_tpu``."""
+    CPU.  A data axis keeps the fused path (a graph a replica); a
+    ``sharded`` run (a model axis above 1, or ``--multihost``) is
+    dispatched, and ``--fused`` raises there, as in ``qaig_tpu``."""
     if sharded:
         if fused:
             raise ValueError(
-                "--fused requires unsharded generation (one process, one "
-                "device); drop --multihost / --num-model-shards or use "
-                "--no-fused.")
+                "--fused requires unsharded generation (one process, a "
+                "model axis of 1); drop --multihost / --num-model-shards "
+                "or use --no-fused.")
         return False
     return device.type == "cuda" if fused is None else bool(fused)
 
@@ -287,31 +293,31 @@ def run(args, cache=None, devices=None):
     takes them; :func:`make_decode_mesh`.
 
     ``cache``: a dict the caller keeps between calls.  The fused path
-    keeps its loaded stages, generator and CUDA graphs there, so a later
-    call with the same config, checkpoints, precision and device re-seeds
-    the generator and, at a batch size seen before, replays that batch's
-    graph instead of loading and capturing again."""
+    keeps every replica's loaded stages, generator and CUDA graphs there,
+    so a later call with the same config, checkpoints, precision and
+    devices re-seeds the generators and, at a batch size seen before,
+    replays that batch's graphs instead of loading and capturing again."""
     device = common.select_device(args.get("device") or "cuda")
     device = common.maybe_init_distributed(args, device)
     common.ensure_dir(args["out_dir"])
     # --bf16: serving precision; float32 (reference numerics) is the default
     dtype = torch.bfloat16 if args.get("bf16") else torch.float32
+    n_model = int(args.get("num_model_shards") or 1)
+    fused = use_fused(args.get("fused"), device,
+                      sharded=comm.world_size() > 1 or n_model > 1)
     profiler = None
     if args.get("profile_dir"):
         # the whole generation, one Chrome trace: profile_dir/trace_0.json
         profiler = common.Profiler(dict(args, profile_start=0))
         profiler.step(0)
     try:
-        mesh = make_decode_mesh(args.get("num_images", 25),
-                                int(args.get("num_model_shards") or 1),
-                                device, devices)
+        mesh = make_decode_mesh(args.get("num_images", 25), n_model, device,
+                                devices)
         print(f"Generation mesh: {mesh.describe()}")
-        sharded = (comm.world_size() > 1
-                   or mesh.size("data") * mesh.size("model") > 1)
-        if use_fused(args.get("fused"), device, sharded=sharded):
-            if devices is not None:
-                device = mesh.grid[0][0]
-            return _generate_fused(args, device, dtype, cache)
+        if fused:
+            homes = ([row[0] for row in mesh.grid]
+                     if isinstance(mesh, LocalMesh) else [device])
+            return _generate_fused(args, homes, dtype, cache)
         return _generate_dispatched(args, device, dtype, mesh)
     finally:
         if profiler is not None:
@@ -331,6 +337,14 @@ def _stage_to(st, device):
         if st[key] is not None:
             copied[key] = copy.deepcopy(st[key]).to(device)
     return copied
+
+
+def _concat_on(blocks, device):
+    """The replicas' blocks, in order, as one tensor on ``device`` (the
+    first replica's card)."""
+    if len(blocks) == 1:
+        return blocks[0]
+    return torch.cat([block.to(device) for block in blocks])
 
 
 def _on(device):
@@ -367,8 +381,7 @@ def _generate_dispatched(args, device, dtype, mesh):
 
     def gather(parts):
         if local:
-            return (parts[0] if len(parts) == 1
-                    else torch.cat([p.to(homes[0]) for p in parts]))
+            return _concat_on(parts, homes[0])
         if mesh.distributed:   # every image's rows, on every rank
             return common.gather_replicated(parts[0], mesh).to(device)
         return parts[0]
@@ -415,50 +428,95 @@ def _generate_dispatched(args, device, dtype, mesh):
     return tokens
 
 
-def _generate_fused(args, device, dtype, cache):
-    """The fused cascade (:func:`_run_fused`): on CUDA from the batch's
-    CUDA graph, captured at its first call; on the CPU eagerly."""
-    num_images = args.get("num_images", 25)
+def _runner(home, decoder, stages, dtype):
+    """A replica's :class:`GraphRunner` on its card (None on the CPU, where
+    the fused cascade runs eagerly)."""
+    if home.type != "cuda":
+        return None
+    return GraphRunner(home, library_warmup(
+        decoder, stages[-1]["hr_codebook"], dtype, home))
+
+
+def _load_replicas(args, homes, dtype):
+    """Every replica of the fused path: its stages, decoder, generator,
+    draws (a :class:`RowSlice` of its rows when there are several) and
+    graph runner, on its card.  The checkpoints are read once, on the
+    first card, and copied to the others."""
     use_ema = bool(args.get("use_ema"))
+    decoder = _load_decoder(args["decoder_path"], homes[0], dtype)
+    stages = [_load_stage(index, stage_cfg,
+                          lambda m: common.cast_floats(m, dtype), homes[0],
+                          use_ema=use_ema)
+              for index, stage_cfg in common.load_config(
+                  args["config_path"]).items()]
+    replicas = []
+    for d, home in enumerate(homes):
+        own = {"stages": stages, "decoder": decoder} if d == 0 else {
+            "stages": [_stage_to(st, home) for st in stages],
+            "decoder": copy.deepcopy(decoder).to(home)}
+        generator = torch.Generator(device=home)
+        replicas.append(dict(
+            own, home=home, generator=generator,
+            draw=(RowSlice(generator, d, len(homes)) if len(homes) > 1
+                  else generator),
+            runner=_runner(home, own["decoder"], own["stages"], dtype)))
+    return replicas
+
+
+def _generate_fused(args, homes, dtype, cache):
+    """The fused cascade (:func:`_run_fused`) on each replica's card
+    (``homes``, one a data row): on CUDA from the replica's CUDA graph of
+    the batch, captured at its first call, every replica's replay started
+    before any output is read; on the CPU eagerly, one replica after the
+    other.  The first replica gathers the images and tokens."""
+    num_images = args.get("num_images", 25)
+    local_images = num_images // len(homes)
     key = (str(args["config_path"]), str(args["decoder_path"]), dtype,
-           use_ema, str(device))
+           bool(args.get("use_ema")), tuple(str(home) for home in homes))
     held = cache if cache is not None else {}
     if held.get("key") != key:
-        decoder = _load_decoder(args["decoder_path"], device, dtype)
-        stages = [_load_stage(index, stage_cfg,
-                              lambda m: common.cast_floats(m, dtype),
-                              device, use_ema=use_ema)
-                  for index, stage_cfg in common.load_config(
-                      args["config_path"]).items()]
+        replicas = _load_replicas(args, homes, dtype)
         held.clear()
-        held.update(key=key, decoder=decoder, stages=stages,
-                    generator=torch.Generator(device=device), runner=(
-                        GraphRunner(device, library_warmup(
-                            decoder, stages[-1]["hr_codebook"], dtype,
-                            device))
-                        if device.type == "cuda" else None))
-    stages, generator, runner = (held["stages"], held["generator"],
-                                 held["runner"])
-    generator.manual_seed(args.get("seed") or 0)
-    print(f"Fused single-dispatch cascade: {len(stages)} stages")
-    _synchronize(device)
+        held.update(key=key, replicas=replicas)
+    replicas = held["replicas"]
+    stages = replicas[0]["stages"]
+    for replica in replicas:
+        replica["generator"].manual_seed(args.get("seed") or 0)
+    print(f"Fused single-dispatch cascade: {len(stages)} stages"
+          + (f", a graph on each of {len(homes)} replicas"
+             if len(homes) > 1 else ""))
+    for home in homes:
+        _synchronize(home)
     t0 = time.perf_counter()
-
-    def cascade():
-        return _run_fused(stages, held["decoder"], num_images, generator)
-    captured = runner is not None and num_images not in runner.graphs
-    cond, recons, tokens = (cascade() if runner is None else
-                            runner(num_images, cascade, generator=generator))
-    cond = None if cond is None else cond.cpu().numpy()
-    recons = [recon.cpu().numpy() for recon in recons]
-    _synchronize(device)
-    note = ""
-    if captured:
-        graph = runner.graphs[num_images]
-        note = (f" (first call: capture {graph.capture_s:.3f} s, "
-                f"instantiation {graph.instantiate_s:.3f} s)")
+    parts, captured = [], []
+    for replica in replicas:
+        def cascade(replica=replica):
+            return _run_fused(replica["stages"], replica["decoder"],
+                              local_images, replica["draw"])
+        runner = replica["runner"]
+        with _on(replica["home"]):
+            if runner is None:
+                parts.append(cascade())
+                continue
+            if local_images not in runner.graphs:
+                captured.append(runner)
+            parts.append(runner(local_images, cascade,
+                                generator=replica["generator"]))
+    conds, recons, tokens = zip(*parts)
+    cond = (None if conds[0] is None
+            else _concat_on(conds, homes[0]).cpu().numpy())
+    recons = [_concat_on(blocks, homes[0]).cpu().numpy()
+              for blocks in zip(*recons)]
+    tokens = _concat_on(tokens, homes[0])
+    for home in homes:
+        _synchronize(home)
+    note = "; ".join(
+        f"capture {graph.capture_s:.3f} s, instantiation "
+        f"{graph.instantiate_s:.3f} s"
+        for graph in (runner.graphs[local_images] for runner in captured))
     print(f"Cascade: {sum(st['total_seq'] for st in stages)} tokens x "
-          f"{num_images} images in {time.perf_counter() - t0:.3f} s{note}")
+          f"{num_images} images in {time.perf_counter() - t0:.3f} s"
+          + (f" (first call: {note})" if note else ""))
     if cond is not None:
         save_images(cond, "recon_model_Cond", args["out_dir"], logging=print)
     for st, recon in zip(stages, recons):

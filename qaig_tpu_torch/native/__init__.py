@@ -20,9 +20,11 @@ PNG decoding is split between Python and C++: Python reads each file,
 checks its chunks' CRCs and its header, and inflates the image data with
 ``zlib`` (``utils/png.py::inflate``; ``zlib`` releases the GIL, and the
 files are read on ``num_threads`` threads); the C++ side undoes the five
-row filters, expands the samples and normalises the whole batch over
-``num_threads`` threads (a ctypes call releases the GIL).  The pixels
-equal ``utils/png.py::read_bgr``'s, which are ``cv2.imread``'s.
+row filters, walks an interlaced (Adam7) file's seven passes, expands the
+samples and normalises the whole batch over ``num_threads`` threads (a
+ctypes call releases the GIL).  The pixels equal
+``utils/png.py::read_bgr``'s, which are ``cv2.imread``'s, interlaced
+files' too.
 """
 
 import ctypes
@@ -148,8 +150,9 @@ def normalize_images(batch_u8):
 
 
 def _read_png(path):
-    """(header (width, height, depth, color), palette, inflated rows) of
-    one file; any fault raises ``IOError`` naming it."""
+    """(header (width, height, depth, color, interlace), palette, inflated
+    rows) of one file; any fault (a truncated pass among them) raises
+    ``IOError`` naming it."""
     try:
         with open(path, "rb") as f:
             data = f.read()
@@ -166,7 +169,7 @@ def _decode_png_batch(paths, files, height, width, num_threads):
     out = np.empty((n, 3, height, width), np.float32)
     data = (ctypes.c_void_p * n)()
     sizes = (ctypes.c_int64 * n)()
-    headers = (ctypes.c_int32 * (4 * n))()
+    headers = (ctypes.c_int32 * (5 * n))()
     palettes = (ctypes.c_void_p * n)()
     entries = (ctypes.c_int32 * n)()
     errors = (ctypes.c_int32 * n)()
@@ -176,7 +179,7 @@ def _decode_png_batch(paths, files, height, width, num_threads):
         keep.append(buf)
         data[i] = buf.ctypes.data
         sizes[i] = buf.size
-        headers[4 * i:4 * i + 4] = list(header)
+        headers[5 * i:5 * i + 5] = list(header)
         if palette is not None:
             palette = np.ascontiguousarray(palette, np.uint8)
             keep.append(palette)
@@ -198,8 +201,9 @@ def _decode_png_batch(paths, files, height, width, num_threads):
 def load_image_batch(paths, height, width, num_threads=4):
     """Decode ``len(paths)`` PNG files of exactly (height, width) into one
     (N, 3, H, W) float32 BGR batch in [-1, 1] (``cv2.imread``'s pixels,
-    ``(x - 127.5) / 127.5``).  A file that is not a readable PNG of that
-    size raises ``IOError`` naming it; JPEG is not taken here."""
+    ``(x - 127.5) / 127.5``), interlaced or not.  A file that is not a
+    readable PNG of that size raises ``IOError`` naming it; JPEG is not
+    taken here."""
     paths = [str(p) for p in paths]
     threads = max(1, min(num_threads, len(paths)))
     if threads > 1:

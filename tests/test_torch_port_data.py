@@ -8,9 +8,15 @@ library and its cv2 datasets), on the CPU.
   bit-equal to ``png.read_bgr`` and to ``qaig_tpu``'s ``ImageDataset``
   (``cv2.imread``) for every PNG kind of ``tests/test_torch_port_stages.py``
   and for hand-filtered files of each filter type and of all five;
-* a corrupt file, a CRC error, an interlaced file, an unknown filter type
-  and a file of another size raise ``IOError`` naming the file; a batch
-  that holds a JPEG goes item by item;
+* interlaced (Adam7) files written by ``png.encode(..., interlace=True)``,
+  of every color type at bit depths 1, 8 and 16 and of sizes 1-9 and 33
+  (so that some passes are empty): the plain decoder, the native batch
+  and ``qaig_tpu``'s native batch (libpng) equal ``qaig_tpu``'s
+  ``ImageDataset`` (``cv2.imread``);
+* a corrupt file, a CRC error, an interlaced file whose passes are
+  truncated, an unknown filter type and a file of another size raise
+  ``IOError`` naming the file; a batch that holds a JPEG goes item by
+  item;
 * ``load_npy_batch``, ``FeatureMapDataset.load_batch`` and
   ``normalize_images`` equal ``np.load`` and ``qaig_tpu.native``; a wrong
   shape raises; the image-pairing items equal ``qaig_tpu``'s (HWC);
@@ -151,6 +157,98 @@ def test_item_goes_through_the_native_decoder(tmp_path, monkeypatch):
     np.testing.assert_array_equal(image, want)
 
 
+# (color type, bit depth) of the Adam7 files: every color type, at the
+# depths 1, 8 and 16 that it allows
+ADAM7_KINDS = [(0, 1), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1), (3, 8),
+               (4, 8), (4, 16), (6, 8), (6, 16)]
+# (height, width): every side 1-9 and 33, so that some passes are empty
+ADAM7_SIZES = [(1, 1), (2, 9), (3, 5), (4, 2), (5, 33), (6, 7), (7, 3),
+               (8, 8), (9, 4), (33, 6), (33, 33), (1, 33)]
+
+
+def _samples(rng, color, depth, height, width):
+    """(pixels, palette) of a random image of the kind."""
+    if color == 3:
+        k = min(1 << depth, 40)
+        palette = rng.integers(0, 256, (k, 4 if width % 2 else 3), np.uint8)
+        return rng.integers(0, k, (height, width), np.uint8), palette
+    channels = {0: 1, 2: 3, 4: 2, 6: 4}[color]
+    pixels = rng.integers(0, 1 << depth, (height, width, channels))
+    return pixels.astype(np.uint16 if depth == 16 else np.uint8), None
+
+
+@pytest.mark.parametrize("color,depth", ADAM7_KINDS,
+                         ids=[f"color{c}_depth{d}" for c, d in ADAM7_KINDS])
+def test_adam7_equals_cv2_and_qaig_tpu(color, depth, tmp_path):
+    """Interlaced files of every size through the plain decoder, the native
+    batch (beside a non-interlaced file of the same size) and the dataset's
+    batches: ``cv2.imread``'s pixels (``qaig_tpu``'s ``ImageDataset``), bit
+    for bit, and ``qaig_tpu``'s libpng batch's where it is built."""
+    from qaig_tpu import native as jax_native
+    from qaig_tpu.data import ImageDataset as JaxImageDataset
+    from qaig_tpu_torch import native
+    from qaig_tpu_torch.data.image_dataset import ImageDataset
+
+    rng = np.random.default_rng(10 * color + depth)
+    for height, width in ADAM7_SIZES:
+        paths = []
+        for interlace in (True, False, True):
+            pixels, palette = _samples(rng, color, depth, height, width)
+            path = tmp_path / f"{height}x{width}_{len(paths)}.png"
+            path.write_bytes(png.encode(pixels, [4, 3, 1, 0, 2], interlace,
+                                        depth, palette))
+            paths.append(path)
+        header = png.inflate(paths[0].read_bytes())[0]
+        assert header == (width, height, depth, color, 1)
+        manifest = _manifest(tmp_path, paths)
+        want = np.stack([JaxImageDataset(manifest)[i] for i in range(3)])
+        where = f"{height}x{width}"
+        np.testing.assert_array_equal(
+            np.stack([_plain(p) for p in paths]), want, err_msg=where)
+        got = native.load_image_batch(paths, height, width, num_threads=2)
+        np.testing.assert_array_equal(got, want, err_msg=where)
+        np.testing.assert_array_equal(
+            ImageDataset(manifest).load_batch([2, 0, 1]), want[[2, 0, 1]],
+            err_msg=where)
+        if jax_native.IMAGE_AVAILABLE:
+            np.testing.assert_array_equal(
+                jax_native.load_image_batch([str(p) for p in paths], height,
+                                            width), want, err_msg=where)
+
+
+@pytest.mark.parametrize("cut_pass", [1, 4, 7])
+def test_truncated_adam7_pass_raises_naming_the_file(cut_pass, tmp_path):
+    """An Adam7 file whose scanlines end inside pass ``cut_pass`` raises
+    naming the file (and the pass) in the native batch and in the dataset;
+    the plain decoder raises; the C++ side refuses such rows too."""
+    from qaig_tpu_torch import native
+    from qaig_tpu_torch.data.image_dataset import ImageDataset
+
+    rgb = np.random.default_rng(cut_pass).integers(0, 256, (11, 13, 3),
+                                                   np.uint8)
+    _, _, _, raw = png.inflate(png.encode(rgb, [1, 4], interlace=True))
+    end = sum(rows * (cols * 3 + 1) for number, *_, cols, rows in
+              png.passes(13, 11, 1) if number <= cut_pass)
+    short = _png(raw[:end - 1], 13, 11, interlace=1)
+    message = f"truncated in pass {cut_pass}"
+    with pytest.raises(ValueError, match=message):
+        png.decode(short)
+    good = tmp_path / "good.png"
+    good.write_bytes(png.encode(rgb, interlace=True))
+    bad = tmp_path / "short.png"
+    bad.write_bytes(short)
+    with pytest.raises(IOError, match=message) as err:
+        native.load_image_batch([good, bad], 11, 13)
+    assert str(bad) in str(err.value)
+    with pytest.raises(IOError) as err:
+        ImageDataset(_manifest(tmp_path, [good, bad])).load_batch([0, 1])
+    assert str(bad) in str(err.value)
+    with pytest.raises(IOError, match="image data truncated") as err:
+        native._decode_png_batch([str(bad)], [((13, 11, 8, 2, 1), None,
+                                               raw[:end - 1])], 11, 13, 1)
+    assert str(bad) in str(err.value)
+
+
 def _bad_files(root):
     """(name, bytes, message) of files the decoder must refuse."""
     rgb = np.random.default_rng(1).integers(0, 256, (11, 13, 3), np.uint8)
@@ -165,7 +263,9 @@ def _bad_files(root):
         ("truncated", good[:60], "ends before IEND"),
         ("no_header", png.SIGNATURE + png._chunk(b"IEND", b""), "no IHDR"),
         ("crc", bytes(crc), "bad CRC"),
-        ("interlaced", _png(raw, 13, 11, interlace=1), "interlaced"),
+        # non-interlaced rows are 11 bytes short of Adam7's passes
+        ("interlaced", _png(raw, 13, 11, interlace=1),
+         r"interlaced \(Adam7\) PNG image data is truncated in pass 7"),
         ("filter", _png(bytes(bad_filter), 13, 11), "unknown row filter"),
         ("short_rows", _png(raw[:100], 13, 11), "truncated"),
         ("size", png.encode(other, [1]), "12x13, the batch is 11x13"),

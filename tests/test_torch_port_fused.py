@@ -138,7 +138,7 @@ def test_fused_cache_reuses_the_loaded_cascade(paths, tmp_path,
     cache = {}
     first = generate.run(_args(paths, tmp_path / "a", 2, device="cpu",
                                fused=True), cache=cache)
-    stages = cache["stages"]
+    stages = cache["replicas"][0]["stages"]
 
     def no_load(*a, **kw):
         raise AssertionError("the cached cascade was loaded again")
@@ -147,7 +147,7 @@ def test_fused_cache_reuses_the_loaded_cascade(paths, tmp_path,
                                fused=True), cache=cache)
     other = generate.run(dict(_args(paths, tmp_path / "c", 2, device="cpu",
                                     fused=True), seed=4), cache=cache)
-    assert cache["stages"] is stages
+    assert cache["replicas"][0]["stages"] is stages
     np.testing.assert_array_equal(first.numpy(), again.numpy())
     assert not torch.equal(first, other)
 

@@ -291,7 +291,7 @@ def test_graph_replay_matches_dispatched_two_seeds(cuda, cascade, tmp_path):
         dispatched = generate.run(dict(args, fused=False))
         assert torch.equal(fused.cpu(), dispatched.cpu()), seed
         assert fused_counts == [a - b for a, b in zip(read_counts(), before)]
-    assert list(cache["runner"].graphs) == [2]
+    assert list(cache["replicas"][0]["runner"].graphs) == [2]
 
 
 @pytest.mark.cuda
