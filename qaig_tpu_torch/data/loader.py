@@ -22,6 +22,10 @@ draws the same order and yields only its contiguous ``batch_size /
 process_count`` slice of each batch: ``process_index`` is the rank's data
 coordinate, so the ranks that share it (tensor- or pipeline-parallel
 peers) load the same rows.
+
+Under a profiler, a batch's read is the worker's span ``data.read`` and
+the consumer's wait for the next batch the span ``data.wait``
+(``utils/spans.py``).
 """
 
 import queue
@@ -29,6 +33,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from qaig_tpu_torch.utils import spans
 
 
 def _stack(samples):
@@ -106,7 +112,11 @@ class DataLoader:
         def worker():
             try:
                 for idx_batch in self._batch_indices():
-                    if stop.is_set() or not put(fetch(idx_batch)):
+                    if stop.is_set():
+                        return
+                    with spans.span("data.read"):
+                        batch = fetch(idx_batch)
+                    if not put(batch):
                         return
             except BaseException as e:  # raised on the consumer side
                 error.append(e)
@@ -117,7 +127,8 @@ class DataLoader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with spans.span("data.wait"):
+                    item = q.get()
                 if item is sentinel:
                     if error:
                         raise error[0]

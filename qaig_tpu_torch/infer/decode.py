@@ -43,7 +43,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from qaig_tpu_torch.infer import row_keys
+from qaig_tpu_torch.infer import graphs, row_keys
 from qaig_tpu_torch.ops.decode_attention import (flat_segment_supported,
                                                  interleave_scale,
                                                  interleave_t)
@@ -227,6 +227,12 @@ def _ceil32(x):
 
 
 class DecodeEngine:
+    # rollout steps (a token drawn for every rollout of every row) and
+    # segments that ``rollout_generate`` ran, over every engine of the
+    # process; a graph replay counts its own (``graphs.count_replays``)
+    rollout_steps = 0
+    rollout_segments = 0
+
     def __init__(self, model, quantized_prefix=False,
                  legacy_windowed_rollouts=False, flat_decode=False):
         # quantized_prefix: store the rollout decode's SHARED prefix K/V
@@ -663,6 +669,8 @@ class DecodeEngine:
                 state.arrays["caches"]))
         out = []
         for _ in range(num_new_tokens // beam_width):
+            DecodeEngine.rollout_segments += 1
+            DecodeEngine.rollout_steps += beam_width
             # shared-prefix fast path: the whole segment stays cached
             cached_left = (num_new_tokens if state.window is None else
                            max(0, (state.window - state.init_len)
@@ -730,3 +738,7 @@ class DecodeEngine:
             state.cache_len = tiled.cache_len
             out.append(_select_beam(tokens, winner, num_beam))
         return torch.cat(out, dim=1)
+
+
+graphs.count_replays("rollout_steps", DecodeEngine, "rollout_steps")
+graphs.count_replays("rollout_segments", DecodeEngine, "rollout_segments")

@@ -53,7 +53,8 @@ import time
 import torch
 
 from qaig_tpu_torch.infer.decode import DecodeEngine, RowSlice, SamplerSettings
-from qaig_tpu_torch.infer.graphs import GraphRunner, product_warmup
+from qaig_tpu_torch.infer.graphs import (GraphRunner, StageClock,
+                                         product_warmup)
 from qaig_tpu_torch.models.transformer import Transformer, TransformerConfig
 from qaig_tpu_torch.parallel import comm
 from qaig_tpu_torch.parallel.local import (LocalMesh, local_devices,
@@ -218,27 +219,26 @@ def _stage_images(st, decoder, init_tokens, tokens):
     return cond, recon
 
 
-def _run_stage(st, decoder, num_images, generator, prev_tokens):
-    """One stage, with no host read of a device value: its draws and
-    rollout (:func:`_stage_tokens`) and its pixel decode.  Returns
-    (conditioning image (stage 0, else None), reconstruction, tokens),
-    images float32."""
-    init_tokens, tokens = _stage_tokens(st, num_images, generator,
-                                        prev_tokens)
-    return (*_stage_images(st, decoder, init_tokens, tokens), tokens)
-
-
-def _run_fused(stages, decoder, num_images, generator):
+def _run_fused(stages, decoder, num_images, generator, clock=None):
     """The whole cascade -- every stage's rollout, the stage-0 conditioning
-    reconstruction and every stage's pixel decode -- as one function, so
-    that a CUDA graph can hold it.  The dispatched loop runs the same
-    stages one at a time, so both draw from ``generator`` in one order and
-    give the same tokens.  Returns (conditioning image, one reconstruction
-    per stage, last tokens)."""
+    reconstruction and every stage's pixel decode -- as one function with
+    no host read of a device value, so that a CUDA graph can hold it.  The
+    dispatched loop runs the same stages one at a time, so both draw from
+    ``generator`` in one order and give the same tokens.  ``clock`` (a
+    ``graphs.StageClock``) marks each stage's rollout (``stage_<i>``) and
+    pixel decodes (``decoder``).  Returns (conditioning image, one
+    reconstruction per stage, last tokens)."""
     cond, recons, tokens = None, [], None
-    for st in stages:
-        stage_cond, recon, tokens = _run_stage(st, decoder, num_images,
-                                               generator, tokens)
+    if clock is not None:
+        clock.start()
+    for i, st in enumerate(stages):
+        init_tokens, tokens = _stage_tokens(st, num_images, generator,
+                                            tokens)
+        if clock is not None:
+            clock.mark(f"stage_{i}")
+        stage_cond, recon = _stage_images(st, decoder, init_tokens, tokens)
+        if clock is not None:
+            clock.mark("decoder")
         cond = stage_cond if stage_cond is not None else cond
         recons.append(recon)
     return cond, recons, tokens
@@ -439,8 +439,9 @@ def _runner(home, decoder, stages, dtype):
 
 def _load_replicas(args, homes, dtype):
     """Every replica of the fused path: its stages, decoder, generator,
-    draws (a :class:`RowSlice` of its rows when there are several) and
-    graph runner, on its card.  The checkpoints are read once, on the
+    draws (a :class:`RowSlice` of its rows when there are several), graph
+    runner and stage clocks (``graphs.StageClock``, by batch), on its
+    card.  The checkpoints are read once, on the
     first card, and copied to the others."""
     use_ema = bool(args.get("use_ema"))
     decoder = _load_decoder(args["decoder_path"], homes[0], dtype)
@@ -456,7 +457,7 @@ def _load_replicas(args, homes, dtype):
             "decoder": copy.deepcopy(decoder).to(home)}
         generator = torch.Generator(device=home)
         replicas.append(dict(
-            own, home=home, generator=generator,
+            own, home=home, generator=generator, clocks={},
             draw=(RowSlice(generator, d, len(homes)) if len(homes) > 1
                   else generator),
             runner=_runner(home, own["decoder"], own["stages"], dtype)))
@@ -488,11 +489,15 @@ def _generate_fused(args, homes, dtype, cache):
     for home in homes:
         _synchronize(home)
     t0 = time.perf_counter()
+    steps0 = DecodeEngine.rollout_steps
     parts, captured = [], []
     for replica in replicas:
-        def cascade(replica=replica):
+        clock = replica["clocks"].setdefault(local_images,
+                                             StageClock(replica["home"]))
+
+        def cascade(replica=replica, clock=clock):
             return _run_fused(replica["stages"], replica["decoder"],
-                              local_images, replica["draw"])
+                              local_images, replica["draw"], clock)
         runner = replica["runner"]
         with _on(replica["home"]):
             if runner is None:
@@ -510,13 +515,18 @@ def _generate_fused(args, homes, dtype, cache):
     tokens = _concat_on(tokens, homes[0])
     for home in homes:
         _synchronize(home)
+    seconds = time.perf_counter() - t0
     note = "; ".join(
         f"capture {graph.capture_s:.3f} s, instantiation "
         f"{graph.instantiate_s:.3f} s"
         for graph in (runner.graphs[local_images] for runner in captured))
+    parts_s = ", ".join(f"{name} {secs:.4f}" for name, secs in
+                        replicas[0]["clocks"][local_images].seconds().items())
     print(f"Cascade: {sum(st['total_seq'] for st in stages)} tokens x "
-          f"{num_images} images in {time.perf_counter() - t0:.3f} s"
-          + (f" (first call: {note})" if note else ""))
+          f"{num_images} images in {seconds:.3f} s"
+          + (f" (first call: {note})" if note else "")
+          + f"; {DecodeEngine.rollout_steps - steps0} rollout steps; the "
+          f"first replica's call by part (s): {parts_s}")
     if cond is not None:
         save_images(cond, "recon_model_Cond", args["out_dir"], logging=print)
     for st, recon in zip(stages, recons):

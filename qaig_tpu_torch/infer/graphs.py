@@ -35,7 +35,13 @@ with a key and replays the graph on every later call with that key:
 * the kernel wrappers count a launch when they are called, which a capture
   does once and a replay never: the runner takes a capture's counts (and
   a warm-up's) back out and adds the capture's again at every replay, so
-  a replay counts the kernels it ran, as the eager call would.
+  a replay counts the kernels it ran, as the eager call would, and the
+  same for the counts that other modules add with :func:`count_replays`
+  (the decode engine's rollout steps and segments);
+* a replay's host side shows as three spans (``utils/spans.py``):
+  ``graph.copy_in``, ``graph.launch`` and ``graph.copy_out``; a captured
+  function holds none, and times its parts on the card with a
+  :class:`StageClock`.
 
 A capture or a replay that fails raises; nothing falls back to the eager
 function.
@@ -51,6 +57,7 @@ from qaig_tpu_torch.ops import bmu
 from qaig_tpu_torch.ops import decode_attention as da
 from qaig_tpu_torch.ops import flash_attention as fa
 from qaig_tpu_torch.ops import mlp_fused as mf
+from qaig_tpu_torch.utils import spans
 
 # PyTorch allows one graph capture at a time in a process; a server that
 # reloads its checkpoints warms (and captures) the new pipeline on another
@@ -92,6 +99,24 @@ def launch_counters():
             ("mlp2_fused", mf.mlp2_fused, "launches")]
 
 
+# (name, owner, attribute) of counts that are not kernel launches but
+# that a replay has to count as its capture did: :func:`count_replays`
+_OTHER_COUNTERS = []
+
+
+def count_replays(name, owner, attribute):
+    """Have captures and replays keep ``owner.attribute`` (an int that the
+    captured code adds to as it runs) right, as they keep the launch
+    counts."""
+    _OTHER_COUNTERS.append((name, owner, attribute))
+
+
+def replay_counters():
+    """:func:`launch_counters` and the counts added by
+    :func:`count_replays`: what a capture takes out and a replay adds."""
+    return launch_counters() + _OTHER_COUNTERS
+
+
 def product_warmup(dtype, device):
     """A product, a batched product and a product with a bias, 8 x 8 in
     ``dtype`` on ``device``: sets cuBLAS and cuBLASLt up in the calling
@@ -103,17 +128,58 @@ def product_warmup(dtype, device):
 
 
 def read_counts():
-    return [getattr(fn, attr) for _, fn, attr in launch_counters()]
+    return [getattr(fn, attr) for _, fn, attr in replay_counters()]
 
 
 def add_counts(deltas):
-    for (_, fn, attr), delta in zip(launch_counters(), deltas):
+    for (_, fn, attr), delta in zip(replay_counters(), deltas):
         setattr(fn, attr, getattr(fn, attr) + delta)
+
+
+class StageClock:
+    """Seconds between named marks of one call on its card.  On CUDA a mark
+    records a timing event made ``external``, so that a mark made under a
+    capture becomes an event-record node of the graph and is recorded
+    again at every replay; on the CPU, where the work runs as it is
+    called, a mark reads the host clock.  :meth:`start` clears the marks,
+    so a clock that a captured function marks is read after each replay,
+    and one that an eager function marks holds its last call."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        self.names, self.marks = [], []
+
+    def start(self):
+        self.names, self.marks = [], []
+        self.mark(None)
+
+    def mark(self, name):
+        """The end of the part ``name`` (marks of one name add up)."""
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True, external=True)
+            event.record()
+        else:
+            event = time.perf_counter()
+        self.names.append(name)
+        self.marks.append(event)
+
+    def seconds(self):
+        """``{name: seconds}`` in the order of the marks, after waiting for
+        the last mark on the card; empty before a call."""
+        if len(self.marks) < 2:
+            return {}
+        if self.cuda:
+            self.marks[-1].synchronize()
+        out = {}
+        for name, a, b in zip(self.names[1:], self.marks, self.marks[1:]):
+            secs = a.elapsed_time(b) / 1e3 if self.cuda else b - a
+            out[name] = out.get(name, 0.0) + secs
+        return out
 
 
 class CapturedGraph:
     """One captured graph on one card (``device``) with its static inputs
-    and outputs, the launches one replay makes (in :func:`launch_counters`'
+    and outputs, the counts one replay adds (in :func:`replay_counters`'
     order) and the capture's host seconds (``capture_s``: the function's
     run under capture; ``instantiate_s``: ending the capture, which
     instantiates the graph)."""
@@ -135,11 +201,14 @@ class CapturedGraph:
         without waiting for it: a caller can start the replays of several
         cards before it reads any of their outputs."""
         with torch.cuda.device(self.device):
-            for static, value in zip(self.inputs, inputs):
-                static.copy_(value, non_blocking=True)
-            self.graph.replay()
+            with spans.span("graph.copy_in"):
+                for static, value in zip(self.inputs, inputs):
+                    static.copy_(value, non_blocking=True)
+            with spans.span("graph.launch"):
+                self.graph.replay()
             add_counts(self.launches)
-            return _clone(self.outputs)
+            with spans.span("graph.copy_out"):
+                return _clone(self.outputs)
 
 
 def _clone(tree):

@@ -35,7 +35,7 @@ from qaig_tpu_torch.infer.decode import (DecodeEngine, RowSlice,
                                          SamplerSettings)
 from qaig_tpu_torch.infer.generate import (_load_stage, _random_tokens,
                                            library_warmup)
-from qaig_tpu_torch.infer.graphs import GraphRunner
+from qaig_tpu_torch.infer.graphs import GraphRunner, StageClock
 from qaig_tpu_torch.parallel.local import LocalMesh, shard_mlps_local_
 from qaig_tpu_torch.train import common
 from qaig_tpu_torch.utils.checkpoint import load_model
@@ -118,6 +118,9 @@ class CascadePipeline:
         # the fused path's CUDA graphs, by (batch, temperature); a
         # tensor-parallel replica spans several cards and has none
         self._graphs = None
+        # the stage clock of each fused key, and the last call's clock
+        self._clocks = {}
+        self._clock = None
         if device.type == "cuda" and not self.tensor_parallel:
             self._graphs = GraphRunner(device, library_warmup(
                 decoder, stages[-1].hr_codebook,
@@ -265,9 +268,10 @@ class CascadePipeline:
         return self._gather(parts)
 
     def _block_tokens(self, num_images, rng, init_tokens, temperature,
-                      row_keys):
+                      row_keys, clock=None):
         """:meth:`generate_tokens` on this replica alone (``rng`` a
-        generator or a :class:`RowSlice` of one)."""
+        generator or a :class:`RowSlice` of one); ``clock`` marks the end
+        of each stage."""
         if row_keys is not None:
             # a no-op for the fused path's static key buffer, which is
             # filled before the replay, outside the captured region
@@ -280,6 +284,8 @@ class CascadePipeline:
             tokens = self.stage_tokens(stage_idx, tokens, num_images, rng,
                                        row_keys, temperature)
             per_stage.append(tokens)
+            if clock is not None:
+                clock.mark(f"stage_{stage_idx}")
         return tokens, per_stage
 
     def stage_tokens(self, stage_idx, tokens, num_images, rng=None,
@@ -306,26 +312,52 @@ class CascadePipeline:
                                         stage.lr_num_embeddings, rng)
         return stage.rollout(tokens, gen_rng, settings)
 
-    def _images(self, num_images, row_keys, temperature, init_tokens=None):
+    def _images(self, num_images, row_keys, temperature, init_tokens=None,
+                clock=None):
         """Every stage, the codebook lookup and the pixel decode on this
-        replica: (images float32, final tokens)."""
+        replica: (images float32, final tokens).  ``clock`` (a new one by
+        default) marks each stage and the decode: :meth:`stage_seconds`."""
+        if clock is None:
+            clock = StageClock(self.device)
+        clock.start()
         tokens, _ = self._block_tokens(num_images, None, init_tokens,
-                                       temperature, row_keys)
+                                       temperature, row_keys, clock)
         quant = self.stages[-1].hr_codebook.get_quantized_image(tokens)
-        return self.decoder(quant).float(), tokens
+        images = self.decoder(quant).float()
+        clock.mark("decoder")
+        self._clock = clock
+        return images, tokens
 
     def _fused_program(self, num_images, temperature):
         """The whole cascade (:meth:`_images`) at a fixed (batch,
         temperature), as a function of the row keys (N, 2): on CUDA,
         replayed from the key's CUDA graph (captured at its first call),
         else run eagerly."""
+        key = (num_images, temperature)
+        clock = self._clocks.get(key)
+        if clock is None:
+            clock = self._clocks[key] = StageClock(self.device)
+
         def cascade(row_keys):
-            return self._images(num_images, row_keys, temperature)
+            return self._images(num_images, row_keys, temperature,
+                                clock=clock)
 
         if self._graphs is None:
             return cascade
-        return lambda row_keys: self._graphs((num_images, temperature),
-                                             cascade, inputs=(row_keys,))
+
+        def replay(row_keys):
+            out = self._graphs(key, cascade, inputs=(row_keys,))
+            self._clock = clock
+            return out
+        return replay
+
+    def stage_seconds(self):
+        """The last call's device seconds on this replica (over a mesh,
+        the first replica's block) by part: ``stage_0``, ``stage_1``, ...
+        and ``decoder``, from the stage clock's marks, which the fused
+        graph records as it runs.  Waits for the call to finish; empty
+        before a call."""
+        return {} if self._clock is None else self._clock.seconds()
 
     @torch.inference_mode()
     def generate(self, num_images, seed=0, init_tokens=None,

@@ -69,9 +69,14 @@ def random_bits(keys, count):
 
 def uniform(keys, count):
     """``count`` float32 draws per key, strictly inside (0, 1): the top 24
-    bits of each word plus one half, over 2**24."""
+    bits of each word plus one half, over 2**24.  The top word's draw,
+    which rounds to 1 in float32, is the largest float32 below 1,
+    ``1 - 2**-24``, so that :func:`gumbel` stays finite (about 16.6) and
+    cannot lift a masked entry (log 1e-38) past a real one; every other
+    word's draw is the same either way."""
     bits = random_bits(keys, count) >> 8
-    return (bits.to(torch.float32) + 0.5) * (2.0 ** -24)
+    u = (bits.to(torch.float32) + 0.5) * (2.0 ** -24)
+    return torch.clamp(u, max=1.0 - 2.0 ** -24)
 
 
 def gumbel(keys, count):

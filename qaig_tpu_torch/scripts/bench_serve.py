@@ -19,7 +19,6 @@ Prints one JSON line with ``bench_serve.py``'s keys: ``serial_s``,
 
 import argparse
 import json
-import threading
 import time
 
 from qaig_tpu_torch import bench
@@ -56,9 +55,7 @@ def main(argv=None):
         # concurrent: all n enqueued under the batcher's lock (what n
         # racing clients converge to once the card is busy), drained as
         # ONE padded batch
-        items = [{"num": 1, "seed": i, "temp": None,
-                  "event": threading.Event(), "result": None,
-                  "error": None} for i in range(n)]
+        items = [batcher._request(1, i, None) for i in range(n)]
         t0 = time.perf_counter()
         with batcher._cv:
             batcher._pending.extend(items)

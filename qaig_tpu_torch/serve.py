@@ -27,7 +27,9 @@ Endpoints
 ``GET /metrics``                           serving counters: requests/images/
     errors totals, dispatch counts (+how many were coalesced), padded-row
     waste, dispatch latency (last/mean/max, and count and seconds per
-    padded batch size), queue depth, uptime, and the mesh (``{"data",
+    padded batch size), the served requests' queue wait (total and max),
+    the process's rollout steps and segments (``DecodeEngine``'s
+    counters), queue depth, uptime, and the mesh (``{"data",
     "model", "devices"}``; JSON only).  JSON by
     default; Prometheus text exposition via ``?format=prometheus`` or an
     ``Accept: text/plain`` header (``qaig_``-prefixed gauges)
@@ -63,6 +65,7 @@ precision).
 """
 
 import base64
+import itertools
 import json
 import math
 import threading
@@ -72,6 +75,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from qaig_tpu_torch.infer.decode import DecodeEngine
 from qaig_tpu_torch.infer.pipeline import derive_row_keys
 from qaig_tpu_torch.utils import png
 
@@ -126,6 +130,12 @@ class RequestBatcher:
     with PER-REQUEST row keys (each request's rows keyed by its own seed,
     numbered from 0), and hands each caller its slice — a request's tokens
     are independent of its co-batch.
+
+    Each request is stamped when submitted, dispatched and returned
+    (``time.perf_counter_ns``), with its id and its dispatch's; the
+    served requests' queue waits (submitted to dispatched) add up in
+    ``queue_wait_seconds_total`` / ``_max`` over
+    ``served_requests_total``.
     """
 
     def __init__(self, pipeline, max_batch=64, batch_multiple=1,
@@ -160,7 +170,11 @@ class RequestBatcher:
             "dispatches_total": 0, "coalesced_dispatches_total": 0,
             "padded_rows_total": 0, "dispatch_seconds_total": 0.0,
             "last_dispatch_seconds": 0.0, "max_dispatch_seconds": 0.0,
+            "served_requests_total": 0, "queue_wait_seconds_total": 0.0,
+            "queue_wait_seconds_max": 0.0,
         }
+        self._request_ids = itertools.count()
+        self._dispatch_ids = itertools.count()
         # padded batch size -> {"count", "seconds_total"}
         self._by_batch = {}
         self._started = time.monotonic()
@@ -180,6 +194,8 @@ class RequestBatcher:
             snap["queue_depth"] = sum(r["num"] for r in self._pending)
             snap["queue_requests"] = len(self._pending)
         snap["uptime_seconds"] = round(time.monotonic() - self._started, 3)
+        snap["rollout_steps_total"] = DecodeEngine.rollout_steps
+        snap["rollout_segments_total"] = DecodeEngine.rollout_segments
         n = max(snap["dispatches_total"], 1)
         snap["mean_dispatch_seconds"] = round(
             snap["dispatch_seconds_total"] / n, 4)
@@ -207,8 +223,7 @@ class RequestBatcher:
         ``max_queue_rows``, and :class:`RequestTimeoutError` when the
         request waits in the queue past ``request_timeout`` seconds (a
         request already merged into a device dispatch always completes)."""
-        item = {"num": num, "seed": seed, "temp": temperature,
-                "event": threading.Event(), "result": None, "error": None}
+        item = self._request(num, seed, temperature)
         with self._cv:
             if self._stop:
                 # retryable for LB clients during rolling restarts (503)
@@ -233,6 +248,14 @@ class RequestBatcher:
         if item["error"] is not None:
             raise item["error"]
         return item["result"]
+
+    def _request(self, num, seed, temperature):
+        """A request as the queue holds it, numbered and stamped as
+        submitted now."""
+        return {"num": num, "seed": seed, "temp": temperature,
+                "event": threading.Event(), "result": None, "error": None,
+                "id": next(self._request_ids),
+                "submitted": time.perf_counter_ns()}
 
     def swap_pipeline(self, new_pipeline):
         """Atomically route future dispatches to ``new_pipeline`` (hot
@@ -272,6 +295,10 @@ class RequestBatcher:
                         total += req["num"]
                     else:
                         i += 1
+                dispatch = next(self._dispatch_ids)
+                dispatched = time.perf_counter_ns()
+                for req in batch:
+                    req["dispatch"], req["dispatched"] = dispatch, dispatched
             if len(batch) == 1:
                 # solo: padded only as far as the mesh requires (exactly
                 # num rows when batch_multiple is 1)
@@ -313,6 +340,9 @@ class RequestBatcher:
                 for req in batch:
                     req["error"] = e
             dt = time.monotonic() - t0
+            returned = time.perf_counter_ns()
+            for req in batch:
+                req["returned"] = returned
             with self._cv:
                 s = self._stats
                 s["requests_total"] += len(batch)
@@ -332,6 +362,12 @@ class RequestBatcher:
                     s["errors_total"] += len(batch)
                 else:
                     s["images_total"] += total
+                    s["served_requests_total"] += len(batch)
+                    for req in batch:
+                        wait = (req["dispatched"] - req["submitted"]) / 1e9
+                        s["queue_wait_seconds_total"] += wait
+                        s["queue_wait_seconds_max"] = max(
+                            s["queue_wait_seconds_max"], wait)
             for req in batch:
                 req["event"].set()
 

@@ -23,7 +23,7 @@ import torch
 
 from qaig_tpu_torch.convert import load_jax_state, load_optax_state
 from qaig_tpu_torch.models import core
-from qaig_tpu_torch.utils import torch_compat, torch_optim
+from qaig_tpu_torch.utils import spans, torch_compat, torch_optim
 from qaig_tpu_torch.parallel import comm
 from qaig_tpu_torch.utils.checkpoint import (host_snapshot, load_model,
                                              pending_paths)
@@ -234,7 +234,8 @@ def train_step(forward_backward, update, optimizer, scheduler, device,
             with torch.autograd.set_detect_anomaly(debug_nans):
                 loss = device_step(*(x.to(device) for x in inputs))
         if scheduler is not None:
-            scheduler.step()
+            with spans.span("train.scheduler"):
+                scheduler.step()
         return loss
 
     step.runner = None if replay is None else replay.runner

@@ -52,6 +52,7 @@ from qaig_tpu_torch.parallel.sharding import Parallel
 from qaig_tpu_torch.train import common, optim
 from qaig_tpu_torch.utils.checkpoint import save_model, wait_pending_saves
 from qaig_tpu_torch.utils.image_io import save_images
+from qaig_tpu_torch.utils import spans
 from qaig_tpu_torch.utils.logging_utils import setup_logging
 
 PROJECT_NAME = "Quantized Transformer"
@@ -261,15 +262,18 @@ def make_train_step(model, optimizer, lr_codebook, hr_codebook,
                           if parallel is not None else (1, 0))
 
     def step(batch, generator):
-        inputs = [batch]
-        if sliding_window is not None:
-            n = batch.shape[0]
-            starts = draw_window_starts(
-                generator, n * n_data, sequence_length(
-                    batch, lr_codebook, hr_codebook, train_base_model),
-                sliding_window)
-            inputs.append(starts[data_index * n:(data_index + 1) * n])
-        return run(*inputs)
+        with spans.span("train.step"):
+            inputs = [batch]
+            if sliding_window is not None:
+                n = batch.shape[0]
+                with spans.span("train.window_starts"):
+                    starts = draw_window_starts(
+                        generator, n * n_data, sequence_length(
+                            batch, lr_codebook, hr_codebook,
+                            train_base_model),
+                        sliding_window)
+                inputs.append(starts[data_index * n:(data_index + 1) * n])
+            return run(*inputs)
 
     step.runner = run.runner
     return step

@@ -202,9 +202,15 @@ def cuda():
 
 @pytest.fixture
 def cascade(cuda, tmp_path):
+    """:func:`write_cascade` on the card."""
+    return write_cascade(cuda, tmp_path)
+
+
+def write_cascade(device, tmp_path):
     """A two-stage cascade (a base stage, then an encoder stage with a
-    sliding window of 8) with seeded random weights, written with the
-    port's checkpoint writer.  Returns (config path, decoder path)."""
+    sliding window of 8) with seeded random weights drawn on ``device``,
+    written with the port's checkpoint writer.  Returns (config path,
+    decoder path)."""
     from qaig_tpu_torch.convert import to_jax_state
     from qaig_tpu_torch.models.codebook import Codebook
     from qaig_tpu_torch.models.conv_nets import ConvNetConfig, FCDecoder
@@ -213,7 +219,7 @@ def cascade(cuda, tmp_path):
                                                    TransformerConfig)
     from qaig_tpu_torch.utils.checkpoint import save_model
 
-    gen = torch.Generator(device=cuda).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0)
     k, image_dim, latent_c = 16, (8, 8), 4
 
     def weights(module):
@@ -222,7 +228,7 @@ def cascade(cuda, tmp_path):
     dec_cfg = dict(num_layers=1, image_channel=3, min_channel=8,
                    max_channel=16, latent_channel=latent_c,
                    hidden_activation_type="silu")
-    decoder = FCDecoder(ConvNetConfig(**dec_cfg), device=cuda)
+    decoder = FCDecoder(ConvNetConfig(**dec_cfg), device=device)
     save_model(dict(dec_cfg, use_final_enc_activation=True,
                     encoder_activation_type="silu",
                     use_final_dec_activation=True,
@@ -233,7 +239,7 @@ def cascade(cuda, tmp_path):
     for i, patch in enumerate([(8, 8), (4, 4), (2, 2)]):
         cb = Codebook(patch_dim=patch, image_dim=image_dim,
                       image_channel=latent_c, num_embeddings=k,
-                      init_neighbour_range=1, device=cuda)
+                      init_neighbour_range=1, device=device)
         save_model({"patch_dim": patch, "image_dim": image_dim,
                     "image_C": latent_c, "num_embeddings": k,
                     "neighbourhood_range": 1, "checkpoint": weights(cb)},
@@ -258,7 +264,7 @@ def cascade(cuda, tmp_path):
             "self_attn_heads": 4, "cross_attn_heads": None if base else 4,
             "transformer_in_dim": 64, "transformer_out_dim": k + 1,
             "transformer_hidden_dim": 128, "hidden_activation": "silu",
-            "model": weights(Transformer(cfg, device=cuda))},
+            "model": weights(Transformer(cfg, device=device))},
             tmp_path, f"transformer_{i}.pt")
         config[str(i)] = {
             "model_path": str(ckpt / f"transformer_{i}.pt"),
