@@ -45,7 +45,13 @@ Phases (any failure exits non-zero and prints no result line):
    shapes, 8192 and 1024 rows and a ragged 1000, beside the same function
    as two cuBLAS products and elementwise calls, with its cluster size,
    the weight bytes it reads from L2 and ``ptxas``'s registers and spills
-   (phase 2's build log);
+   (phase 2's build log); the float32 linear product (kernel 7,
+   three-pass TF32) as forward, dX and dW at every product shape of the
+   windowed stage's training step against a float64 product (norm-wise
+   error at most 1.25x cuBLAS's float32, largest element error at most
+   2x; every element within 2^-20 of |A||B| at ragged edges), timed
+   beside cuBLAS's SIMT product, and the forward at 1-1024 rows against
+   cuBLAS (where the shape rule's 512 rows come from);
 4. reference -- a small cascade stage decoded greedily in float32 on the
    card (kernels) and on the CPU (plain versions) must give the same
    tokens; 4c: the same with ``flat_decode=True``; 4 and 4c again with
@@ -53,7 +59,8 @@ Phases (any failure exits non-zero and prints no result line):
    launch, with the counts the stage gives); 4b: one float32 train
    step of a small windowed cascade on the card (graphed) and on the CPU
    (eager) must give
-   the same tokens, loss and gradients, and one bf16 step the same tokens
+   the same tokens, loss and gradients (its 128 decoder rows are under
+   kernel 7's 512: no launch), and one bf16 step the same tokens
    and loss and gradients within bf16 tolerances;
 5. generation main path -- the full-width 3-stage cascade of ``bench.py
    --scale full`` with seeded random weights, written as
@@ -90,7 +97,8 @@ Phases (any failure exits non-zero and prints no result line):
    graph's kernel nodes as often as a replay counts them); then the same
    in
    float32 (the trainer's default), which runs the backward kernel's
-   float32 form;
+   float32 form and kernel 7 for every linear but the classifier's
+   output (a replay's launches predicted from the model's linears);
 7. serving -- ``CascadePipeline`` on phase 5's cascade cut to 1 encoder
    and 2 decoder layers (``SHALLOW``, as phases 11 (c) and 12 are), fused,
    one CUDA graph per batch size: float32
@@ -1196,6 +1204,119 @@ def check_mlp(torch, timer, records):
                              f"{err} > {ATOL}")
 
 
+LINEAR_SHAPES = [  # (rows, in, out) of the windowed stage's training step
+    # at batch 64 (decoder rows 16,384, encoder rows 4,096; widths 512 and
+    # 2048), then ragged edges; each run as forward, dX and dW
+    (16384, 512, 2048), (16384, 2048, 512), (16384, 512, 512),
+    (4096, 512, 2048), (4096, 2048, 512), (1000, 68, 36), (3, 20, 12),
+    (130, 2048, 8), (257, 132, 260)]
+LINEAR_ROWS = (1, 8, 64, 256, 1024)   # forward at in 512, out 2048: where
+# the kernel and cuBLAS cross
+
+
+def linear_operands(torch, gen, kind, m, k, n):
+    """(a, b, bias) of one product of ``linear_f32._product`` and its
+    float64 reference: x ~ N(0, 1), W ~ U(+-1/sqrt(k)), dY ~ N(0, 1)."""
+    x = torch.randn(m, k, generator=gen, device="cuda")
+    w = (torch.rand(n, k, generator=gen, device="cuda") * 2 - 1) / k ** 0.5
+    dy = torch.randn(m, n, generator=gen, device="cuda")
+    if kind == "forward":
+        bias = torch.rand(n, generator=gen, device="cuda") - 0.5
+        ref = x.double() @ w.double().T + bias.double()
+        return (x, w, bias), ref
+    if kind == "grad_input":
+        return (dy, w, None), dy.double() @ w.double()
+    return (dy, x, None), dy.double().T @ x.double()
+
+
+def check_linear(torch, timer, records):
+    """Kernel 7 (three-pass TF32 on ``wgmma``) at every product shape of
+    the windowed stage's training step, forward, dX and dW, against a
+    float64 product: its norm-wise error at most 1.25x cuBLAS's float32
+    (TF32 off) and its largest element error at most 2x; at the ragged
+    edges (short sums) every element within 2^-20 of ``|A| |B|``.  Times the
+    product (with its split launch), its bound (the three TF32 passes or
+    the bytes), the plain version (``F.linear`` and the backward's
+    ``matmul`` in float32, which is cuBLAS's SIMT sgemm: ``library_ms``
+    too), and the forward at few rows against cuBLAS."""
+    import torch.nn.functional as F
+    from qaig_tpu_torch.ops import linear_f32 as lf
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for kernel in ptxas_report("linear_f32"):
+        log(f"[kernels] linear_f32 ptxas {kernel['function']}: "
+            f"{kernel.get('registers')} registers, spill stores / loads "
+            f"{kernel.get('spill_store_bytes')} / "
+            f"{kernel.get('spill_load_bytes')} bytes")
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def plain(kind, a, b, bias):
+        if kind == "forward":
+            return F.linear(a, b, bias)
+        return a @ b if kind == "grad_input" else a.t() @ b
+
+    for m, k, n in LINEAR_SHAPES:
+        for kind in ("forward", "grad_input", "grad_weight"):
+            (a, b, bias), ref = linear_operands(torch, gen, kind, m, k, n)
+            got = lf._product(a, b, bias, kind)
+            lib = plain(kind, a, b, bias)
+            scale = ref.norm().item()
+            err = (got.double() - ref).norm().item() / scale
+            lib_err = (lib.double() - ref).norm().item() / scale
+            elem = (got.double() - ref).abs().max().item()
+            lib_elem = (lib.double() - ref).abs().max().item()
+            pm, pk, pn = {"forward": (m, k, n), "grad_input": (m, n, k),
+                          "grad_weight": (n, m, k)}[kind]
+            splits, grid = lf.launch_plan(*(
+                (pm, pn, pk) if kind != "grad_weight" or k <= n
+                else (k, n, m)), sm)
+            rec = {"name": "linear_f32", "shape": {
+                "M": m, "K": k, "N": n, "kind": kind},
+                "splits": splits, "blocks": grid,
+                "norm_err": err, "library_norm_err": lib_err,
+                "max_abs_err": elem, "library_max_abs_err": lib_elem}
+            if m >= 1024:
+                rec["ms"] = timer(lambda: lf._product(a, b, bias, kind))
+                rec["plain_ms"] = timer(lambda: plain(kind, a, b, bias))
+                rec["library_ms"] = rec["plain_ms"]
+                rec["bound_ms"] = lf.bound_ms(pm, pn, pk)
+                rec["bound_by"] = ("operations" if 3 * lf.flops(pm, pn, pk)
+                                   / 495e12 * 1e3 >= rec["bound_ms"]
+                                   else "bytes")
+                rec["tflops"] = lf.flops(pm, pn, pk) / rec["ms"] / 1e9
+            records.append(rec)
+            log(f"[kernels] linear_f32 {kind} M={m} K={k} N={n} "
+                f"(splits {splits}, {grid} blocks): norm err {err:.3e} "
+                f"(cuBLAS float32 {lib_err:.3e}), max err {elem:.3e} "
+                f"({lib_elem:.3e})" + (
+                    f" ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} "
+                    f"bound_ms={rec['bound_ms']:.5f} "
+                    f"({rec['tflops']:.1f} TFLOP/s)" if "ms" in rec else ""))
+            if m < 1024:   # ragged edges: the split sets the error
+                a64, b64 = a.double().abs(), b.double().abs()
+                mag = {"forward": lambda: a64 @ b64.T,
+                       "grad_input": lambda: a64 @ b64,
+                       "grad_weight": lambda: a64.T @ b64}[kind]()
+                if not ((got.double() - ref).abs() <= 2 ** -20 * mag).all():
+                    raise SystemExit(f"linear_f32 {kind} M={m} K={k} N={n}: "
+                                     f"an element past 2^-20 |A||B|")
+            elif not (err <= 1.25 * lib_err and elem <= 2 * lib_elem):
+                raise SystemExit(
+                    f"linear_f32 {kind} M={m} K={k} N={n}: norm err {err} "
+                    f"(cuBLAS {lib_err}), max err {elem} ({lib_elem})")
+    crossing = {}
+    for m in LINEAR_ROWS:
+        (a, b, bias), _ = linear_operands(torch, gen, "forward", m, 512,
+                                          2048)
+        crossing[m] = (timer(lambda: lf._product(a, b, bias, "forward")),
+                       timer(lambda: F.linear(a, b, bias)))
+    log("[kernels] linear_f32 forward at in 512, out 2048 by rows, kernel "
+        "/ cuBLAS ms: " + ", ".join(f"{m}: {t[0]:.4f} / {t[1]:.4f}"
+                                    for m, t in crossing.items()))
+    records.append({"name": "linear_f32_rows", "shape": {"K": 512,
+                                                          "N": 2048},
+                    "ms_by_rows": crossing})
+
+
 # ---------------------------------------------------------------------------
 # phase 4: a small cascade stage, card (kernels) against CPU (plain)
 # ---------------------------------------------------------------------------
@@ -1321,6 +1442,7 @@ def check_train_reference(torch, device="cuda", bf16=False):
     from qaig_tpu_torch.models.codebook import Codebook
     from qaig_tpu_torch.models.core import init_parameters
     from qaig_tpu_torch.ops import flash_attention as fa
+    from qaig_tpu_torch.ops import linear_f32 as lf
     from qaig_tpu_torch.models.transformer import (Transformer,
                                                    TransformerConfig)
     from qaig_tpu_torch.train import transformer as train
@@ -1361,8 +1483,10 @@ def check_train_reference(torch, device="cuda", bf16=False):
             raise SystemExit(f"the train step on {device} is not graphed "
                              f"on the card and eager on the CPU")
         backward = fa.fused_flash_attention_backward.launches
+        products = lf.linear_f32.launches
         loss = float(step(x, torch.Generator().manual_seed(6)))
         backward = fa.fused_flash_attention_backward.launches - backward
+        products = lf.linear_f32.launches - products
         grads = {n: (before[n] - p.detach()).cpu()
                  for n, p in model.named_parameters()}
         out[device] = ([t.cpu() for t in tokens], loss, grads)
@@ -1385,6 +1509,11 @@ def check_train_reference(torch, device="cuda", bf16=False):
     if device != "cpu" and backward != layers:
         raise SystemExit(f"the card's train step launched the backward "
                          f"kernel {backward} times, expected {layers}")
+    # 4 rows of a window of 32: under kernel 7's 512 rows, so cuBLAS's
+    # products, as the CPU's are plain ones
+    if products != 0:
+        raise SystemExit(f"the small train step launched kernel 7 "
+                         f"{products} times, expected none")
     if not same_tokens:
         raise SystemExit("card and CPU train steps tokenize differently")
     if not loss_rel <= loss_tol:
@@ -2480,6 +2609,32 @@ def time_pipeline_request(torch, pipe, device, seed=9, turns=2):
 # phase 6: transformer training through the entry point
 # ---------------------------------------------------------------------------
 
+def linear_launches(model, dec_rows, enc_rows):
+    """Kernel 7's products and fallbacks in one float32 train step of a
+    cascade transformer, from its structure: every ``nn.Linear`` runs once
+    in the forward, over the encoder's rows (the encoder's layers and the
+    decoder's cross K / V) or the decoder's; one that the shape rule
+    (``ops/linear_f32.py::takes``: in and out features multiples of 4, at
+    least ``MIN_ROWS`` rows) sends to the kernel runs its forward, dW and
+    dX there (dX but for the position-conditioning MLP's first layer,
+    whose input, the sinusoidal positions, carries no gradient); any other
+    falls back once (the classifier's K + 1 outputs)."""
+    import torch
+    from qaig_tpu_torch.ops.linear_f32 import MIN_ROWS
+    launches = fallbacks = 0
+    for name, m in model.named_modules():
+        if not isinstance(m, torch.nn.Linear):
+            continue
+        enc = name.startswith("encoder_layers.") or ".cross_attn.attn.k." \
+            in name or ".cross_attn.attn.v." in name
+        if m.in_features % 4 or m.out_features % 4 or \
+                (enc_rows if enc else dec_rows) < MIN_ROWS:
+            fallbacks += 1
+        else:
+            launches += 2 if m is model.pos_cond_layer.l0 else 3
+    return {"linear_f32": launches, "linear_f32_fallbacks": fallbacks}
+
+
 TRAIN = dict(latents=64, batch=8, steps=6, checkpoint_step=3, previews=4,
              config="examples/configs/transformer_cascade.json")
 TRAINED = {}   # phase 6's runs by precision: losses, output, parameters
@@ -2627,6 +2782,12 @@ def run_train_path(torch, workdir, seed=0, device="cuda", profile=False,
                   "flash_attention_backward": enc + dec,
                   "flash_attention_backward_calls": enc + dec,
                   "fused_bmu": 2, "fused_bmu_small_m": 0}
+    # kernel 7 in float32 (decoder rows: batch x window; encoder rows:
+    # batch x the LR tokens), never in bf16
+    per_replay.update(linear_launches(
+        model, t["batch"] * cfg["sliding_window"],
+        t["batch"] * seq_len(FULL["patches"][-2]))
+        if not bf16 else {"linear_f32": 0, "linear_f32_fallbacks": 0})
     for name, n in per_replay.items():
         if graph["launches"][name] != n:
             raise SystemExit(f"a {kind} train step's replay launches {name} "
@@ -4382,12 +4543,17 @@ KERNELS = {
         "source": "qaig_tpu_torch/csrc/mlp2_fused.cu",
         "replaces": "scripts/probe_mlp_fused.py:58",
         "summary": {"N": 8192, "S": 3}},
+    "linear_f32": {
+        "source": "qaig_tpu_torch/csrc/linear_f32.cu",
+        "replaces": "none: XLA's float32 products of the linear layers",
+        "summary": {"M": 16384, "K": 512, "N": 2048, "kind": "forward"}},
 }
 
 
 CHECKS = {"decode": check_decode, "flash": check_flash,
           "flash_train": check_flash_train, "flash_wide": check_flash_wide,
-          "bmu": check_bmu, "flat": check_flat, "mlp": check_mlp}
+          "bmu": check_bmu, "flat": check_flat, "mlp": check_mlp,
+          "linear": check_linear}
 
 
 # ---------------------------------------------------------------------------

@@ -71,7 +71,7 @@
 // b1, act_last and the rounding.  Ragged N and D: TMA fills what lies
 // past the tensors with zeros, and the stores are masked.
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -81,6 +81,7 @@
 
 namespace {
 
+using namespace qaig;
 using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 384;   // consumer warpgroups 0-1, producer 2
@@ -113,40 +114,7 @@ __device__ __forceinline__ float silu(float v) {
   return v * r;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// ---- mbarriers, TMA, clusters ---------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint64_t* b, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)),
-               "r"(count)
-               : "memory");
-}
-
-// wait for the completion of the barrier's phase of parity `parity`
-__device__ __forceinline__ void mbar_wait(uint64_t* b, int parity) {
-  asm volatile(
-      "{\n.reg .pred P;\nWAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 P, [%0], %1;\n"
-      "@!P bra WAIT;\n}\n" ::"r"(smem_addr(b)),
-      "r"(parity)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* b, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-          smem_addr(b)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* b) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(b))
-               : "memory");
-}
+// ---- clusters ---------------------------------------------------------------
 
 // arrive on the barrier at b's offset in block `cta` of the cluster
 __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* b, uint32_t cta) {
@@ -155,16 +123,6 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* b, uint32_t cta) {
       "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
           "r"(smem_addr(b)),
       "r"(cta)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load(const CUtensorMap* map, void* dst,
-                                         uint64_t* bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
-      "r"(c1)
       : "memory");
 }
 
@@ -203,35 +161,6 @@ __device__ __forceinline__ void cluster_sync() {
 }
 
 // ---- wgmma ----------------------------------------------------------------
-
-// Matrix descriptor of a K-major bf16 tile with 128-byte rows, 128-byte
-// swizzled as TMA writes it, 8-row groups 1024 bytes apart (the tile
-// 1024-byte aligned).  Adding 2 moves 32 bytes, the next 16 of K.
-__device__ __forceinline__ uint64_t desc(const void* tile) {
-  const uint64_t a = smem_addr(tile);
-  return ((a & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-
-// wait until at most n of this warpgroup's newest wgmma groups are pending
-template <int n>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(n) : "memory");
-}
-
-// keep the compiler from moving register reads or writes across a wait
-template <int n>
-__device__ __forceinline__ void fence_regs(float (&d)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // d (64 x N, float32; the warpgroup's accumulator fragments) = a b^T + d
 // (d ignored when scale_d is 0), a 64 x 16 and b N x 16 from shared memory.
@@ -649,50 +578,6 @@ __global__ void mlp2_reduce_kernel(const float* __restrict__ part,
 
 // ---- host side ------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime, so the library is not
-// linked against libcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a (rows, cols) row-major bf16 tensor read in box_rows x 64 boxes,
-// 128-byte swizzled, zeros past its edges
-bool tensor_map(CUtensorMap* map, const void* ptr, uint64_t rows,
-                uint64_t cols, uint32_t box_rows) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
-  const cuuint32_t box[2] = {64, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 // every block may take the card's most shared memory (232,448 bytes)
 cudaError_t allow_max_smem(const void* kernel) {
   return cudaFuncSetAttribute(
@@ -713,9 +598,10 @@ cudaError_t launch(const bf16* x, const bf16* w0, const bf16* b0,
       allowed, [&] { return allow_max_smem((const void*)kernel); });
   if (set != cudaSuccess) return set;
   CUtensorMap x_map, w0_map, w1_map;
-  if (!tensor_map(&x_map, x, N, D, 64) ||
-      !tensor_map(&w0_map, w0, (uint64_t)S * H, D, 64) ||
-      !tensor_map(&w1_map, w1, (uint64_t)S * D2, H, D2 / 2))
+  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!tensor_map(&x_map, kBf16, 2, x, N, D, D, 64) ||
+      !tensor_map(&w0_map, kBf16, 2, w0, (uint64_t)S * H, D, D, 64) ||
+      !tensor_map(&w1_map, kBf16, 2, w1, (uint64_t)S * D2, H, H, D2 / 2))
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid_x, S, parts);

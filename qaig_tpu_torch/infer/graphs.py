@@ -56,6 +56,7 @@ import torch
 from qaig_tpu_torch.ops import bmu
 from qaig_tpu_torch.ops import decode_attention as da
 from qaig_tpu_torch.ops import flash_attention as fa
+from qaig_tpu_torch.ops import linear_f32 as lf
 from qaig_tpu_torch.ops import mlp_fused as mf
 from qaig_tpu_torch.utils import spans
 
@@ -96,7 +97,9 @@ def launch_counters():
              da.shared_prefix_attention_fused_flat, "int8_launches"),
             ("fused_bmu", bmu.fused_bmu, "launches"),
             ("fused_bmu_small_m", bmu.fused_bmu, "small_m_launches"),
-            ("mlp2_fused", mf.mlp2_fused, "launches")]
+            ("mlp2_fused", mf.mlp2_fused, "launches"),
+            ("linear_f32", lf.linear_f32, "launches"),
+            ("linear_f32_fallbacks", lf.linear_f32, "fallbacks")]
 
 
 # (name, owner, attribute) of counts that are not kernel launches but

@@ -18,6 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.utils import skip_init
 
+from qaig_tpu_torch.ops.linear_f32 import linear_f32
+
 _LN_EPS = 1e-5  # torch nn.LayerNorm default
 
 
@@ -112,7 +114,9 @@ def init_parameters(module, generator):
 # ---------------------------------------------------------------------------
 
 def linear(layer, x, activation=None):
-    y = F.linear(x, layer.weight, layer.bias)
+    """``F.linear`` through :func:`~qaig_tpu_torch.ops.linear_f32.linear_f32`
+    (float32 products on the card take the three-pass TF32 kernel)."""
+    y = linear_f32(x, layer.weight, layer.bias)
     if activation is not None:
         y = activation(y)
     return y
@@ -132,8 +136,8 @@ def mlp2(params, x, act, act_last=False):
         return linear(params.l1, h, activation=act if act_last else None)
 
     def partial(shard, xs):
-        return F.linear(linear(shard.l0, xs, activation=act),
-                        shard.l1.weight)
+        return linear_f32(linear(shard.l0, xs, activation=act),
+                          shard.l1.weight)
 
     y = tp.sum_partials(partial, params, x) + params.l1.bias
     return act(y) if act_last else y

@@ -19,7 +19,12 @@ elsewhere the kernel's pick lies within that margin of the minimum);
 duplicated codes give the first index exactly.  The fused MLP (kernel 6):
 atol 2e-2 in bf16 (the kernel and its plain version round the same
 float32 hidden and output to bf16; sums in another order can move one
-bf16 step), its only type on the card.
+bf16 step), its only type on the card.  The float32 linear product
+(kernel 7, three-pass TF32) is held to a float64 product: at the training
+step's shapes its norm-wise error at most 1.25x cuBLAS's float32 product's
+and its largest element error at most 2x; at ragged edges, where sums are
+short and the split's 22 bits set the error, every element within 2^-20
+of |A| |B|.
 """
 
 import pytest
@@ -759,3 +764,107 @@ def test_mlp2_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         with pytest.raises(ValueError, match=match):
             mf.mlp2_fused(*args)
     assert mf.mlp2_fused.launches == launches
+
+
+# the windowed stage's training step at batch 64 (decoder rows 16,384,
+# encoder rows 4,096; widths 512 and 2048): (rows, in, out), each as
+# F.linear's three products
+LINEAR_SHAPES = [(16384, 512, 2048), (16384, 2048, 512), (16384, 512, 512),
+                 (4096, 512, 2048), (4096, 2048, 512)]
+# ragged edges of the tiles, the K-blocks and the K-split
+LINEAR_EDGES = [(1000, 68, 36), (3, 20, 12), (130, 2048, 8), (257, 132, 260)]
+
+
+def _linear_product(cuda, kind, m, k, n):
+    """(a, b, bias) of ``linear_f32._product``, cuBLAS's float32 result
+    and the float64 one: x ~ N(0, 1), W ~ U(+-1/sqrt(k)), dY ~ N(0, 1)."""
+    import torch.nn.functional as F
+    from qaig_tpu_torch.train.common import full_float32
+    full_float32()
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen, device=cuda)
+    w = (torch.rand(n, k, generator=gen, device=cuda) * 2 - 1) / k ** 0.5
+    dy = torch.randn(m, n, generator=gen, device=cuda)
+    bias = torch.rand(n, generator=gen, device=cuda) - 0.5
+    return {"forward": ((x, w, bias), F.linear(x, w, bias),
+                        x.double() @ w.double().T + bias.double()),
+            "grad_input": ((dy, w, None), dy @ w,
+                           dy.double() @ w.double()),
+            "grad_weight": ((dy, x, None), dy.T @ x,
+                            dy.double().T @ x.double())}[kind]
+
+
+@pytest.mark.parametrize("kind", ["forward", "grad_input", "grad_weight"])
+@pytest.mark.parametrize("m,k,n", LINEAR_SHAPES)
+def test_linear_f32_kernel_error_is_float32s(cuda, m, k, n, kind):
+    """Kernel 7 (three-pass TF32) against a float64 product at the
+    training step's shapes: its norm-wise error at most 1.25x cuBLAS's
+    float32 product's (TF32 off) on the same inputs, its largest element
+    error at most 2x, and its bits the same in a second call."""
+    from qaig_tpu_torch.ops import linear_f32 as lf
+    args, lib, ref = _linear_product(cuda, kind, m, k, n)
+    launches = lf.linear_f32.launches
+    got = lf._product(*args, kind)
+    assert lf.linear_f32.launches == launches + 1
+    assert got.shape == ref.shape and got.dtype == torch.float32
+    err = (got.double() - ref).norm() / ref.norm()
+    lib_err = (lib.double() - ref).norm() / ref.norm()
+    assert err <= 1.25 * lib_err, (err.item(), lib_err.item())
+    elem = (got.double() - ref).abs().max()
+    assert elem <= 2 * (lib.double() - ref).abs().max()
+    assert torch.equal(got, lf._product(*args, kind))
+
+
+@pytest.mark.parametrize("kind", ["forward", "grad_input", "grad_weight"])
+@pytest.mark.parametrize("m,k,n", LINEAR_EDGES)
+def test_linear_f32_kernel_edges(cuda, m, k, n, kind):
+    """Ragged tiles, K-blocks and K-splits: every element within 2^-20 of
+    ``|A| |B|`` of the float64 product (each operand carries 22 of
+    float32's 24 bits, so over sums this short the split, not the
+    accumulation, sets the error: cuBLAS's float32 error is smaller here,
+    and larger from K ~ 100 on)."""
+    from qaig_tpu_torch.ops import linear_f32 as lf
+    (a, b, bias), _, ref = _linear_product(cuda, kind, m, k, n)
+    got = lf._product(a, b, bias, kind)
+    a64, b64 = a.double().abs(), b.double().abs()
+    mag = {"forward": lambda: a64 @ b64.T, "grad_input": lambda: a64 @ b64,
+           "grad_weight": lambda: a64.T @ b64}[kind]()
+    assert got.shape == ref.shape
+    assert ((got.double() - ref).abs() <= 2 ** -20 * mag).all()
+
+
+def test_linear_f32_layers_route_by_the_shape_rule(cuda):
+    """Through autograd on the card: a 512 -> 2048 layer over 512 rows
+    takes the kernel for its forward, dX and dW (3 launches) and matches
+    F.linear's gradients within float32 error; a 2048 -> 513 layer and a
+    512 -> 2048 layer over 511 rows fall back (counted once each); bf16
+    reaches neither."""
+    import torch.nn.functional as F
+    from qaig_tpu_torch.ops import linear_f32 as lf
+    from qaig_tpu_torch.train.common import full_float32
+    full_float32()
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x0 = torch.randn(8, 64, 512, generator=gen, device=cuda)
+    w0 = torch.randn(2048, 512, generator=gen, device=cuda) / 512 ** 0.5
+    b0 = torch.randn(2048, generator=gen, device=cuda)
+    dy = torch.randn(8, 64, 2048, generator=gen, device=cuda)
+    grads = []
+    for fn in (lf.linear_f32, F.linear):
+        x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+        before = (lf.linear_f32.launches, lf.linear_f32.fallbacks)
+        fn(x, w, b).backward(dy)
+        grads.append((x.grad, w.grad, b.grad))
+        moved = (lf.linear_f32.launches - before[0],
+                 lf.linear_f32.fallbacks - before[1])
+        assert moved == ((3, 0) if fn is lf.linear_f32 else (0, 0))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    before = (lf.linear_f32.launches, lf.linear_f32.fallbacks)
+    h = torch.randn(600, 2048, device=cuda)
+    out = lf.linear_f32(h, torch.randn(513, 2048, device=cuda))
+    assert out.shape == (600, 513)
+    assert lf.linear_f32(torch.randn(511, 512, device=cuda), w0).shape == \
+        (511, 2048)
+    lf.linear_f32(x0.bfloat16(), w0.bfloat16(), b0.bfloat16())
+    assert (lf.linear_f32.launches, lf.linear_f32.fallbacks) == \
+        (before[0], before[1] + 2)

@@ -295,9 +295,13 @@ def _run_both(build, inputs, steps=3):
 def test_graphed_transformer_steps_equal_eager(cuda, bf16):
     """Three steps (windows drawn on the host from one seed): bf16 plain,
     float32 with grad-accum 2, clip 0.5, EMA 0.9 and the recomputed
-    blocks of ``use_remat``; the EMA weights equal too."""
-    latents = torch.randn((3, 4) + LATENT, generator=torch.Generator()
-                          .manual_seed(1)).to(cuda)
+    blocks of ``use_remat``; the EMA weights equal too.  The float32
+    chunks of 48 rows of 12 tokens (576 decoder rows) run the decoder's
+    linears through kernel 7."""
+    from qaig_tpu_torch.ops import linear_f32 as lf
+    latents = torch.randn((3, 4 if bf16 else 96) + LATENT,
+                          generator=torch.Generator().manual_seed(1)).to(cuda)
+    launches = lf.linear_f32.launches
     extra = {} if bf16 else {"grad_accum": 2, "grad_clip": 0.5}
     emas = {}
 
@@ -318,6 +322,7 @@ def test_graphed_transformer_steps_equal_eager(cuda, bf16):
 
     step = _run_both(build, lambda i: (latents[i],))
     assert len(step.runner.graphs) == 1
+    assert (lf.linear_f32.launches > launches) is not bf16
     if not bf16:
         for a, b in zip(emas[False].parameters(), emas[True].parameters()):
             assert torch.equal(a, b)
@@ -389,18 +394,48 @@ def test_graphed_codebook_steps_equal_eager_over_a_shrinking_range(cuda):
     assert len(step.runner.graphs) == 1
 
 
+def _predicted_linear_launches(model, dec_rows, enc_rows):
+    """Kernel 7's products and fallbacks in one float32 step, from the
+    model's structure: every ``nn.Linear`` runs once in the forward, over
+    the encoder's rows (the encoder's layers and the decoder's cross K / V)
+    or the decoder's; one with in and out features multiples of 4 over at
+    least ``MIN_ROWS`` rows takes the kernel for its forward, dW and dX
+    (its input carries a gradient, except the position-conditioning MLP's
+    first layer, which reads the fixed sinusoidal positions); any other
+    falls back once (the classifier's K + 1 outputs, the encoder's rows
+    here)."""
+    from qaig_tpu_torch.ops.linear_f32 import MIN_ROWS
+    taken = launches = fallbacks = 0
+    for name, m in model.named_modules():
+        if not isinstance(m, torch.nn.Linear):
+            continue
+        enc = name.startswith("encoder_layers.") or ".cross_attn.attn.k." \
+            in name or ".cross_attn.attn.v." in name
+        rows = enc_rows if enc else dec_rows
+        if m.in_features % 4 or m.out_features % 4 or rows < MIN_ROWS:
+            fallbacks += 1
+            continue
+        taken += 1
+        launches += 2 if m is model.pos_cond_layer.l0 else 3
+    assert taken and fallbacks
+    return launches, fallbacks
+
+
 @pytest.mark.cuda
-def test_replay_counts_one_steps_launches(cuda):
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_replay_counts_one_steps_launches(cuda, bf16):
     """Per replay of the transformer step: kernel A once per layer
     forward, its backward once per layer, the BMU kernel once per
-    codebook; the same as an eager step."""
-    latents = torch.randn((4,) + LATENT, generator=torch.Generator()
+    codebook, kernel 7 and its fallbacks as the model's linears predict
+    in float32 (48 rows of 12 decoder tokens and 4 encoder tokens) and
+    neither in bf16; the same as an eager step."""
+    latents = torch.randn((48,) + LATENT, generator=torch.Generator()
                           .manual_seed(6)).to(cuda)
     per_step = {}
     for graphed in (False, True):
         model, books = _transformer_setup(cuda)
         model.requires_grad_(True)
-        step, _ = _transformer_step(model, books, graphed)
+        step, _ = _transformer_step(model, books, graphed, bf16=bf16)
         gen = torch.Generator().manual_seed(2)
         step(latents, gen)
         before = read_counts()
@@ -414,6 +449,10 @@ def test_replay_counts_one_steps_launches(cuda):
     assert per_step[True]["flash_attention_backward"] == 4
     assert per_step[True]["flash_attention_backward_calls"] == 4
     assert per_step[True]["fused_bmu"] == 2
+    linear = (0, 0) if bf16 else _predicted_linear_launches(model, 48 * 12,
+                                                            48 * 4)
+    assert (per_step[True]["linear_f32"],
+            per_step[True]["linear_f32_fallbacks"]) == linear
 
 
 @pytest.mark.cuda
