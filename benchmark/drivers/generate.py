@@ -6,7 +6,9 @@ call's images before the next.
 Traffic parameters: ``batch`` (images a call), ``warm_calls`` (calls made
 before the window: the first captures the call's CUDA graph),
 ``check_rows`` (images of each call kept for the reference, drawn from the
-seed), ``trace_calls`` (calls profiled after the window in a traced run).
+seed), ``trace_calls`` (calls profiled after the window in a traced run,
+whose record keeps the last one's device seconds by stage from the
+program's stage clock, ``trace["stages"]``).
 
 The window opens after the warm calls and closes when the last call
 started before ``--seconds`` has returned: ``images_per_s`` is every image
@@ -90,6 +92,7 @@ def run(ctx):
                 pipeline.generate(batch,
                                   seed=call_seed(ctx.seed, MAX_CALLS - 1 - k))
         _, record["trace"] = tr.profile(traced, device)
+        record["trace"]["stages"] = pipeline.stage_seconds()
         record["trace_calls"] = traffic["trace_calls"]
 
     checked = {

@@ -5,10 +5,11 @@ padded dispatches.  Each request is timed from its due time to the
 return of its last image; one refused, failed or unanswered a minute
 after the window counts as infinitely late.
 
-The schedule is the same for every seed, in another order: ``rate *
-seconds`` gaps drawn once from ``schedule_seed`` and ``sizes`` in their
-stated shares, both shuffled by the run's seed, so that every run offers
-the same work.  Each request samples from a seed of its own.
+The schedule is the same for every seed: ``rate * seconds`` gaps drawn
+from ``schedule_seed`` and ``sizes`` in their stated shares, put in an
+order drawn from ``schedule_seed`` too, so that every run offers the same
+work at the same times.  The run's seed draws what the requests sample
+(each request a seed of its own) and which of them are checked.
 
 Traffic parameters: ``rate`` (requests a second), ``sizes`` ([[images,
 share], ...]), ``max_batch``, ``warm_batches`` (each bucket, warmed twice
@@ -42,9 +43,7 @@ def schedule(traffic, seed, seconds):
     for size, share in traffic["sizes"]:
         sizes += [size] * round(share * count)
     sizes = (sizes + [traffic["sizes"][0][0]] * count)[:count]
-    rng = random.Random(seed)
-    rng.shuffle(gaps)
-    rng.shuffle(sizes)
+    base.shuffle(sizes)
     due, t = [], 0.0
     for gap in gaps:
         t += gap * scale
@@ -96,7 +95,9 @@ def counters(snapshot):
             "padded": snapshot["padded_rows_total"],
             "dispatched": sum(int(size) * e["count"]
                               for size, e in by.items()),
-            "rejected": snapshot["rejected_total"]}
+            "rejected": snapshot["rejected_total"],
+            "served": snapshot["served_requests_total"],
+            "queue_wait_s": snapshot["queue_wait_seconds_total"]}
 
 
 class Server:

@@ -8,7 +8,8 @@ directory, builds the step, and drives it through its first steps, the
 same object the window then drives: the reference follows the first
 three.  Traffic parameters: ``samples`` (latents written), ``warm_steps``
 (steps after the three checked ones, before the window), ``trace_steps``
-(steps profiled after the window in a traced run).
+(steps profiled after the window in a traced run, whose record keeps the
+program's span seconds by name, ``trace["spans"]``).
 
 The window's steps are queued with no wait of the benchmark's own: each
 batch goes through a pinned buffer and is copied without a synchronise,
@@ -87,7 +88,8 @@ def run(ctx):
     marks = [("to_driver", time.perf_counter())]
     lr_codes, hr_codes, latents = make_data(cfg, traffic["samples"],
                                             ctx.seed, device)
-    data_dir = Path(tempfile.gettempdir()) / "qaig_benchmark_fmaps"
+    # a directory of its own: runs in parallel (the CPU tests) share TMPDIR
+    data_dir = Path(tempfile.mkdtemp(prefix="qaig_benchmark_fmaps_"))
     manifest = write_dataset(latents, data_dir)
     marks.append(("data", time.perf_counter()))
     model, optimizer, step, weights = system.build_trainer(
@@ -163,10 +165,14 @@ def run(ctx):
                                     if cuda else 0),
               "graph_setup_s": system.graph_setup_seconds(step.runner)}
     if ctx.trace:
+        from qaig_tpu_torch.utils import spans
+
         def traced():
             for _ in range(traffic["trace_steps"]):
                 queue_step()
+        spans.reset()
         _, record["trace"] = tr.profile(traced, device)
+        record["trace"]["spans"] = spans.totals()
         record["trace_steps"] = traffic["trace_steps"]
 
     init = weights.views("model.")

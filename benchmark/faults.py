@@ -44,9 +44,11 @@ def half_batch(patch):
     from qaig_tpu_torch.infer.pipeline import CascadePipeline
     images = CascadePipeline._images
 
-    def half(self, num_images, row_keys, temperature, init_tokens=None):
+    def half(self, num_images, row_keys, temperature, init_tokens=None,
+             clock=None):
         keep = max(1, num_images // 2)
-        im, tok = images(self, keep, row_keys[:keep], temperature)
+        im, tok = images(self, keep, row_keys[:keep], temperature,
+                         clock=clock)
         reps = -(-num_images // keep)
         return (im.repeat(reps, 1, 1, 1)[:num_images],
                 tok.repeat(reps, 1)[:num_images])
@@ -149,9 +151,40 @@ def attn_dqdk_unscaled(patch):
         patch(fa, name, broken(getattr(fa, name)))
 
 
+def decode_attn_unscaled(patch):
+    """Kernel B's scores come out ``sqrt(dh)`` times too large (its
+    softmax scale ``1/sqrt(dh)`` left out) in every rollout step's decode
+    attention over the shared prefix and the segment."""
+    from qaig_tpu_torch.ops import decode_attention as da
+    attend = da.shared_prefix_attention_fused_t
+
+    def unscaled(q, kt_shared, vt_shared, k_block, v_block, index0,
+                 block_index):
+        return attend(q * math.sqrt(kt_shared.shape[2]), kt_shared,
+                      vt_shared, k_block, v_block, index0, block_index)
+    patch(da, "shared_prefix_attention_fused_t", _counted(unscaled, attend))
+
+
+def codes_shifted(patch):
+    """The pixel decode looks each served token up one row off in the
+    codebook (token ``t`` reads code ``t + 1``): the tokens are right and
+    the images are not."""
+    from qaig_tpu_torch.models.codebook import Codebook
+    lookup = Codebook.get_quantized_image
+
+    def shifted(self, indices, *args, **kwargs):
+        return lookup(self, (indices + 1) % self.codebook.shape[0], *args,
+                      **kwargs)
+    patch(Codebook, "get_quantized_image", shifted)
+
+
 CASCADE = {"token_altered": token_altered, "half_batch": half_batch,
-           "state_unchanged": state_unchanged}
-SERVE = {"token_altered": token_altered, "wrong_rows": wrong_rows}
+           "state_unchanged": state_unchanged,
+           "decode_attn_unscaled": decode_attn_unscaled,
+           "codes_shifted": codes_shifted}
+SERVE = {"token_altered": token_altered, "wrong_rows": wrong_rows,
+         "decode_attn_unscaled": decode_attn_unscaled,
+         "codes_shifted": codes_shifted}
 TRAIN = {"state_unchanged": no_update, "half_batch": train_half_batch,
          "token_altered": train_token_altered,
          "attn_score_scale": attn_score_scale,

@@ -41,17 +41,6 @@ def benchmark_spec(root="."):
     return load_json(Path(root) / "BENCHMARK.json")
 
 
-def with_pending(spec):
-    """``spec`` with the entries of ``pending.json`` added: cells whose
-    files are here and which the tools and tests drive, kept out of
-    ``BENCHMARK.json`` while the program fails them.  The benchmark's own
-    runs never read it; a later PR moves its entries into
-    ``BENCHMARK.json``."""
-    pending = load_json(HERE / "pending.json")
-    return {**spec, **{key: spec.get(key, []) + entries
-                       for key, entries in pending.items()}}
-
-
 @dataclass
 class Ctx:
     """What a driver gets: the cell and its files, the run's arguments."""

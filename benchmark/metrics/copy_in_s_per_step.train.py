@@ -1,16 +1,24 @@
 """Host seconds in the program's copies of a graph's inputs before each
 replay (its span ``graph.copy_in``, ``qaig_tpu_torch/utils/spans.py``,
 recorded while the profiler runs) over the traced steps.  Nothing where
-the program records no such span."""
+the program records no such span.
+
+The span's seconds are the totals that the driver keeps in the traced
+slice's record (``trace["spans"]``); a record made without them (a test's)
+is read from the program's span list itself."""
 
 import sys
 
 
 def read(record, ctx):
-    spans = sys.modules.get("qaig_tpu_torch.utils.spans")
-    if spans is None or not record.get("trace"):
+    trace = record.get("trace")
+    if not trace:
         return None
-    seconds = spans.totals().get("graph.copy_in")
+    totals = trace.get("spans")
+    if totals is None:
+        spans = sys.modules.get("qaig_tpu_torch.utils.spans")
+        totals = spans.totals() if spans else {}
+    seconds = totals.get("graph.copy_in")
     if seconds is None:
         return None
     return seconds / record["trace_steps"]

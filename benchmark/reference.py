@@ -19,8 +19,11 @@ What it follows (the upstream model, as ``qaig_tpu`` defines it):
   silu inside, tanh at the head.
 
 ``Prec`` says how every product is computed: float32 (the reference), or
-with both operands rounded to float8 e4m3 under a per-tensor scale (the
-control of a bfloat16 configuration: the next precision below).
+in float8 e4m3 under a per-tensor scale (the control of a bfloat16
+configuration: the next precision below): a linear layer or attention
+product takes float8 operands and keeps its float32 sum, as a float8
+tensor-core product computes; a convolution also writes its result in
+float8, as a float8 convolution chain stores its activations.
 """
 
 import math
@@ -38,8 +41,9 @@ LN_EPS = 1e-5
 
 class Prec:
     """How the reference computes its products: ``fp8`` rounds both
-    operands of each to float8 e4m3 (per-tensor scale, float32
-    accumulation); otherwise plain float32."""
+    operands of each to float8 e4m3 (per-tensor scale) and keeps the
+    float32 sum, and a convolution's result too; otherwise plain
+    float32."""
 
     def __init__(self, fp8=False):
         self.fp8 = fp8
@@ -58,9 +62,9 @@ class Prec:
 
     def conv(self, x, w, b, transposed=False):
         if transposed:
-            return F.conv_transpose2d(self.q(x), self.q(w), b, stride=2,
-                                      padding=1)
-        return F.conv2d(self.q(x), self.q(w), b, padding=1)
+            return self.q(F.conv_transpose2d(self.q(x), self.q(w), b,
+                                             stride=2, padding=1))
+        return self.q(F.conv2d(self.q(x), self.q(w), b, padding=1))
 
 
 F32 = Prec()
@@ -105,7 +109,11 @@ def _bits(keys, count):
 
 
 def gumbel(keys, count):
+    """Standard Gumbel draws from the top 24 bits of each word; the top
+    word, which rounds to 1 in float32, draws the largest float32 below
+    1, so that every draw is finite."""
     u = ((_bits(keys, count) >> 8).to(torch.float32) + 0.5) * (2.0 ** -24)
+    u = torch.clamp(u, max=1.0 - 2.0 ** -24)
     return -torch.log(-torch.log(u))
 
 

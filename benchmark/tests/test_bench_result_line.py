@@ -26,6 +26,8 @@ def _record(**kw):
                      "kernels": {"flash_attention_fwd_f32_kernel": (36, 0.1),
                                  "flash_bwd_dq_rows_kernel": (36, 0.2),
                                  "gemm": (11928, 0.6)},
+                     "spans": {"train.step": 0.6, "graph.copy_in": 0.0003,
+                               "data.wait": 0.0005},
                      "breakdown": {"device_ops": [["gemm", 0.9]],
                                    "idle_gaps": [["cudaGraphLaunch",
                                                   0.001]]}}}
@@ -33,8 +35,33 @@ def _record(**kw):
     return rec
 
 
-def _ctx(trace, limits=None):
-    cell = harness.find_cell(SPEC, "train_casc2_b64")
+def _cascade_record(cell):
+    """A made-up record of a generation (``gen_b256``) or serving run."""
+    rec = {"setup_s": 35.0, "window_s": 30.6, "attempted": 2560, "failed": 0,
+           "memory_peak_bytes": 123, "graph_setup_s": 11.0,
+           "readings": {"token_gap_mean": 1e-5, "token_gap": 0.01,
+                        "pixel_err": 1e-3},
+           "trace": {"busy_s": 3.09, "window_s": 3.13, "span_s": 3.1,
+                     "n_kernels": 208000,
+                     "kernels": {"prefix_split_kernel<bf16, bf16>":
+                                 (12600, 1.57), "gemm": (195400, 1.5)},
+                     "stages": {"stage_0": 0.2, "stage_1": 0.5,
+                                "stage_2": 2.3, "decoder": 0.01},
+                     "breakdown": {"device_ops": [["gemm", 1.5]],
+                                   "idle_gaps": [["none", 0.001]]}}}
+    if cell == "gen_b256":
+        rec.update(images=2560, calls=10, batch=256, trace_calls=1)
+    else:
+        rec.update(latencies=[1.0 + i / 500 for i in range(528)],
+                   serve_counters={"dispatches": 100, "padded": 400,
+                                   "dispatched": 2700, "rows": 2300,
+                                   "rejected": 0, "served": 528,
+                                   "queue_wait_s": 200.0})
+    return rec
+
+
+def _ctx(trace, limits=None, name="train_casc2_b64"):
+    cell = harness.find_cell(SPEC, name)
     return harness.Ctx(cell=cell, config=harness.config_of(SPEC, cell),
                        traffic=harness.traffic_of(cell),
                        limits=limits or harness.limits_of(cell), seed=1,
@@ -70,6 +97,24 @@ def test_line_keys_and_metrics(trace, monkeypatch):
     assert len(lines) == len(out["checks"])
     assert all(line.startswith("check ") for line in lines)
     json.loads(json.dumps(out))
+
+
+@pytest.mark.parametrize("trace", [False, True])
+@pytest.mark.parametrize("cell", ["gen_b256", "serve_poisson_b32"])
+def test_cascade_lines_read_every_metric(cell, trace, monkeypatch):
+    """A generation or serving line carries every metric listed for its
+    cell, each above 0, a share of a roofline or peak at most 100."""
+    monkeypatch.chdir(ROOT)
+    ctx = _ctx(trace, name=cell)
+    out, _ = harness.result(ctx, _cascade_record(cell), SPEC)
+    assert out["correct"] is True
+    want = {m["name"]: m["unit"] for m in
+            harness.metrics_of(SPEC, ctx.cell, trace)}
+    assert {n: m["unit"] for n, m in out["metrics"].items()} == want
+    for name, m in out["metrics"].items():
+        assert m["value"] > 0, name
+        assert m["value"] <= {"%": 100, "fraction": 1}.get(m["unit"],
+                                                           m["value"]), name
 
 
 def test_a_number_over_its_limit_or_missing_fails(monkeypatch):

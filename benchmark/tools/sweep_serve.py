@@ -26,7 +26,7 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=1)
     args = parser.parse_args(argv)
     _caches()
-    spec = harness.with_pending(harness.benchmark_spec())
+    spec = harness.benchmark_spec()
     cell = harness.find_cell(spec, args.workload)
     traffic = harness.traffic_of(cell)
     if traffic.get("one_malloc_arena"):
